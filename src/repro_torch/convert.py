@@ -1,0 +1,74 @@
+"""State carried across packages, as numpy arrays.
+
+This system has no model weights; what a deployment carries is state: the
+fleet's cell parameters and vendor index, a timing table (bin edges and
+``(N, B, 2, 4)`` stack), the controller registers and the score partials.
+The ``*_from_numpy`` functions take them as numpy arrays — as
+``np.asarray`` gives them from the reference package's objects, which use
+the same field names and layouts — and return this package's objects on a
+device; the ``*_to_numpy`` functions go back, for comparisons.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.charge import CellParams
+from repro_torch.core.controller import ControllerState, DimmTimingTable
+from repro_torch.core.fleet import Fleet
+from repro_torch.core.perfmodel import ScorePartials
+
+
+def _t(a, dtype: torch.dtype, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+def cells_from_numpy(r, c, leak, device="cuda") -> CellParams:
+    return CellParams(*(_t(a, torch.float32, device) for a in (r, c, leak)))
+
+
+def fleet_from_numpy(r, c, leak, vendor, device="cuda") -> Fleet:
+    return Fleet(cells=cells_from_numpy(r, c, leak, device),
+                 vendor=_t(vendor, torch.int32, device))
+
+
+def table_from_numpy(temp_bins: Sequence[float], stack, device="cuda") -> DimmTimingTable:
+    return DimmTimingTable(temp_bins=tuple(float(t) for t in temp_bins),
+                           stack=_t(stack, torch.float32, device))
+
+
+def state_from_numpy(bin_idx, cool_streak, fused, device="cuda") -> ControllerState:
+    return ControllerState(_t(bin_idx, torch.int32, device),
+                           _t(cool_streak, torch.int32, device),
+                           _t(fused, torch.bool, device))
+
+
+def partials_from_numpy(occupancy, switches, timing_sums, n_steps,
+                        device="cuda") -> ScorePartials:
+    return ScorePartials(_t(occupancy, torch.int32, device), _t(switches, torch.int32, device),
+                         _t(timing_sums, torch.float32, device),
+                         _t(n_steps, torch.int32, device))
+
+
+def _np(x) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+def cells_to_numpy(cells: CellParams) -> Dict[str, np.ndarray]:
+    return {k: _np(v) for k, v in cells._asdict().items()}
+
+
+def table_to_numpy(table: DimmTimingTable) -> Dict[str, np.ndarray]:
+    return {"temp_bins": np.asarray(table.temp_bins, np.float64),
+            "stack": _np(table.stack)}
+
+
+def state_to_numpy(state: ControllerState) -> Dict[str, np.ndarray]:
+    return {k: _np(v) for k, v in state._asdict().items()}
+
+
+def partials_to_numpy(partials: ScorePartials) -> Dict[str, np.ndarray]:
+    return {k: _np(v) for k, v in partials._asdict().items()}

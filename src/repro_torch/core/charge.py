@@ -1,0 +1,302 @@
+"""Cell charge <-> latency model (paper §1.3), in PyTorch.
+
+Expression-for-expression port of the reference charge model: sensing
+(tRCD) from the charge-sharing differential, restore (tRAS/tWR) toward an
+adaptive target, precharge (tRP) against an equalizer margin, and the
+write-mode variants. Every time constant is anchored so that the
+worst-case cell at 85 °C needs exactly the JEDEC DDR3-1600 value.
+
+Numerics follow the reference, which runs in float32: Python-float
+constants fold in float64 and meet float32 tensors as float32 scalars, and
+each tensor op rounds once. Two torch idioms would break that and are
+avoided here: ``scalar / tensor`` (torch evaluates it as
+``reciprocal(tensor) * scalar``, see :func:`div`) and int64/float64
+defaults of tensor factories. Transcendentals (``exp``, ``log``, ``pow``)
+are the backend's own and may differ from XLA's by an ulp; the tests hold
+the derived quantities to a tolerance and the decisions to exact equality.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core.timing import JEDEC_DDR3_1600, TimingParams
+
+#: Refresh window (DDR3 64 ms retention requirement), in seconds.
+REFRESH_WINDOW_S: float = 64e-3
+
+#: The worst-case qualification temperature (°C) of the DDR3 standard.
+T_WORST_C: float = 85.0
+
+#: Extended-temperature boundary (°C): above it the standard mandates 2x
+#: refresh, so retention is evaluated over half the window.
+EXTENDED_TEMP_BOUNDARY_C: float = 85.0
+EXTENDED_WINDOW_FACTOR: float = 0.5
+
+#: Relative tolerance for forward correctness predicates: the worst-case
+#: cell at JEDEC timings sits exactly on the threshold by construction.
+_EPS: float = 1e-4
+
+
+class CellParams(NamedTuple):
+    """Worst-case-cell parameters of a DIMM (tensors broadcast together).
+
+    r     peripheral RC multiplier, 1 = best .. r_max = JEDEC worst corner.
+    c     worst-cell capacitance fraction, c_min = corner .. 1 = nominal.
+    leak  worst-cell leakage multiplier, 1 = corner.
+    """
+
+    r: torch.Tensor
+    c: torch.Tensor
+    leak: torch.Tensor
+
+
+def div(num, den: torch.Tensor) -> torch.Tensor:
+    """``num / den`` as ONE rounded float32 division, also for a Python-float
+    numerator (torch's ``float / tensor`` is ``reciprocal(den) * num``,
+    which rounds twice)."""
+    if not isinstance(num, torch.Tensor):
+        num = torch.tensor(num, dtype=torch.float32, device=den.device)
+    return torch.div(num, den)
+
+
+def _f32_log(x: float) -> float:
+    """float32 log of a Python float, as the exact float32 value."""
+    return float(torch.log(torch.tensor(x, dtype=torch.float32)))
+
+
+def _anchor(num: float, r_max: float, ratio: float) -> float:
+    """``num / (r_max * log(ratio))`` evaluated in float32 (the reference
+    folds the anchors with a float32 ``log``)."""
+    den = torch.tensor(r_max, dtype=torch.float32) * _f32_log(ratio)
+    return float(torch.div(torch.tensor(num, dtype=torch.float32), den))
+
+
+@dataclasses.dataclass(frozen=True)
+class ChargeModelConstants:
+    """Model constants (calibrated defaults of the reference model)."""
+
+    ret85: float = 0.9282
+    leak_doubling_c: float = 7.24
+    v_full: float = 0.975
+    v_sense_target: float = 0.75
+    cs_alpha: float = 0.20
+    c_min: float = 0.70
+    r_max: float = 1.45
+    ovh_rcd: float = 3.0
+    ovh_ras: float = 6.0
+    ovh_wr: float = 2.0
+    ovh_rp: float = 3.5
+    v_restore_start: float = 0.55
+    v_overdrive: float = 0.9830
+    mobility_exp: float = 1.418
+    delta_floor: float = 0.010
+    pc_var: float = 1.011
+    pc_temp: float = 0.672
+    v_half_swing: float = 0.50
+    wm_gain_rcd: float = 2.186
+    wm_temp: float = 1.26
+    wm_gain_rp: float = 2.709
+
+    # ---- derived anchors (worst case at 85 °C == JEDEC, by construction) --
+    @property
+    def dv_floor(self) -> float:
+        """Bitline differential of the worst-case cell at worst conditions."""
+        return self.cs_alpha * self.c_min * self.v_full * self.ret85
+
+    @property
+    def t_sense_worst(self) -> float:
+        return JEDEC_DDR3_1600.trcd - self.ovh_rcd
+
+    @functools.cached_property
+    def tau_sa(self) -> float:
+        return _anchor(
+            JEDEC_DDR3_1600.trcd - self.ovh_rcd, self.r_max,
+            self.v_sense_target / self.dv_floor,
+        )
+
+    @functools.cached_property
+    def tau_restore(self) -> float:
+        return _anchor(
+            JEDEC_DDR3_1600.tras - self.ovh_ras - self.t_sense_worst, self.r_max,
+            (1.0 - self.v_restore_start) / (1.0 - self.v_full),
+        )
+
+    @functools.cached_property
+    def tau_write(self) -> float:
+        return _anchor(
+            JEDEC_DDR3_1600.twr - self.ovh_wr, self.r_max,
+            self.v_overdrive / (self.v_overdrive - self.v_full),
+        )
+
+    @functools.cached_property
+    def tau_bl(self) -> float:
+        return _anchor(
+            JEDEC_DDR3_1600.trp - self.ovh_rp, self.r_max,
+            self.v_half_swing / self.delta_floor,
+        )
+
+
+DEFAULT_CONSTANTS = ChargeModelConstants()
+
+
+def _temp(temp_c, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(temp_c, dtype=torch.float32, device=like.device)
+
+
+# ---------------------------------------------------------------------------
+# Temperature channels
+# ---------------------------------------------------------------------------
+def window_factor(temp_c: torch.Tensor) -> torch.Tensor:
+    """Refresh-window multiplier: 1.0 up to and including 85 °C, 0.5 above."""
+    return torch.where(temp_c > EXTENDED_TEMP_BOUNDARY_C, EXTENDED_WINDOW_FACTOR, 1.0)
+
+
+def log_retention(cell: CellParams, temp_c, window_s: float = REFRESH_WINDOW_S,
+                  consts: ChargeModelConstants = DEFAULT_CONSTANTS) -> torch.Tensor:
+    """log charge fraction retained over one refresh window at ``temp_c``."""
+    t = _temp(temp_c, cell.leak)
+    temp_scale = 2.0 ** ((t - T_WORST_C) / consts.leak_doubling_c)
+    return (
+        _f32_log(consts.ret85)
+        * cell.leak
+        * temp_scale
+        * window_factor(t)
+        * (window_s / REFRESH_WINDOW_S)
+    )
+
+
+def retention(cell: CellParams, temp_c, window_s: float = REFRESH_WINDOW_S,
+              consts: ChargeModelConstants = DEFAULT_CONSTANTS) -> torch.Tensor:
+    return torch.exp(log_retention(cell, temp_c, window_s, consts))
+
+
+def drive_factor(temp_c, like: torch.Tensor,
+                 consts: ChargeModelConstants = DEFAULT_CONSTANTS) -> torch.Tensor:
+    """Write-driver speed factor ``(T_abs / 358.15 K)^mobility_exp``."""
+    t_abs = _temp(temp_c, like) + 273.15
+    return (t_abs / (T_WORST_C + 273.15)) ** consts.mobility_exp
+
+
+def quality_index(cell: CellParams,
+                  consts: ChargeModelConstants = DEFAULT_CONSTANTS) -> torch.Tensor:
+    """Peripheral quality q in [0, 1]: 0 = JEDEC corner, 1 = best silicon."""
+    return (consts.r_max - cell.r) / (consts.r_max - 1.0)
+
+
+def apply_pattern(cell: CellParams, pattern) -> CellParams:
+    """Fold a data-pattern margin factor into the effective capacitance."""
+    return CellParams(r=cell.r, c=cell.c * pattern, leak=cell.leak)
+
+
+# ---------------------------------------------------------------------------
+# Sensing, restore, precharge
+# ---------------------------------------------------------------------------
+def sense_dv0(cell: CellParams, temp_c, v_restored, window_s: float = REFRESH_WINDOW_S,
+              consts: ChargeModelConstants = DEFAULT_CONSTANTS) -> torch.Tensor:
+    """Initial bitline differential at the end of the refresh window."""
+    v_access = v_restored * retention(cell, temp_c, window_s, consts)
+    return consts.cs_alpha * cell.c * v_access
+
+
+def sense_time(cell: CellParams, dv0: torch.Tensor,
+               consts: ChargeModelConstants = DEFAULT_CONSTANTS) -> torch.Tensor:
+    """Sense-amplifier latch time from an initial differential ``dv0``."""
+    return cell.r * consts.tau_sa * torch.log(div(consts.v_sense_target, dv0))
+
+
+def restore_target(cell: CellParams, temp_c, window_s: float = REFRESH_WINDOW_S,
+                   consts: ChargeModelConstants = DEFAULT_CONSTANTS) -> torch.Tensor:
+    """Smallest restored voltage whose end-of-window differential still
+    meets the worst-case floor (the paper's Figure-1 guarantee)."""
+    ret = retention(cell, temp_c, window_s, consts)
+    v_needed = div(consts.dv_floor, consts.cs_alpha * cell.c * ret)
+    lo = consts.v_restore_start + 0.02
+    return torch.clamp(v_needed, lo, consts.v_full)
+
+
+def tolerable_residual(cell: CellParams, temp_c,
+                       consts: ChargeModelConstants = DEFAULT_CONSTANTS) -> torch.Tensor:
+    """Bitline residual the next access can overcome."""
+    q = quality_index(cell, consts)
+    dt = (T_WORST_C - _temp(temp_c, cell.r)) / 30.0
+    return consts.delta_floor * torch.exp(consts.pc_var * q + consts.pc_temp * dt)
+
+
+def _wm_dv0(cell: CellParams, temp_c, window_s: float,
+            consts: ChargeModelConstants) -> torch.Tensor:
+    dt = (T_WORST_C - _temp(temp_c, cell.r)) / 30.0
+    dv0 = sense_dv0(cell, temp_c, consts.v_full, window_s, consts)
+    dv0 = dv0 * consts.wm_gain_rcd * torch.exp(consts.wm_temp * dt)
+    return torch.clamp(dv0, max=consts.v_sense_target * 0.95)
+
+
+def min_trcd_write(cell: CellParams, temp_c, window_s: float = REFRESH_WINDOW_S,
+                   consts: ChargeModelConstants = DEFAULT_CONSTANTS) -> torch.Tensor:
+    """Minimal tRCD for a write access (write-driver-assisted sensing)."""
+    dv0 = _wm_dv0(cell, temp_c, window_s, consts)
+    return consts.ovh_rcd + sense_time(cell, dv0, consts)
+
+
+def min_trp_write(cell: CellParams, temp_c, window_s: float = REFRESH_WINDOW_S,
+                  consts: ChargeModelConstants = DEFAULT_CONSTANTS) -> torch.Tensor:
+    delta = tolerable_residual(cell, temp_c, consts) * consts.wm_gain_rp
+    delta = torch.clamp(delta, max=0.4 * consts.v_half_swing)
+    return consts.ovh_rp + cell.r * consts.tau_bl * torch.log(
+        div(consts.v_half_swing, delta)
+    )
+
+
+# ---------------------------------------------------------------------------
+# Forward correctness predicates (what the profiler tests)
+# ---------------------------------------------------------------------------
+def read_ok(cell: CellParams, timings: TimingParams, temp_c,
+            window_s: float = REFRESH_WINDOW_S,
+            consts: ChargeModelConstants = DEFAULT_CONSTANTS) -> torch.Tensor:
+    """Does a read with these timings retrieve correct data?"""
+    dv0 = sense_dv0(cell, temp_c, consts.v_full, window_s, consts)
+    t_avail = timings.trcd - consts.ovh_rcd
+    dv_reached = dv0 * torch.exp(div(t_avail, cell.r * consts.tau_sa))
+    sense_pass = dv_reached >= consts.v_sense_target * (1.0 - _EPS)
+
+    t_restore_avail = timings.tras - consts.ovh_ras - sense_time(cell, dv0, consts)
+    v_reached = 1.0 - (1.0 - consts.v_restore_start) * torch.exp(
+        -torch.clamp(t_restore_avail, min=0.0) / (cell.r * consts.tau_restore)
+    )
+    v_tgt = restore_target(cell, temp_c, window_s, consts)
+    restore_pass = v_reached >= v_tgt * (1.0 - _EPS)
+
+    delta_reached = consts.v_half_swing * torch.exp(
+        div(-(timings.trp - consts.ovh_rp), cell.r * consts.tau_bl)
+    )
+    delta_ok = torch.clamp(tolerable_residual(cell, temp_c, consts),
+                           max=0.4 * consts.v_half_swing)
+    prech_pass = delta_reached <= delta_ok * (1.0 + _EPS)
+    return sense_pass & restore_pass & prech_pass
+
+
+def write_ok(cell: CellParams, timings: TimingParams, temp_c,
+             window_s: float = REFRESH_WINDOW_S,
+             consts: ChargeModelConstants = DEFAULT_CONSTANTS) -> torch.Tensor:
+    """Does a write with these timings commit correct data?"""
+    tau_wr = cell.r * consts.tau_write * drive_factor(temp_c, cell.r, consts)
+    t_avail = timings.twr - consts.ovh_wr
+    v_reached = consts.v_overdrive * (1.0 - torch.exp(div(-t_avail, tau_wr)))
+    v_tgt = restore_target(cell, temp_c, window_s, consts)
+    write_pass = v_reached >= v_tgt * (1.0 - _EPS)
+
+    dv0w = _wm_dv0(cell, temp_c, window_s, consts)
+    t_restore_avail = timings.tras - consts.ovh_ras - sense_time(cell, dv0w, consts)
+    v_row = consts.v_overdrive - (
+        consts.v_overdrive - consts.v_restore_start
+    ) * torch.exp(-torch.clamp(t_restore_avail, min=0.0) / tau_wr)
+    tras_pass = v_row >= v_tgt * (1.0 - _EPS)
+
+    trcd_pass = timings.trcd >= min_trcd_write(cell, temp_c, window_s, consts) * (1.0 - _EPS)
+    trp_pass = timings.trp >= min_trp_write(cell, temp_c, window_s, consts) * (1.0 - _EPS)
+    return write_pass & tras_pass & trcd_pass & trp_pass
+

@@ -1,0 +1,350 @@
+"""Memory-system performance model and trace scoring, in PyTorch.
+
+The analytic DRAM + core model of the reference (bank timing per row-hit /
+empty / conflict request, bank and bus queueing, IPC by a 60-step
+bisection on ``ipc = 1 / cpi(ipc)``) evaluated over whole timing stacks at
+once, and the trace scorer the streaming controller finalizes:
+:class:`ScorePartials` (int32 occupancy per effective bin, int32 switch
+counts, float32 sums of the realized cycle-quantized timings — exact
+under any chunking) and :func:`trace_score_finalize`, which weights each
+(DIMM, bin) register block's speedup over JEDEC by its time in that bin.
+
+Refresh-aware scoring is not ported yet (``refresh=None`` only).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.core.charge import div
+from repro_torch.core.timing import (
+    ACCESS_TYPES,
+    JEDEC_DDR3_1600,
+    PARAM_NAMES,
+    TBURST_NS,
+    TCL_NS,
+    TimingParams,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class Workload:
+    name: str
+    mpki: float           # last-level-cache misses per kilo-instruction
+    row_hit: float        # row-buffer hit fraction
+    write_frac: float     # fraction of DRAM requests that are writes
+    mlp: float            # memory-level parallelism
+    category: str         # "stream" | "intensive" | "non-intensive"
+
+
+# 35 workloads: 4 STREAM kernels + 17 memory-intensive + 14 non-intensive.
+WORKLOADS: Tuple[Workload, ...] = (
+    Workload("stream.copy", 70.0, 0.42, 0.45, 10.0, "stream"),
+    Workload("stream.scale", 70.0, 0.42, 0.45, 10.0, "stream"),
+    Workload("stream.add", 70.0, 0.42, 0.33, 10.0, "stream"),
+    Workload("stream.triad", 70.0, 0.42, 0.33, 10.0, "stream"),
+    Workload("mcf", 67.0, 0.38, 0.28, 6.0, "intensive"),
+    Workload("lbm", 45.0, 0.52, 0.42, 7.0, "intensive"),
+    Workload("libquantum", 50.0, 0.65, 0.20, 7.5, "intensive"),
+    Workload("milc", 29.0, 0.48, 0.30, 5.0, "intensive"),
+    Workload("soplex", 27.0, 0.45, 0.25, 4.5, "intensive"),
+    Workload("GemsFDTD", 25.0, 0.50, 0.33, 5.0, "intensive"),
+    Workload("omnetpp", 21.0, 0.30, 0.30, 3.0, "intensive"),
+    Workload("leslie3d", 20.0, 0.52, 0.35, 4.5, "intensive"),
+    Workload("bwaves", 18.0, 0.55, 0.30, 5.0, "intensive"),
+    Workload("sphinx3", 13.0, 0.46, 0.15, 3.0, "intensive"),
+    Workload("zeusmp", 12.0, 0.48, 0.35, 3.5, "intensive"),
+    Workload("cactusADM", 11.0, 0.42, 0.35, 2.5, "intensive"),
+    Workload("astar", 10.5, 0.35, 0.25, 2.0, "intensive"),
+    Workload("wrf", 10.0, 0.50, 0.30, 3.0, "intensive"),
+    Workload("xalancbmk", 10.0, 0.32, 0.25, 2.5, "intensive"),
+    Workload("gcc", 10.2, 0.40, 0.30, 2.5, "intensive"),
+    Workload("bzip2", 11.5, 0.42, 0.35, 2.5, "intensive"),
+    Workload("perlbench", 2.7, 0.45, 0.30, 1.5, "non-intensive"),
+    Workload("gobmk", 1.8, 0.40, 0.30, 1.5, "non-intensive"),
+    Workload("sjeng", 1.5, 0.38, 0.30, 1.4, "non-intensive"),
+    Workload("h264ref", 2.4, 0.50, 0.25, 1.8, "non-intensive"),
+    Workload("hmmer", 2.1, 0.52, 0.30, 1.8, "non-intensive"),
+    Workload("namd", 1.2, 0.50, 0.25, 1.5, "non-intensive"),
+    Workload("povray", 0.45, 0.45, 0.25, 1.2, "non-intensive"),
+    Workload("calculix", 1.05, 0.50, 0.28, 1.5, "non-intensive"),
+    Workload("gamess", 0.6, 0.45, 0.25, 1.2, "non-intensive"),
+    Workload("gromacs", 2.7, 0.50, 0.28, 1.8, "non-intensive"),
+    Workload("tonto", 1.8, 0.48, 0.27, 1.5, "non-intensive"),
+    Workload("dealII", 3.0, 0.50, 0.28, 1.8, "non-intensive"),
+    Workload("sixtrack", 0.6, 0.45, 0.25, 1.2, "non-intensive"),
+    Workload("wupwise", 3.6, 0.52, 0.30, 2.0, "non-intensive"),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class SystemConfig:
+    """Evaluated memory system + calibrated constants."""
+
+    n_cores: int = 1
+    n_banks: int = 8
+    bank_balance: float = 0.55
+    cpu_ghz: float = 3.2
+    cpi_exe: float = 0.5
+    ctrl_overhead_ns: float = 14.0
+    empty_frac: float = 0.35
+    ras_residual: float = 0.35
+    wr_turnaround: float = 0.55
+    rho_max: float = 0.995
+    bisect_iters: int = 60
+
+
+MULTI_CORE = SystemConfig(n_cores=4)
+
+#: The paper's headline claim: 14 % average speedup, memory-intensive.
+PAPER_CLAIM_SPEEDUP: float = 0.14
+
+#: The claim's cohort: STREAM + memory-intensive SPEC.
+MEM_INTENSIVE_WORKLOADS: Tuple[Workload, ...] = tuple(
+    w for w in WORKLOADS if w.category != "non-intensive"
+)
+
+#: Read-to-precharge gate (DDR3 tRTP, ns).
+TRTP_NS: float = 7.5
+
+#: Timing rows evaluated per block by :func:`evaluate_stack` (bounds the
+#: bisection's temporaries; every row is independent, so blocking does not
+#: change a result).
+_ROWS_PER_BLOCK: int = 1 << 19
+
+
+@functools.lru_cache(maxsize=16)
+def _fields(ws: Tuple[Workload, ...], device: torch.device) -> Dict[str, torch.Tensor]:
+    return {
+        name: torch.tensor([getattr(w, name) for w in ws], dtype=torch.float32,
+                           device=device)
+        for name in ("mpki", "row_hit", "write_frac", "mlp")
+    }
+
+
+def access_latency_ns(t: TimingParams, f: Dict[str, torch.Tensor], cfg: SystemConfig,
+                      t_write: Optional[TimingParams] = None) -> torch.Tensor:
+    """Expected bank access latency (no queueing) per request."""
+    tw = t if t_write is None else t_write
+    h = f["row_hit"]
+    wf = f["write_frac"]
+    miss = 1.0 - h
+    empty = cfg.empty_frac * miss
+    conflict = miss - empty
+    trcd_eff = (1.0 - wf) * t.trcd + wf * tw.trcd
+    trp_eff = (1.0 - wf) * t.trp + wf * tw.trp
+    t_hit = TCL_NS + TBURST_NS
+    t_empty = trcd_eff + TCL_NS + TBURST_NS
+    ras_read = torch.clamp(t.tras - (t.trcd + TCL_NS + TBURST_NS), min=0.0)
+    ras_write = torch.clamp(tw.tras - (tw.trcd + TCL_NS + TBURST_NS), min=0.0)
+    ras_extra = cfg.ras_residual * ((1.0 - wf) * ras_read + wf * ras_write)
+    wr_extra = cfg.wr_turnaround * wf * tw.twr
+    t_conf = trp_eff + trcd_eff + TCL_NS + TBURST_NS + ras_extra + wr_extra
+    return h * t_hit + empty * t_empty + conflict * t_conf + cfg.ctrl_overhead_ns
+
+
+def miss_service_ns(t: TimingParams, f: Dict[str, torch.Tensor], cfg: SystemConfig,
+                    t_write: Optional[TimingParams] = None) -> torch.Tensor:
+    """Bank occupancy per miss: the row cycle (writes add tWR recovery)."""
+    tw = t if t_write is None else t_write
+    h = f["row_hit"]
+    wf = f["write_frac"]
+    miss = torch.clamp(1.0 - h, min=1e-9)
+    empty = cfg.empty_frac * miss
+    conflict = miss - empty
+    trcd_eff = (1.0 - wf) * t.trcd + wf * tw.trcd
+    wr_extra = cfg.wr_turnaround * wf * tw.twr
+    occ_read = torch.maximum(t.tras, t.trcd + TRTP_NS) + t.trp
+    occ_write = torch.maximum(tw.tras, tw.trcd + TRTP_NS) + tw.trp
+    occ_conf = (1.0 - wf) * occ_read + wf * occ_write + wr_extra
+    return (empty * (trcd_eff + TBURST_NS) + conflict * occ_conf) / miss
+
+
+def evaluate(t: TimingParams, cfg: SystemConfig, workloads: Tuple[Workload, ...] = WORKLOADS,
+             t_write: Optional[TimingParams] = None) -> Dict[str, torch.Tensor]:
+    """IPC per workload under timing set ``t`` (reads) and ``t_write``
+    (writes). Timing fields are tensors that broadcast against the
+    workload axis (the last one)."""
+    f = _fields(workloads, t.trcd.device)
+    lat = access_latency_ns(t, f, cfg, t_write)
+    svc = miss_service_ns(t, f, cfg, t_write)
+    miss = 1.0 - f["row_hit"]
+    banks_eff = cfg.n_banks * cfg.bank_balance
+    ghz = cfg.cpu_ghz
+
+    def cpi_of(ipc: torch.Tensor) -> torch.Tensor:
+        rate = cfg.n_cores * ipc * ghz * f["mpki"] * 1e-3  # req/ns
+        rho_bank = torch.clamp(rate * miss * svc / banks_eff, 0.0, cfg.rho_max)
+        rho_bus = torch.clamp(rate * TBURST_NS, 0.0, cfg.rho_max)
+        queue = (
+            rho_bank / (1.0 - rho_bank) * svc * 0.5
+            + rho_bus / (1.0 - rho_bus) * TBURST_NS * 0.5
+        )
+        return cfg.cpi_exe + f["mpki"] * 1e-3 * (lat + queue) * ghz / f["mlp"]
+
+    # Bisection on the unique fixed point ipc = 1/cpi(ipc).
+    lo = torch.full_like(lat, 1e-4)
+    hi = torch.full_like(lat, 1.0 / cfg.cpi_exe)
+    for _ in range(cfg.bisect_iters):
+        mid = 0.5 * (lo + hi)
+        go_up = div(1.0, cpi_of(mid)) > mid
+        lo = torch.where(go_up, mid, lo)
+        hi = torch.where(go_up, hi, mid)
+    return {"ipc": 0.5 * (lo + hi), "latency_ns": lat, "service_ns": svc}
+
+
+def evaluate_stack(timings: torch.Tensor, cfg: SystemConfig,
+                   workloads: Tuple[Workload, ...] = WORKLOADS) -> torch.Tensor:
+    """IPC for a ``(..., 2, 4)`` per-access-type stack (read, write; ns):
+    ``(leading..., n_workloads)``."""
+    if timings.dim() < 2 or tuple(timings.shape[-2:]) != (len(ACCESS_TYPES), len(PARAM_NAMES)):
+        raise ValueError(f"expected a (..., 2, 4) timing stack, got {tuple(timings.shape)}")
+    flat = timings.to(torch.float32).reshape(-1, 2, 4)
+    blocks = []
+    for s in range(0, flat.shape[0], _ROWS_PER_BLOCK):
+        ts = flat[s:s + _ROWS_PER_BLOCK, :, :, None]   # (M, 2, 4, 1)
+        tr = TimingParams(ts[:, 0, 0], ts[:, 0, 1], ts[:, 0, 2], ts[:, 0, 3])
+        tw = TimingParams(ts[:, 1, 0], ts[:, 1, 1], ts[:, 1, 2], ts[:, 1, 3])
+        blocks.append(evaluate(tr, cfg, workloads, t_write=tw)["ipc"])
+    ipc = torch.cat(blocks)
+    return ipc.reshape(*timings.shape[:-2], ipc.shape[-1])
+
+
+def fleet_speedups(timings: torch.Tensor, cfg: SystemConfig = MULTI_CORE,
+                   workloads: Tuple[Workload, ...] = WORKLOADS) -> torch.Tensor:
+    """Per-entry geometric-mean speedup over JEDEC for a ``(..., 2, 4)``
+    per-access-type stack."""
+    jedec = torch.tensor([list(JEDEC_DDR3_1600)] * 2, dtype=torch.float32,
+                         device=timings.device)
+    base = evaluate_stack(jedec, cfg, workloads)
+    ratio = evaluate_stack(timings, cfg, workloads) / base
+    return torch.exp(torch.log(ratio).mean(dim=-1))
+
+
+# ---------------------------------------------------------------------------
+# Trace scoring
+# ---------------------------------------------------------------------------
+class ScorePartials(NamedTuple):
+    """Running trace-score accumulators over the step axis.
+
+    * ``occupancy`` — ``(n_dimms, n_bins + 1)`` int32 step counts per
+      effective bin (last column = the JEDEC sentinel). Exact.
+    * ``switches`` — ``(n_dimms,)`` int32 timing-set switch counts. Exact.
+    * ``timing_sums`` — ``(n_dimms, 2, 4)`` float32 sums of the realized
+      rows (ns). Realized timings are multiples of tCK = 1.25 ns, so the
+      sums are exact under any accumulation order while
+      ``n_steps · max_timing < 2²⁴ · 1.25 ns`` (~600k steps).
+    * ``n_steps`` — ``()`` int32 observations absorbed so far.
+    """
+
+    occupancy: torch.Tensor
+    switches: torch.Tensor
+    timing_sums: torch.Tensor
+    n_steps: torch.Tensor
+
+
+def trace_score_init(n_dimms: int, n_bins: int,
+                     device: str | torch.device = "cuda") -> ScorePartials:
+    """Zeroed accumulators for an ``n_dimms``-DIMM, ``n_bins``-bin fleet."""
+    return ScorePartials(
+        occupancy=torch.zeros((n_dimms, n_bins + 1), dtype=torch.int32, device=device),
+        switches=torch.zeros((n_dimms,), dtype=torch.int32, device=device),
+        timing_sums=torch.zeros((n_dimms, len(ACCESS_TYPES), len(PARAM_NAMES)),
+                                dtype=torch.float32, device=device),
+        n_steps=torch.zeros((), dtype=torch.int32, device=device),
+    )
+
+
+def trace_score_accumulate(partials: ScorePartials, timings: torch.Tensor,
+                           bin_idx: torch.Tensor, switched: torch.Tensor) -> ScorePartials:
+    """Absorb a ``(chunk, n_dimms, 2, 4)`` block of replay outputs."""
+    n_bins1 = partials.occupancy.shape[-1]
+    bins = torch.arange(n_bins1, dtype=torch.int32, device=bin_idx.device)
+    occ = (bin_idx[:, :, None] == bins).sum(dim=0)
+    return ScorePartials(
+        occupancy=partials.occupancy + occ.to(torch.int32),
+        switches=partials.switches + switched.sum(dim=0).to(torch.int32),
+        timing_sums=partials.timing_sums + timings.to(torch.float32).sum(dim=0),
+        n_steps=partials.n_steps + timings.shape[0],
+    )
+
+
+def trace_score_finalize(
+    partials: ScorePartials,
+    stack: torch.Tensor,
+    cfg: SystemConfig = MULTI_CORE,
+    claim: float = PAPER_CLAIM_SPEEDUP,
+    workloads: Tuple[Workload, ...] = WORKLOADS,
+) -> Dict[str, float]:
+    """Final score dict from accumulated partials + the table's
+    ``(n_dimms, n_bins, 2, 4)`` registers: realized latency reductions,
+    realized speedups (all workloads and the claim's cohort), switching
+    activity and time at JEDEC."""
+    stack = stack.to(torch.float32)
+    n_dimms, n_bins = stack.shape[0], stack.shape[1]
+    if tuple(partials.occupancy.shape) != (n_dimms, n_bins + 1):
+        raise ValueError(
+            f"partials occupancy shape {tuple(partials.occupancy.shape)} does "
+            f"not match a {n_dimms}-DIMM, {n_bins}-bin table"
+        )
+    n_steps = int(partials.n_steps)
+    if n_steps <= 0:
+        raise ValueError("cannot finalize a score over zero observations")
+    steps = partials.n_steps.to(torch.float32)
+    occ = partials.occupancy.to(torch.float32) / steps           # (N, B+1)
+    sums = partials.timing_sums                                  # (N, 2, 4)
+    mean_rows = sums / steps
+    rs, ws = mean_rows[:, 0, :], mean_rows[:, 1, :]
+    read_mean = (sums[:, 0, 0] + sums[:, 0, 1] + sums[:, 0, 3]) / steps
+    write_mean = (sums[:, 1, 0] + sums[:, 1, 2] + sums[:, 1, 3]) / steps
+    jedec = torch.tensor(list(JEDEC_DDR3_1600), dtype=torch.float32, device=stack.device)
+    red = {
+        "read": 1.0 - read_mean / JEDEC_DDR3_1600.read_sum,
+        "write": 1.0 - write_mean / JEDEC_DDR3_1600.write_sum,
+        "read_params": 1.0 - rs / jedec[None, :],
+        "write_params": 1.0 - ws / jedec[None, :],
+    }
+    jedec_rows = jedec.broadcast_to((n_dimms, 1, 2, 4))
+    rows = torch.cat([stack, jedec_rows], dim=1)                 # (N, B+1, 2, 4)
+    sp = fleet_speedups(rows, cfg, workloads)                    # (N, B+1)
+    sp_mem = fleet_speedups(rows, cfg, MEM_INTENSIVE_WORKLOADS)
+    realized = (occ * sp).sum(dim=-1)
+    realized_mem = (occ * sp_mem).sum(dim=-1)
+    tras_flags = (stack[:, 0, 0, 1] < JEDEC_DDR3_1600.tras - 1e-6).to(torch.float32)
+    switches = partials.switches.to(torch.int64)
+    out = {
+        "read_reduction_mean": float(red["read"].mean()),
+        "write_reduction_mean": float(red["write"].mean()),
+        "speedup_realized_mean": float(realized.mean() - 1.0),
+        "speedup_realized_min": float(realized.min() - 1.0),
+        "speedup_realized_intensive_mean": float(realized_mem.mean() - 1.0),
+        "speedup_vs_claim": float(realized_mem.mean() - 1.0) - claim,
+        "switches_total": float(switches.sum()),
+        "switches_per_dimm_mean": float(switches.to(torch.float64).mean()),
+        "switches_per_kstep": float(switches.sum()) / (n_steps * n_dimms / 1000.0),
+        "time_at_jedec_frac": float(occ[:, n_bins].mean()),
+        "time_in_coolest_bin_frac": float(occ[:, 0].mean()),
+        "tras_below_jedec_coolest_frac": float(tras_flags.mean()),
+    }
+    for access in ACCESS_TYPES:
+        per = red[f"{access}_params"]
+        for pi, param in enumerate(PARAM_NAMES):
+            out[f"{access}_{param}_reduction_mean"] = float(per[:, pi].mean())
+    return out
+
+
+def trace_score(stack: torch.Tensor, replay, cfg: SystemConfig = MULTI_CORE,
+                claim: float = PAPER_CLAIM_SPEEDUP,
+                workloads: Tuple[Workload, ...] = WORKLOADS) -> Dict[str, float]:
+    """Score a materialized replay (duck-typed: ``timings`` (S, N, 2, 4),
+    ``bin_idx`` and ``switched`` (S, N)): init → accumulate the whole trace
+    as one block → finalize."""
+    partials = trace_score_accumulate(
+        trace_score_init(stack.shape[0], stack.shape[1], stack.device),
+        replay.timings, replay.bin_idx, replay.switched,
+    )
+    return trace_score_finalize(partials, stack, cfg, claim, workloads)

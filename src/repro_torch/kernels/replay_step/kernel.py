@@ -1,0 +1,144 @@
+"""Fused replay chunk scan: the CUDA kernel's wrapper and its plain
+PyTorch version, on the slot-major layouts the streaming engine keeps.
+
+Layouts (N DIMMs, B bins, chunk steps), every per-DIMM operand slot-major
+so that a warp's reads are coalesced:
+
+* ``state3``  ``(3, N)`` int32 — bin index, cool streak, fused (0/1)
+* ``occ``     ``(B + 1, N)`` int32 — steps per effective bin (B = JEDEC)
+* ``sw``      ``(N,)`` int32 — timing-set switches
+* ``sums``    ``(8, N)`` float32 — realized timing sums, slot ``a * 4 + p``
+* ``stack_t`` ``(B * 8, N)`` float32 — the table, slot ``b * 8 + a * 4 + p``
+* ``temps``   ``(chunk, N)`` float32, ``errs`` ``(chunk, N)`` uint8
+
+:func:`replay_chunk_cuda` launches ``csrc/replay_step.cu``;
+:func:`replay_chunk_plain` converts to the public layouts and runs the
+reference scan (:func:`.ref.chunk_scan`). Both return new
+``(state3, occ, sw, sums)``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+from typing import Tuple
+
+import torch
+
+from repro_torch.core.controller import ControllerParams, ControllerState
+from repro_torch.kernels import _build
+from repro_torch.kernels.replay_step import ref
+
+#: Flattened (access, param) slots per timing row.
+ROW_SLOTS: int = 8
+
+#: Largest bin count the CUDA kernel is instantiated for.
+MAX_BINS: int = 8
+
+Operands = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class ReplayScalars:
+    """Controller policy the scan closes over; every float is the exact
+    float32 value of the Python policy (built by :func:`.ops.replay_scalars`)."""
+
+    edges: Tuple[float, ...]    # bin upper edges, ascending
+    guard_band_c: float
+    hysteresis_c: float
+    hysteresis_steps: int
+    jedec: Tuple[float, ...]    # flattened (2, 4) JEDEC sentinel row
+
+
+class _ReplayParamsC(ctypes.Structure):
+    """Mirror of ``ReplayParams`` in ``csrc/replay_step.cu``."""
+
+    _fields_ = [
+        ("edges", ctypes.c_float * MAX_BINS),
+        ("jedec", ctypes.c_float * ROW_SLOTS),
+        ("guard_band_c", ctypes.c_float),
+        ("hysteresis_c", ctypes.c_float),
+        ("n_bins", ctypes.c_int32),
+        ("hysteresis_steps", ctypes.c_int32),
+    ]
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("replay_step")
+    lib.replay_chunk_launch.argtypes = [ctypes.c_void_p] * 11 + [
+        ctypes.c_int64, ctypes.c_int32, ctypes.POINTER(_ReplayParamsC), ctypes.c_void_p,
+    ]
+    lib.replay_chunk_launch.restype = ctypes.c_int
+    lib.replay_max_bins.restype = ctypes.c_int
+    if lib.replay_max_bins() != MAX_BINS:
+        raise RuntimeError(f"csrc/replay_step.cu is built for {lib.replay_max_bins()} "
+                           f"bins, this wrapper for {MAX_BINS}")
+    return lib
+
+
+def _shapes(scal: ReplayScalars, n: int, chunk: int):
+    b = len(scal.edges)
+    return {
+        "state3": (3, n), "occ": (b + 1, n), "sw": (n,), "sums": (ROW_SLOTS, n),
+        "stack_t": (b * ROW_SLOTS, n), "temps": (chunk, n), "errs": (chunk, n),
+    }
+
+
+def replay_chunk_plain(state3, occ, sw, sums, stack_t, temps, errs,
+                       scal: ReplayScalars) -> Operands:
+    """The chunk scan in torch ops on any device (same contract as
+    :func:`replay_chunk_cuda`)."""
+    n_bins, n = len(scal.edges), state3.shape[1]
+    state = ControllerState(state3[0], state3[1], state3[2] != 0)
+    params = ControllerParams(scal.guard_band_c, scal.hysteresis_c, scal.hysteresis_steps)
+    edges = torch.tensor(scal.edges, dtype=torch.float32, device=state3.device)
+    stack = stack_t.t().reshape(n, n_bins, 2, 4)
+    zero = torch.zeros((), dtype=torch.int32, device=state3.device)
+    st, occ_o, sw_o, sums_o, _ = ref.chunk_scan(
+        stack, edges, params, state, occ.t(), sw, sums.t().reshape(n, 2, 4), zero,
+        temps, errs != 0,
+    )
+    state_o = torch.stack([st.bin_idx, st.cool_streak, st.fused.to(torch.int32)])
+    return (state_o, occ_o.t().contiguous(), sw_o,
+            sums_o.reshape(n, ROW_SLOTS).t().contiguous())
+
+
+def replay_chunk_cuda(state3, occ, sw, sums, stack_t, temps, errs,
+                      scal: ReplayScalars) -> Operands:
+    """Launch ``csrc/replay_step.cu`` on PyTorch's current stream. All
+    operands are contiguous CUDA tensors on one device, in the layouts of
+    this module. Counts its launches in ``replay_chunk_cuda.launches``."""
+    n_bins = len(scal.edges)
+    if not 1 <= n_bins <= MAX_BINS:
+        raise ValueError(f"the CUDA replay kernel takes 1..{MAX_BINS} bins, got {n_bins}")
+    n, chunk = state3.shape[-1], temps.shape[0]
+    shapes = _shapes(scal, n, chunk)
+    args = dict(state3=state3, occ=occ, sw=sw, sums=sums, stack_t=stack_t,
+                temps=temps, errs=errs)
+    dtypes = dict(state3=torch.int32, occ=torch.int32, sw=torch.int32,
+                  sums=torch.float32, stack_t=torch.float32, temps=torch.float32,
+                  errs=torch.uint8)
+    for name, t in args.items():
+        _build.require(t, name, dtypes[name], shapes[name])
+        if t.device != state3.device:
+            raise ValueError(f"{name} is on {t.device}, state3 on {state3.device}")
+    outs = tuple(torch.empty_like(t) for t in (state3, occ, sw, sums))
+    params = _ReplayParamsC(
+        (ctypes.c_float * MAX_BINS)(*scal.edges),
+        (ctypes.c_float * ROW_SLOTS)(*scal.jedec),
+        scal.guard_band_c, scal.hysteresis_c, n_bins, scal.hysteresis_steps,
+    )
+    lib = _lib()
+    rc = lib.replay_chunk_launch(
+        *(_build.ptr(t) for t in (state3, occ, sw, sums, stack_t, temps, errs)),
+        *(_build.ptr(t) for t in outs),
+        n, chunk, ctypes.byref(params), _build.stream_ptr(state3.device),
+    )
+    _build.check(lib, rc, "replay_chunk_launch")
+    replay_chunk_cuda.launches += 1
+    return outs
+
+
+replay_chunk_cuda.launches = 0

@@ -1,0 +1,43 @@
+"""Plain PyTorch replay chunk scan — the semantics definition.
+
+One chunk of observations advances the controller state machine
+(:func:`repro_torch.core.controller.step`) step by step and folds each
+step's decisions into the running :class:`ScorePartials`
+(:func:`repro_torch.core.perfmodel.trace_score_accumulate` on a one-step
+block). Timing sums therefore take one float32 add per (step, slot) in
+step order; the CUDA kernel (:mod:`.kernel`) must reproduce the final
+state and partials bit for bit. Public layouts are the reference's:
+``(N,)`` state, ``(N, B+1)`` occupancy, ``(N, 2, 4)`` sums,
+``(N, B, 2, 4)`` stack, ``(chunk, N)`` telemetry.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.controller import ControllerParams, ControllerState, step
+from repro_torch.core.perfmodel import ScorePartials, trace_score_accumulate
+
+
+def chunk_body(stack: torch.Tensor, edges: torch.Tensor, params: ControllerParams,
+               state: ControllerState, partials: ScorePartials, temps: torch.Tensor,
+               errors: Optional[torch.Tensor]) -> Tuple[ControllerState, ScorePartials]:
+    """Scan one chunk, accumulating score partials per step."""
+    for k in range(temps.shape[0]):
+        state, rows, switched, eff = step(
+            stack, edges, params, state, temps[k], None if errors is None else errors[k]
+        )
+        partials = trace_score_accumulate(partials, rows[None], eff[None], switched[None])
+    return state, partials
+
+
+def chunk_scan(stack, edges, params, state, occupancy, switches, timing_sums, n_steps,
+               temps, errors):
+    """Memory-bounded chunk scan with the reference's signature: returns
+    ``(state, occupancy, switches, timing_sums, n_steps)`` and nothing
+    step-indexed."""
+    partials = ScorePartials(occupancy, switches, timing_sums, n_steps)
+    state, partials = chunk_body(stack, edges, params, state, partials, temps, errors)
+    return (state,) + tuple(partials)
