@@ -13,14 +13,19 @@ Phases, each of which exits non-zero on failure:
    (1,048,576 DIMMs × 4 bins) plus the JEDEC-corner cell and a 95 °C
    above-grid column: indices must be equal. Timed at the boot shape.
 3. Replay chunk, kernel vs plain, on 65,536 DIMMs at chunkings 1, 37, 256
-   with error injections and a ladder of boundary temperatures: state,
-   occupancy, switches and timing sums must be bitwise equal. One
-   full-width chunk (1,048,576 DIMMs × 256 steps) is timed, and so is the
-   host-to-device copy of that chunk.
+   with error injections and a ladder of boundary temperatures, and at the
+   main path's shapes: a full-width chunk (1,048,576 DIMMs × 256 steps)
+   followed by the ragged 160-step chunk that ends a day. State, occupancy,
+   switches and timing sums must be bitwise equal. The full-width chunk is
+   timed, and so are its ingest steps and two ways of streaming chunks from
+   pageable host memory: the engine's pinned double buffer and a plain
+   ``tensor.to(device)``.
 4. Serve: the fleet-controller service on a small fleet, card vs CPU (the
    plain versions) on the same table and trace; then the main path,
    ``serve_fleet.serve`` at 1,048,576 DIMMs × 1,440 steps (one day at one
-   reading a minute), with every kernel's launch count read around it.
+   reading a minute), with every kernel's launch count read around it; then
+   the same run under ``torch.profiler`` (trace in ``chiprun_out/``) for the
+   device's busy share and where the loop's time goes.
 5. One JSON line describing each kernel; the card's name and power limit;
    the last line ``{"ok": true, "device": {...}}``.
 """
@@ -44,6 +49,8 @@ CHUNKINGS = (1, 37, 256)
 ERROR_RATE = 1e-3
 SERVE_STEPS = 1440
 CHUNK = 256
+RAGGED = SERVE_STEPS % CHUNK
+INGEST_CHUNKS = 6
 SMALL_DIMMS, SMALL_STEPS = 4096, 300
 
 #: Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 non-tensor FLOP/s.
@@ -102,7 +109,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a GPU")
     try:
-        from repro_torch.core import charge, controller, fleet
+        from repro_torch.core import charge, controller, fleet, stream
         from repro_torch.kernels import _build
         from repro_torch.kernels.charge_sweep import kernel as sweep_k
         from repro_torch.kernels.charge_sweep import ops as sweep_ops
@@ -212,6 +219,26 @@ def main() -> None:
     big_temps = (torch.rand((CHUNK, FULL_DIMMS), generator=gen, device=dev) * 20.0 + 25.0)
     big_errs = torch.zeros((CHUNK, FULL_DIMMS), dtype=torch.uint8, device=dev)
     big_state = fresh(FULL_DIMMS)
+    rag_temps = (torch.rand((RAGGED, FULL_DIMMS), generator=gen, device=dev) * 75.0 + 20.0)
+    rag_errs = (torch.rand(rag_temps.shape, generator=gen, device=dev)
+                < ERROR_RATE).to(torch.uint8)
+    full_mism = {}
+    x, y = big_state, big_state
+    for label, tc, ec in ((f"{CHUNK}-step", big_temps, big_errs),
+                          (f"ragged {RAGGED}-step", rag_temps, rag_errs)):
+        x = replay_k.replay_chunk_cuda(*x, big_stack_t, tc, ec, big_scal)
+        y = replay_k.replay_chunk_plain(*y, big_stack_t, tc, ec, big_scal)
+        torch.cuda.synchronize()
+        full_mism[label] = sum(int((bits(a) != bits(b)).sum()) for a, b in zip(x, y))
+        replay_err = max([replay_err] + [float((a.double() - b.double()).abs().max())
+                                         for a, b in zip(x, y)])
+        log(f"replay chunk at full width, {label} chunk × {FULL_DIMMS:,} DIMMs: "
+            f"{full_mism[label]} mismatching words, switches {int(x[2].sum()):,}, "
+            f"fused {int(x[0][2].sum()):,}")
+    replay_mism += sum(full_mism.values())
+    if any(full_mism.values()):
+        fail(f"replay-chunk kernel disagrees with its plain version at full width: {full_mism}")
+    del x, y, rag_temps, rag_errs
     replay_ms = cuda_ms(torch, lambda: replay_k.replay_chunk_cuda(
         *big_state, big_stack_t, big_temps, big_errs, big_scal), 10)
     replay_plain_ms = cuda_ms(torch, lambda: replay_k.replay_chunk_plain(
@@ -236,7 +263,39 @@ def main() -> None:
         f"pinned memory {stage_ms:.3f} ms ({gb / stage_ms * 1e3:.1f} GB/s, "
         f"{torch.get_num_threads()} threads), host→device copy {h2d_ms:.3f} ms "
         f"({gb / h2d_ms * 1e3:.1f} GB/s) = {h2d_ms / replay_ms:.1f}× the kernel")
-    del big_temps, big_errs, big_state, host, pageable, big_stack_t, big_table
+    del host
+
+    # Streaming chunks from pageable host memory, kernel included: the
+    # engine's double buffer against a plain synchronous copy, in turns.
+    t0 = time.perf_counter()
+    ingestor = stream._Ingestor(FULL_DIMMS, dev, rows=CHUNK)
+    torch.cuda.synchronize()
+    reserve_ms = (time.perf_counter() - t0) * 1e3
+
+    def stream_ms(double_buffer: bool) -> float:
+        st = big_state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(INGEST_CHUNKS):
+            if double_buffer:
+                tc, ec, slot = ingestor.stage(pageable, None)
+            else:
+                tc, ec, slot = pageable.to(dev), big_errs, None
+            st = replay_k.replay_chunk_cuda(*st, big_stack_t, tc, ec, big_scal)
+            ingestor.release(slot)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / INGEST_CHUNKS
+
+    turns = [("plain .to", False), ("double buffer", True),
+             ("double buffer", True), ("plain .to", False)]
+    ingest_ms = {}
+    for label, db in turns:
+        ingest_ms.setdefault(label, []).append(stream_ms(db))
+    log(f"streaming {INGEST_CHUNKS} full-width chunks from pageable host memory, ms per "
+        f"chunk in turns {[(k, [round(v, 3) for v in vs]) for k, vs in ingest_ms.items()]}; "
+        f"allocating the double buffer (two pinned + device slots, no error "
+        f"buffers) took {reserve_ms:.3f} ms")
+    del big_temps, big_errs, big_state, pageable, big_stack_t, big_table, ingestor
 
     # ---- 4. serve: small card-vs-CPU check, then the main path ---------------
     small_table = serve_fleet.bootstrap_table(gen, SMALL_DIMMS, device=dev)
@@ -268,7 +327,8 @@ def main() -> None:
     score = report["score"]
     log(f"serve main path: {FULL_DIMMS:,} DIMMs × {SERVE_STEPS} steps in "
         f"{report['n_chunks']} chunks: wall {report['wall_s']:.3f} s, "
-        f"{report['obs_per_s']:,.0f} obs/s, boot {report['boot_s']:.3f} s, score "
+        f"{report['obs_per_s']:,.0f} obs/s, boot {report['boot_s']:.3f} s, service "
+        f"setup (staging buffers) {report['setup_s']:.3f} s, score "
         f"{report['score_s']:.3f} s, peak device "
         f"memory {report['peak_device_bytes'] / 2**30:.2f} GiB, launches {launches}")
     log("score: " + json.dumps(score, sort_keys=True))
@@ -280,6 +340,18 @@ def main() -> None:
         fail("non-finite score figure")
     if {m.split(".")[0] for m in sys.modules} & {"jax", "jaxlib", "repro"}:
         fail("the port imported JAX or the JAX package")
+
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    traced = serve_fleet.serve(n_dimms=FULL_DIMMS, n_steps=SERVE_STEPS, chunk=CHUNK,
+                               scenario="diurnal", error_rate=0.0, device=dev,
+                               trace_path=os.path.join(out_dir, "serve_trace.json"))
+    tr = traced["trace"]
+    log(f"serve main path under torch.profiler: wall {traced['wall_s']:.3f} s, loop span "
+        f"{tr['loop_s']:.3f} s, device busy {tr['device_busy_s'] * 1e3:.3f} ms "
+        f"({tr['device_busy_frac'] * 100:.2f} %)")
+    log("  device time by activity (s): " + json.dumps(tr["device_s_by_name"]))
+    log("  host ops by self time: " + json.dumps(tr["host_self_s_top"]))
 
     # ---- 5. summary ------------------------------------------------------------
     kernels = [

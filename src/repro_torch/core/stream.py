@@ -19,8 +19,10 @@ is read.
 Ingestion (:class:`_Ingestor`): on the card each chunk is copied into one
 of two pinned host buffers and sent with a ``non_blocking`` copy on a side
 stream; events order the copy before the kernel that reads it and the next
-reuse of a buffer after that kernel, so while the card scans chunk k the
-host fills the other buffer with chunk k+1.
+reuse of a buffer after that kernel, so while the card copies and scans
+chunk k the host fills the other buffer with chunk k+1. The buffers are
+allocated when the engine is built (``chunk_steps``) or at the first chunk
+that outgrows them; error buffers only once a chunk carries errors.
 """
 
 from __future__ import annotations
@@ -73,28 +75,54 @@ def _host_tensor(a, dtype: torch.dtype) -> torch.Tensor:
 
 
 class _Slot:
-    """One staging buffer pair: pinned host memory and its device twin."""
+    """One staging pair for up to ``rows`` steps: pinned host memory and its
+    device twin. The error pair is added by :meth:`errors` when first needed."""
 
     def __init__(self, rows: int, n_dimms: int, device: torch.device):
         self.rows = rows
         self.host_temps = torch.empty((rows, n_dimms), dtype=torch.float32, pin_memory=True)
-        self.host_errs = torch.empty((rows, n_dimms), dtype=torch.uint8, pin_memory=True)
         self.temps = torch.empty((rows, n_dimms), dtype=torch.float32, device=device)
-        self.errs = torch.empty((rows, n_dimms), dtype=torch.uint8, device=device)
+        self.host_errs: Optional[torch.Tensor] = None
+        self.errs: Optional[torch.Tensor] = None
         self.copied = torch.cuda.Event()    # H2D done: device ready, host reusable
         self.consumed = torch.cuda.Event()  # kernel done reading the device buffers
+
+    def errors(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.errs is None:
+            shape, dev = self.temps.shape, self.temps.device
+            self.host_errs = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
+            self.errs = torch.empty(shape, dtype=torch.uint8, device=dev)
+        return self.host_errs, self.errs
 
 
 class _Ingestor:
     """Host → device chunk feeder (see the module docstring)."""
 
-    def __init__(self, n_dimms: int, device: torch.device):
+    def __init__(self, n_dimms: int, device: torch.device, rows: int = 0):
         self.n_dimms = n_dimms
         self.device = device
         self.errors_seen = 0
         self._slots = [None, None]
         self._next = 0
+        self._no_errors: Optional[torch.Tensor] = None  # device zeros: errs of error-free chunks
         self._copy_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        if rows:
+            self.reserve(rows)
+
+    def reserve(self, rows: int) -> None:
+        """On a card, allocate both slots and the error-free buffer for
+        chunks of up to ``rows`` steps (a no-op where they are large enough)."""
+        if self._copy_stream is None:
+            return
+        for i, slot in enumerate(self._slots):
+            if slot is None or slot.rows < rows:
+                if slot is not None:
+                    slot.consumed.synchronize()
+                    slot.copied.synchronize()
+                self._slots[i] = _Slot(rows, self.n_dimms, self.device)
+        if self._no_errors is None or self._no_errors.shape[0] < rows:
+            self._no_errors = torch.zeros((rows, self.n_dimms), dtype=torch.uint8,
+                                          device=self.device)
 
     def stage(self, temps, errors) -> Tuple[torch.Tensor, torch.Tensor, Optional[_Slot]]:
         """Validate one chunk and make it readable on the compute stream.
@@ -116,28 +144,22 @@ class _Ingestor:
             return temps.contiguous(), errs.contiguous(), None
 
         c = temps.shape[0]
-        i = self._next
+        self.reserve(c)
+        slot = self._slots[self._next]
         self._next ^= 1
-        slot = self._slots[i]
-        if slot is None or slot.rows < c:
-            if slot is not None:
-                slot.consumed.synchronize()
-                slot.copied.synchronize()
-            slot = self._slots[i] = _Slot(c, self.n_dimms, self.device)
         slot.copied.synchronize()  # the last copy out of this pinned buffer is done
         slot.host_temps[:c].copy_(temps)
         if errors is not None:
-            slot.host_errs[:c].copy_(errors)
+            host_errs, errs = slot.errors()
+            host_errs[:c].copy_(errors)
         with torch.cuda.stream(self._copy_stream):
             self._copy_stream.wait_event(slot.consumed)
             slot.temps[:c].copy_(slot.host_temps[:c], non_blocking=True)
-            if errors is None:
-                slot.errs[:c].zero_()
-            else:
-                slot.errs[:c].copy_(slot.host_errs[:c], non_blocking=True)
+            if errors is not None:
+                errs[:c].copy_(host_errs[:c], non_blocking=True)
             slot.copied.record(self._copy_stream)
         torch.cuda.current_stream(self.device).wait_event(slot.copied)
-        return slot.temps[:c], slot.errs[:c], slot
+        return slot.temps[:c], (self._no_errors if errors is None else errs)[:c], slot
 
     def release(self, slot: Optional[_Slot]) -> None:
         """Mark the slot's device buffers free once the queued work ends."""
@@ -167,11 +189,13 @@ class StreamResult(NamedTuple):
 class StreamingController:
     """Stateful fleet-controller engine over an observation stream: feed it
     batched chunks (:meth:`ingest`), read the running score (:meth:`score`).
-    It runs on the table's device and retains O(n_dimms) state."""
+    It runs on the table's device and retains O(n_dimms) state. On a card,
+    ``chunk_steps`` sizes the staging buffers up front and the replay kernel
+    is built and loaded here, so neither lands inside the first chunk."""
 
     def __init__(self, table: DimmTimingTable,
                  params: ControllerParams = ControllerParams(),
-                 state: Optional[ControllerState] = None):
+                 state: Optional[ControllerState] = None, chunk_steps: int = 0):
         self.table = table
         self.params = params
         dev = table.device
@@ -184,7 +208,9 @@ class StreamingController:
             trace_score_init(table.n_dimms, table.n_bins, dev)
         )
         self._n_steps = 0
-        self._ingest = _Ingestor(table.n_dimms, dev)
+        self._ingest = _Ingestor(table.n_dimms, dev, rows=chunk_steps)
+        if dev.type == "cuda":
+            replay_ops.load_kernel()
         self.n_chunks = 0
 
     @property

@@ -23,6 +23,7 @@ from repro_torch.kernels.replay_step.kernel import (
     ROW_SLOTS,
     Operands,
     ReplayScalars,
+    _lib,
     replay_chunk_cuda,
     replay_chunk_plain,
 )
@@ -39,6 +40,11 @@ def replay_scalars(temp_bins: Sequence[float], params: ControllerParams) -> Repl
         hysteresis_steps=int(params.hysteresis_steps),
         jedec=tuple(float(np.float32(v)) for row in JEDEC_ROWS for v in row),
     )
+
+
+def load_kernel() -> None:
+    """Build (if needed) and load the CUDA kernel's library now."""
+    _lib()
 
 
 def chunk_scan(state3, occ, sw, sums, stack_t, temps, errs, scal: ReplayScalars) -> Operands:

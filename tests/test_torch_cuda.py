@@ -97,3 +97,27 @@ def test_service_on_card_matches_cpu(cuda_device):
     want = on_cpu.running_score()
     for k, v in on_card.running_score().items():
         assert v == pytest.approx(want[k], abs=1e-5), k
+
+
+def test_service_with_errors_arriving_midstream(cuda_device):
+    """Staging buffers reserved up front; error buffers appear only with the
+    first chunk that carries errors; a ragged last chunk; partials bitwise
+    equal to the CPU service."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    table = serve_fleet.bootstrap_table(g, 1000, device=cuda_device)
+    trace = (torch.rand((200, 1000), generator=g, device=cuda_device) * 60 + 20).cpu()
+    errors = (torch.rand((200, 1000), generator=g, device=cuda_device) < 1e-2).cpu()
+    on_card = serve_fleet.FleetControllerService(table, chunk_steps=64)
+    on_cpu = serve_fleet.FleetControllerService(
+        controller.DimmTimingTable(table.temp_bins, table.stack.cpu()))
+    slots = on_card.engine._ingest._slots
+    assert all(sl is not None and sl.rows == 64 for sl in slots)
+    for s, with_errors in ((0, False), (64, False), (128, True), (192, True)):
+        e = errors[s:s + 64] if with_errors else None
+        on_card.submit(trace[s:s + 64], e)
+        on_cpu.submit(trace[s:s + 64], e)
+        if not with_errors:
+            assert all(sl.errs is None for sl in slots)
+    assert on_card.engine.errors_total == on_cpu.engine.errors_total > 0
+    for a, b in zip(on_card.engine.partials, on_cpu.engine.partials):
+        assert torch.equal(_bits(a.cpu()), _bits(b))

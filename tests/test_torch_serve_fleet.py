@@ -154,6 +154,20 @@ def test_serve_on_cpu_end_to_end():
     assert all(np.isfinite(v) for v in report["score"].values())
 
 
+def test_serve_traced_on_cpu(tmp_path):
+    """``trace_path`` writes a Chrome trace of the streaming loop and
+    summarizes it; tracing leaves the result unchanged."""
+    kw = dict(n_dimms=64, n_steps=200, chunk=64, device="cpu")
+    plain = serve_fleet.serve(**kw)
+    path = tmp_path / "serve_trace.json"
+    traced = serve_fleet.serve(**kw, trace_path=str(path))
+    assert traced["score"] == plain["score"]
+    assert json.loads(path.read_text())["traceEvents"]
+    tr = traced["trace"]
+    assert 0 < tr["loop_s"] and tr["device_busy_s"] == 0.0 and tr["device_s_by_name"] == {}
+    assert tr["host_self_s_top"] and all(r["s"] >= 0 for r in tr["host_self_s_top"])
+
+
 def test_entry_points_refuse_cuda_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
