@@ -7,8 +7,8 @@ Run from the repository root with no arguments::
 
 Phases, each of which exits non-zero on failure:
 
-1. Card check: name and power limit, versions, and the build of both CUDA
-   kernels (one ``nvcc`` per source, started together).
+1. Card check: name and power limit, versions, and the build of the three
+   CUDA kernels (one ``nvcc`` per source, started together).
 2. Charge sweep, kernel vs plain PyTorch version, on the full boot sweep
    (1,048,576 DIMMs × 4 bins) plus the JEDEC-corner cell and a 95 °C
    above-grid column: indices must be equal. Timed at the boot shape.
@@ -26,7 +26,26 @@ Phases, each of which exits non-zero on failure:
    reading a minute), with every kernel's launch count read around it; then
    the same run under ``torch.profiler`` (trace in ``chiprun_out/``) for the
    device's busy share and where the loop's time goes.
-5. One JSON line describing each kernel; the card's name and power limit;
+5. Accumulate kernel vs plain at the trace-eval path's full width (65,536
+   DIMMs × 10,000 steps of cycle-quantized rows, bins over every column,
+   running partials to fold into) and on a ragged real history (4,096 DIMMs
+   × 97 steps of a card replay with errors at 1e-3 and temperatures over
+   every bin): 0 mismatching words. Timed at full width against its bound
+   and beside ``torch.sum(timings, dim=0)`` alone.
+6. Card step vs plain step: ``controller.replay`` on the card (the replay
+   kernel at chunk 1, every step) against a loop of ``controller.step_plain``
+   on the card, 65,536 DIMMs × 512 steps: timings, bins, switches, fuses and
+   the final state bitwise equal.
+7. Trace-eval, card vs CPU: ``trace_eval.run`` on 4,096 DIMMs × 500 steps
+   (refresh_storm, errors at 1e-3) on the card and on the CPU with the same
+   table, trace and errors: history and partials bitwise, every score
+   figure within 1e-5.
+8. Trace-eval main path: ``trace_eval.run`` at 65,536 DIMMs × 10,000 steps
+   (one reading a minute for ~7 days), scenarios diurnal and refresh_storm,
+   refresh ddr3, no errors, each with every kernel's launch count read
+   around it; then a 200-step window of such a replay under
+   ``torch.profiler`` for the device's busy share per step.
+9. One JSON line describing each kernel; the card's name and power limit;
    the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -52,6 +71,13 @@ CHUNK = 256
 RAGGED = SERVE_STEPS % CHUNK
 INGEST_CHUNKS = 6
 SMALL_DIMMS, SMALL_STEPS = 4096, 300
+EVAL_DIMMS, EVAL_STEPS = 65536, 10_000
+EVAL_SCENARIOS = ("diurnal", "refresh_storm")
+EVAL_LOOP_STEPS = 500          # trace_eval.run's default observe-loop sub-grid
+RAGGED_ACC_DIMMS, RAGGED_ACC_STEPS = 4096, 97
+STEP_CHECK_STEPS = 512
+PROFILED_STEPS = 200
+EVAL_SMALL_DIMMS, EVAL_SMALL_STEPS = 4096, 500
 
 #: Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 non-tensor FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -64,6 +90,8 @@ SWEEP_OPS_PER_CANDIDATE = 39
 #: Float operations per (DIMM, step) of the replay chunk: the guard-band add,
 #: four edge compares, the hysteresis subtract and compare, eight sum adds.
 REPLAY_OPS_PER_STEP = 15
+#: Float operations per (step, DIMM) of the accumulation: eight sum adds.
+ACCUMULATE_OPS_PER_STEP = 8
 
 
 def fail(msg: str) -> None:
@@ -109,13 +137,13 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a GPU")
     try:
-        from repro_torch.core import charge, controller, fleet, stream
+        from repro_torch.core import charge, controller, fleet, perfmodel, stream
         from repro_torch.kernels import _build
         from repro_torch.kernels.charge_sweep import kernel as sweep_k
         from repro_torch.kernels.charge_sweep import ops as sweep_ops
         from repro_torch.kernels.replay_step import kernel as replay_k
         from repro_torch.kernels.replay_step import ops as replay_ops
-        from repro_torch.launch import serve_fleet
+        from repro_torch.launch import serve_fleet, trace_eval
     except ImportError as e:
         fail(f"cannot import the port (run from the repository root): {e}")
 
@@ -125,7 +153,7 @@ def main() -> None:
     log(f"card: {smi} | torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    logs = _build.build(["charge_sweep", "replay_step"])
+    logs = _build.build(["charge_sweep", "replay_step", "accumulate"])
     log(f"kernels built in {time.perf_counter() - t0:.2f} s (parallel nvcc)")
     for name, out in logs.items():
         regs = sorted({line.split("Used ")[1].split(",")[0]
@@ -353,20 +381,202 @@ def main() -> None:
     log("  device time by activity (s): " + json.dumps(tr["device_s_by_name"]))
     log("  host ops by self time: " + json.dumps(tr["host_self_s_top"]))
 
-    # ---- 5. summary ------------------------------------------------------------
+    # ---- 5. accumulate: kernel vs plain ---------------------------------------
+    n_bins = len(controller.DEFAULT_TEMP_BINS)
+    acc_timings = torch.empty((EVAL_STEPS, EVAL_DIMMS, 2, 4), dtype=torch.float32, device=dev)
+    for s in range(0, EVAL_STEPS, 1000):
+        acc_timings[s:s + 1000] = torch.randint(
+            8, 29, (min(1000, EVAL_STEPS - s), EVAL_DIMMS, 2, 4), generator=gen, device=dev,
+            dtype=torch.int32).to(torch.float32) * 1.25
+    acc_bins = torch.randint(0, n_bins + 1, (EVAL_STEPS, EVAL_DIMMS), generator=gen,
+                             device=dev, dtype=torch.int32)
+    acc_sw = (torch.rand((EVAL_STEPS, EVAL_DIMMS), generator=gen, device=dev)
+              < 0.01).view(torch.uint8)
+    acc_in = (torch.randint(0, 1000, (EVAL_DIMMS, n_bins + 1), generator=gen, device=dev,
+                            dtype=torch.int32),
+              torch.randint(0, 1000, (EVAL_DIMMS,), generator=gen, device=dev,
+                            dtype=torch.int32),
+              torch.randint(0, 4000, (EVAL_DIMMS, 2, 4), generator=gen, device=dev,
+                            dtype=torch.int32).to(torch.float32) * 1.25)
+    acc_args = (*acc_in, acc_timings, acc_bins, acc_sw)
+    got = replay_k.accumulate_cuda(*acc_args)
+    want = replay_k.accumulate_plain(*acc_args)
+    torch.cuda.synchronize()
+    acc_mism = {"full": sum(int((bits(a) != bits(b)).sum()) for a, b in zip(got, want))}
+    acc_err = max(float((a.double() - b.double()).abs().max()) for a, b in zip(got, want))
+    del got, want
+    acc_ms = cuda_ms(torch, lambda: replay_k.accumulate_cuda(*acc_args), 5)
+    acc_plain_ms = cuda_ms(torch, lambda: replay_k.accumulate_plain(*acc_args), 1)
+    acc_sum_ms = cuda_ms(torch, lambda: torch.sum(acc_timings, dim=0), 5)
+    pairs = EVAL_STEPS * EVAL_DIMMS
+    acc_bound, acc_by = bound_ms(
+        pairs * (32 + 4 + 1) + 2 * EVAL_DIMMS * ((n_bins + 1) * 4 + 4 + 32),
+        pairs * ACCUMULATE_OPS_PER_STEP)
+    log(f"accumulate at {EVAL_DIMMS:,} DIMMs × {EVAL_STEPS:,} steps: {acc_mism['full']} "
+        f"mismatching words; kernel {acc_ms:.4f} ms, plain {acc_plain_ms:.3f} ms, "
+        f"torch.sum(timings, dim=0) alone {acc_sum_ms:.4f} ms, bound {acc_bound:.4f} ms "
+        f"({acc_by})")
+    del acc_args, acc_timings, acc_bins, acc_sw, acc_in
+    torch.cuda.empty_cache()
+
+    rag_table = serve_fleet.bootstrap_table(gen, RAGGED_ACC_DIMMS, device=dev)
+    rag_temps = torch.rand((RAGGED_ACC_STEPS, RAGGED_ACC_DIMMS), generator=gen,
+                           device=dev) * 75.0 + 20.0
+    rag_errs = torch.rand(rag_temps.shape, generator=gen, device=dev) < ERROR_RATE
+    rag = controller.replay(rag_table, rag_temps, rag_errs)
+    zero = perfmodel.trace_score_init(RAGGED_ACC_DIMMS, rag_table.n_bins, dev)
+    rag_args = (zero.occupancy, zero.switches, zero.timing_sums, rag.timings, rag.bin_idx,
+                rag.switched.view(torch.uint8))
+    got = replay_k.accumulate_cuda(*rag_args)
+    want = replay_k.accumulate_plain(*rag_args)
+    torch.cuda.synchronize()
+    acc_mism["ragged"] = sum(int((bits(a) != bits(b)).sum()) for a, b in zip(got, want))
+    occ_cols = [int(c) for c in got[0].sum(dim=0).tolist()]
+    log(f"accumulate on a card replay of {RAGGED_ACC_DIMMS:,} DIMMs × {RAGGED_ACC_STEPS} "
+        f"steps: {acc_mism['ragged']} mismatching words; steps per effective bin "
+        f"{occ_cols} (last = JEDEC), switches {int(got[1].sum()):,}, fused "
+        f"{int(rag.state.fused.sum()):,}")
+    if any(acc_mism.values()):
+        fail(f"accumulate kernel disagrees with its plain version: {acc_mism}")
+    if min(occ_cols) == 0:
+        fail("the ragged accumulate check did not reach every effective bin")
+
+    # ---- 6. card step vs plain step -------------------------------------------
+    step_temps = torch.cat([ladder[:, None].expand(-1, REPLAY_DIMMS),
+                            torch.rand((STEP_CHECK_STEPS - ladder.shape[0], REPLAY_DIMMS),
+                                       generator=gen, device=dev) * 75.0 + 20.0]).contiguous()
+    step_errs = torch.rand(step_temps.shape, generator=gen, device=dev) < ERROR_RATE
+    on_card = controller.replay(table, step_temps, step_errs)
+    edges = torch.tensor(table.temp_bins, dtype=torch.float32, device=dev)
+    st = controller.init_state(REPLAY_DIMMS, table.n_bins, dev)
+    plain_hist = {k: [] for k in ("timings", "bin_idx", "switched", "fused")}
+    for k in range(STEP_CHECK_STEPS):
+        st, rows, sw, eff = controller.step_plain(table.stack, edges, params, st,
+                                                  step_temps[k], step_errs[k])
+        for key, v in (("timings", rows), ("bin_idx", eff), ("switched", sw),
+                       ("fused", st.fused)):
+            plain_hist[key].append(v)
+    torch.cuda.synchronize()
+    step_mism = {key: int((bits(getattr(on_card, key)) != bits(torch.stack(v))).sum())
+                 for key, v in plain_hist.items()}
+    step_mism["state"] = sum(int((a != b).sum()) for a, b in zip(on_card.state, st))
+    log(f"card step (replay kernel at chunk 1) vs plain step, {REPLAY_DIMMS:,} DIMMs × "
+        f"{STEP_CHECK_STEPS} steps: mismatches {step_mism}, switches "
+        f"{on_card.total_switches:,}, fused {int(st.fused.sum()):,}")
+    if any(step_mism.values()):
+        fail(f"the card's step disagrees with the plain step: {step_mism}")
+    del on_card, plain_hist, step_temps, step_errs
+
+    # ---- 7. trace-eval: card vs CPU --------------------------------------------
+    small_kw = dict(scenario="refresh_storm", error_rate=ERROR_RATE, verbose=False)
+    card = trace_eval.run(n_dimms=EVAL_SMALL_DIMMS, n_steps=EVAL_SMALL_STEPS, device=dev,
+                          **small_kw)
+    host = trace_eval.run(device="cpu", table=card["table"].to("cpu"),
+                          trace=card["trace"].cpu(), errors=card["errors"].cpu(), **small_kw)
+    hist_same = all(torch.equal(bits(getattr(card["replay"], k).cpu()),
+                                bits(getattr(host["replay"], k)))
+                    for k in ("timings", "bin_idx", "switched", "fused"))
+    hist_same &= all(torch.equal(a.cpu(), b) for a, b in zip(card["replay"].state,
+                                                            host["replay"].state))
+    part_same = all(torch.equal(bits(a.cpu()), bits(b))
+                    for a, b in zip(card["partials"], host["partials"]))
+    eval_err = max(abs(card["score"][k] - host["score"][k]) for k in host["score"])
+    log(f"trace-eval {EVAL_SMALL_DIMMS:,} DIMMs × {EVAL_SMALL_STEPS} steps, card vs CPU: "
+        f"history bitwise equal={hist_same}, partials bitwise equal={part_same}, max "
+        f"score difference {eval_err:.3e}, fused {int(card['replay'].state.fused.sum())}")
+    if not (hist_same and part_same) or eval_err > 1e-5 or set(card["score"]) != set(host["score"]):
+        fail("trace-eval on the card disagrees with the CPU reference")
+    del card, host
+
+    # ---- 8. trace-eval main path -------------------------------------------------
+    eval_launches = {}
+    for scenario in EVAL_SCENARIOS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        sweep_k.charge_sweep_cuda.launches = 0
+        replay_k.replay_chunk_cuda.launches = 0
+        replay_k.accumulate_cuda.launches = 0
+        t0 = time.perf_counter()
+        rep = trace_eval.run(n_dimms=EVAL_DIMMS, n_steps=EVAL_STEPS, scenario=scenario,
+                             refresh="ddr3", error_rate=0.0, device=dev)
+        wall = time.perf_counter() - t0
+        got_l = {"charge_sweep": sweep_k.charge_sweep_cuda.launches,
+                 "replay_chunk": replay_k.replay_chunk_cuda.launches,
+                 "accumulate": replay_k.accumulate_cuda.launches}
+        eval_launches[scenario] = got_l
+        sc = rep["score"]
+        log(f"trace-eval main path, {scenario}: {EVAL_DIMMS:,} DIMMs × {EVAL_STEPS:,} steps, "
+            f"run {wall:.3f} s, peak device memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, launches {got_l}")
+        log(f"  scan_seconds {rep['scan_s']:.6f}, loop_equivalence_exact "
+            f"{rep['loop_exact']}, speedup_realized_intensive_mean "
+            f"{sc['speedup_realized_intensive_mean']:.6f}, speedup_combined_intensive_mean "
+            f"{sc['speedup_combined_intensive_mean']:.6f}, refresh_occupancy_mean "
+            f"{sc['refresh_occupancy_mean']:.6f}, switches_total {sc['switches_total']:.0f}")
+        log("  rows: " + json.dumps({name: value for name, value, _ in rep["rows"]}))
+        want_l = {"charge_sweep": 1, "replay_chunk": 2 * EVAL_STEPS + EVAL_LOOP_STEPS,
+                  "accumulate": 1}
+        if got_l != want_l:
+            fail(f"trace-eval {scenario}: launches {got_l}, expected {want_l} (two "
+                 f"replays of {EVAL_STEPS} steps and the {EVAL_LOOP_STEPS}-step sub-grid)")
+        if not rep["loop_exact"] or not all(math.isfinite(v) for v in sc.values()):
+            fail(f"trace-eval {scenario}: loop equivalence or a non-finite figure")
+        del rep
+    if {m.split(".")[0] for m in sys.modules} & {"jax", "jaxlib", "repro"}:
+        fail("the port imported JAX or the JAX package")
+
+    # Where a replay step's time goes: a short window of the same replay
+    # under torch.profiler (not counted as the main path's launches).
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    prof_table = controller.DimmTimingTable(
+        controller.DEFAULT_TEMP_BINS, torch.full((EVAL_DIMMS, len(controller.DEFAULT_TEMP_BINS),
+                                                  2, 4), 12.5, device=dev))
+    prof_temps = torch.rand((PROFILED_STEPS, EVAL_DIMMS), generator=gen, device=dev) * 75 + 20
+    controller.replay(prof_table, prof_temps[:2])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("replay_window"):
+            controller.replay(prof_table, prof_temps)
+            torch.cuda.synchronize()
+    tr = serve_fleet._trace_summary(prof, range_name="replay_window")
+    log(f"replay of {EVAL_DIMMS:,} DIMMs × {PROFILED_STEPS} steps under torch.profiler: "
+        f"span {tr['loop_s']:.4f} s ({tr['loop_s'] / PROFILED_STEPS * 1e6:.1f} µs a step), "
+        f"device busy {tr['device_busy_s'] * 1e3:.3f} ms ({tr['device_busy_frac'] * 100:.2f} %)")
+    log("  device time by activity (s): " + json.dumps(tr["device_s_by_name"]))
+    log("  host ops by self time: " + json.dumps(tr["host_self_s_top"]))
+    del prof_table, prof_temps
+
+    # ---- 9. summary ------------------------------------------------------------
+    eval_total = {k: sum(v[k] for v in eval_launches.values())
+                  for k in ("charge_sweep", "replay_chunk", "accumulate")}
     kernels = [
         {"name": "charge_sweep", "route": "cuda",
          "source": "src/repro_torch/csrc/charge_sweep.cu",
          "replaces": "src/repro/kernels/charge_sweep/kernel.py:96",
-         "launches": launches["charge_sweep"], "mismatches": sweep_mism,
+         "launches": launches["charge_sweep"] + eval_total["charge_sweep"],
+         "launches_by_path": {"serve": launches["charge_sweep"],
+                              "trace_eval": eval_total["charge_sweep"]},
+         "mismatches": sweep_mism,
          "max_abs_err": sweep_err, "ms": sweep_ms, "plain_ms": sweep_plain_ms,
          "bound_ms": sweep_bound, "bound_by": sweep_by, "library_ms": None},
         {"name": "replay_chunk", "route": "cuda",
          "source": "src/repro_torch/csrc/replay_step.cu",
          "replaces": "src/repro/kernels/replay_step/kernel.py:92",
-         "launches": launches["replay_chunk"], "mismatches": replay_mism,
+         "launches": launches["replay_chunk"] + eval_total["replay_chunk"],
+         "launches_by_path": {"serve": launches["replay_chunk"],
+                              "trace_eval": eval_total["replay_chunk"]},
+         "mismatches": replay_mism + sum(step_mism.values()),
          "max_abs_err": replay_err, "ms": replay_ms, "plain_ms": replay_plain_ms,
          "bound_ms": replay_bound, "bound_by": replay_by, "library_ms": None},
+        {"name": "accumulate", "route": "cuda",
+         "source": "src/repro_torch/csrc/accumulate.cu",
+         "replaces": "src/repro/kernels/replay_step/kernel.py:240",
+         "launches": eval_total["accumulate"],
+         "launches_by_path": {"serve": 0, "trace_eval": eval_total["accumulate"]},
+         "mismatches": sum(acc_mism.values()), "max_abs_err": acc_err, "ms": acc_ms,
+         "plain_ms": acc_plain_ms, "bound_ms": acc_bound, "bound_by": acc_by,
+         "library_ms": None, "sum_alone_ms": acc_sum_ms},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

@@ -2,13 +2,22 @@
 
 * :class:`DimmTimingTable` — the controller's timing registers: one
   ``(n_dimms, n_bins, 2, 4)`` float32 stack (access axis read, write;
-  ``PARAM_NAMES`` last) on the device, plus the bin edges. Temperatures
-  above the last edge select JEDEC (the beyond-last sentinel row). A
-  negative entry is the profiler's untested sentinel and is refused.
+  ``PARAM_NAMES`` last) on the device, the bin edges and an optional
+  :class:`~repro_torch.core.refresh.RefreshPolicy`. Temperatures above the
+  last edge select JEDEC (the beyond-last sentinel row). A negative entry
+  is the profiler's untested sentinel and is refused.
 * The pure state machine: :class:`ControllerState` (``bin_idx`` /
   ``cool_streak`` / ``fused`` over the DIMM axis) advanced by :func:`step`
   — guard band, hysteresis on cooling, immediate degrade on heating, and
-  an error fuse that drops a DIMM to JEDEC for good.
+  an error fuse that drops a DIMM to JEDEC for good. On a CPU tensor
+  :func:`step` is :func:`step_plain`; on a CUDA tensor it is the
+  replay-chunk kernel at chunk 1
+  (:class:`repro_torch.kernels.replay_step.ops.StepKernel`).
+* :func:`replay` — whole traces, one :func:`step` per observation, with
+  the dense ``(n_steps, n_dimms, ...)`` history (:class:`ReplayResult`).
+* :class:`ALDRAMController` — the per-observation API over the shared
+  scalar transition (:func:`repro_torch.core.binning.advance_bin`), its
+  registers on the host; the exactness baseline for :func:`replay`.
 """
 
 from __future__ import annotations
@@ -16,9 +25,18 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from repro_torch.core.timing import ACCESS_TYPES, JEDEC_DDR3_1600, PARAM_NAMES
+from repro_torch.core.binning import advance_bin, bin_index
+from repro_torch.core.refresh import BinRefresh, RefreshPolicy, bin_refresh as _bin_refresh
+from repro_torch.core.timing import (
+    ACCESS_TYPES,
+    JEDEC_DDR3_1600,
+    PARAM_NAMES,
+    AccessTimings,
+    TimingParams,
+)
 
 #: Temperature bins (°C upper edges) for which timing sets are profiled.
 DEFAULT_TEMP_BINS: Tuple[float, ...] = (45.0, 55.0, 65.0, 75.0, 85.0)
@@ -37,8 +55,18 @@ JEDEC_ROWS: Tuple[Tuple[float, ...], ...] = (
 ) * len(ACCESS_TYPES)
 
 
+#: JEDEC for both access types: the sets a fused or too-hot DIMM programs.
+JEDEC_ACCESS = AccessTimings(read=JEDEC_DDR3_1600, write=JEDEC_DDR3_1600)
+
+
 def jedec_rows(device: str | torch.device) -> torch.Tensor:
     return torch.tensor(JEDEC_ROWS, dtype=torch.float32, device=device)
+
+
+def access_timings(block) -> AccessTimings:
+    """A ``(2, 4)`` nested sequence of ns as :class:`AccessTimings`."""
+    return AccessTimings(read=TimingParams(*(float(v) for v in block[0])),
+                         write=TimingParams(*(float(v) for v in block[1])))
 
 
 @dataclasses.dataclass(eq=False)
@@ -46,17 +74,17 @@ class DimmTimingTable:
     """Per-DIMM, per-access-type timing sets, one per temperature bin.
 
     ``stack[dimm, bin]`` is a ``(2, 4)`` block (read set, write set; ns).
-    ``refresh`` must be ``None``: refresh policies are not ported yet."""
+    ``refresh`` is the temperature-driven refresh policy the DIMMs run
+    under; ``None`` scores latency only."""
 
     temp_bins: Tuple[float, ...]
     stack: torch.Tensor
-    refresh: None = None
+    refresh: Optional[RefreshPolicy] = None
 
     def __post_init__(self) -> None:
-        if self.refresh is not None:
-            raise NotImplementedError(
-                "refresh.py and a table's refresh policy are not ported yet"
-            )
+        if self.refresh is not None and not isinstance(self.refresh, RefreshPolicy):
+            raise TypeError(f"refresh must be a RefreshPolicy or None, got "
+                            f"{type(self.refresh).__name__}")
         self.temp_bins = tuple(float(t) for t in self.temp_bins)
         if list(self.temp_bins) != sorted(set(self.temp_bins)):
             raise ValueError(f"temp_bins must ascend strictly, got {self.temp_bins}")
@@ -94,9 +122,33 @@ class DimmTimingTable:
         only, so this is :attr:`stack` itself)."""
         return self.stack
 
+    def bin_refresh(self) -> Optional[BinRefresh]:
+        """Per-effective-bin refresh load under this table's policy — the
+        ``refresh=`` argument of the ``trace_score`` family (``None``:
+        latency-only scoring)."""
+        if self.refresh is None:
+            return None
+        return _bin_refresh(self.refresh, self.temp_bins)
+
+    def row(self, dimm: int, bin_idx: int) -> AccessTimings:
+        """Read + write timing sets at ``(dimm, bin)``; the beyond-last
+        sentinel (``bin_idx >= n_bins``) is JEDEC for both access types."""
+        if bin_idx >= self.n_bins:
+            return JEDEC_ACCESS
+        return access_timings(self.stack[dimm, bin_idx].tolist())
+
+    def lookup(self, dimm: int, temp_c: float) -> AccessTimings:
+        """Timing sets for the smallest bin covering ``temp_c`` (guard-banded
+        by the caller); above the last bin → JEDEC."""
+        return self.row(dimm, bin_index(self.temp_bins, temp_c))
+
+    def to(self, device: str | torch.device) -> "DimmTimingTable":
+        """The same registers and policy on ``device``."""
+        return DimmTimingTable(self.temp_bins, self.stack.to(device), self.refresh)
+
     @classmethod
-    def from_fleet(cls, result, temp_bins: Optional[Sequence[float]] = None
-                   ) -> "DimmTimingTable":
+    def from_fleet(cls, result, temp_bins: Optional[Sequence[float]] = None,
+                   refresh: Optional[RefreshPolicy] = None) -> "DimmTimingTable":
         """Transpose a :class:`~repro_torch.core.fleet.SweepResult`'s
         ``(T, N, 2, 4)`` stacked sets into ``(N, T, 2, 4)`` registers, on the
         sweep's device. The bin edges are the sweep's exact temperatures
@@ -109,7 +161,7 @@ class DimmTimingTable:
                 f"{result.read.shape[0]}-temperature sweep"
             )
         stack = result.stacked_timings().permute(1, 0, 2, 3).contiguous()
-        return cls(temp_bins=tuple(temp_bins), stack=stack)
+        return cls(temp_bins=tuple(temp_bins), stack=stack, refresh=refresh)
 
 
 # ---------------------------------------------------------------------------
@@ -142,6 +194,9 @@ def init_state(n_dimms: int, n_bins: int,
     )
 
 
+StepOut = Tuple[ControllerState, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
 def step(
     stack: torch.Tensor,
     edges: torch.Tensor,
@@ -149,13 +204,31 @@ def step(
     state: ControllerState,
     temps_c: torch.Tensor,
     errors: Optional[torch.Tensor] = None,
-) -> Tuple[ControllerState, torch.Tensor, torch.Tensor, torch.Tensor]:
+) -> StepOut:
     """Advance the whole fleet one observation.
 
     ``stack`` (N, B, 2, 4) float32, ``edges`` (B,) float32, ``temps_c`` /
     ``errors`` (N,). Errors fuse before the temperature is considered.
     Returns ``(state, rows (N, 2, 4), switched (N,), effective_bin (N,))``;
-    the effective bin ``n_bins`` is the JEDEC sentinel."""
+    the effective bin ``n_bins`` is the JEDEC sentinel. A CPU ``stack``
+    runs :func:`step_plain`; a CUDA one launches the replay-chunk kernel
+    for one step (bitwise the same rows), or raises."""
+    if stack.device.type == "cpu":
+        return step_plain(stack, edges, params, state, temps_c, errors)
+    from repro_torch.kernels.replay_step import ops as replay_ops
+
+    return replay_ops.step_kernel(stack, edges, params, state, temps_c, errors)
+
+
+def step_plain(
+    stack: torch.Tensor,
+    edges: torch.Tensor,
+    params: ControllerParams,
+    state: ControllerState,
+    temps_c: torch.Tensor,
+    errors: Optional[torch.Tensor] = None,
+) -> StepOut:
+    """:func:`step` in torch ops, on any device: the semantics definition."""
     n_bins = edges.shape[0]
     fused = state.fused if errors is None else state.fused | errors.to(torch.bool)
     t_eff = temps_c + params.guard_band_c
@@ -180,3 +253,189 @@ def step(
     rows = torch.where((eff_bin >= n_bins)[:, None, None],
                        jedec_rows(stack.device), picked)
     return ControllerState(new_bin, new_streak.to(torch.int32), fused), rows, switched, eff_bin
+
+
+# ---------------------------------------------------------------------------
+# Materialized replay
+# ---------------------------------------------------------------------------
+class ReplayResult(NamedTuple):
+    """Dense output of a trace replay (every array over (n_steps, n_dimms))."""
+
+    timings: torch.Tensor    # (S, N, 2, 4) float32 realized rows, ns
+    bin_idx: torch.Tensor    # (S, N) int32 effective bin (n_bins = JEDEC)
+    switched: torch.Tensor   # (S, N) bool
+    fused: torch.Tensor      # (S, N) bool, post-step fuse state
+    state: ControllerState   # final registers
+
+    @property
+    def switch_counts(self) -> torch.Tensor:
+        """(N,) per-DIMM timing-set switches over the trace."""
+        return self.switched.sum(dim=0)
+
+    @property
+    def total_switches(self) -> int:
+        return int(self.switched.sum())
+
+
+def replay(
+    table: DimmTimingTable,
+    traces,
+    errors=None,
+    params: ControllerParams = ControllerParams(),
+    state: Optional[ControllerState] = None,
+) -> ReplayResult:
+    """Replay whole ``(n_steps, n_dimms)`` temperature traces through the
+    controller on the table's device, one :func:`step` per observation —
+    on a card, one replay-chunk kernel launch per step — keeping the dense
+    history. ``errors`` is an optional same-shaped bool mask of error
+    injections (each fuses its DIMM to JEDEC from that step on); ``state``
+    an optional starting state (default: the boot state). Bit-exact with
+    feeding the same observations to :meth:`ALDRAMController.observe`."""
+    dev = table.device
+    traces = torch.as_tensor(traces).to(device=dev, dtype=torch.float32)
+    if traces.dim() != 2:
+        raise ValueError(f"traces must be (n_steps, n_dimms), got {tuple(traces.shape)}")
+    if traces.shape[1] != table.n_dimms:
+        raise ValueError(f"trace has {traces.shape[1]} DIMMs, table has {table.n_dimms}")
+    if errors is not None:
+        errors = torch.as_tensor(errors).to(device=dev, dtype=torch.bool)
+        if errors.shape != traces.shape:
+            raise ValueError(f"errors shape {tuple(errors.shape)} != traces shape "
+                             f"{tuple(traces.shape)}")
+    if state is None:
+        state = init_state(table.n_dimms, table.n_bins, dev)
+    n_steps, n = traces.shape
+    stack = table.oblivious_stack()
+    edges = torch.tensor(table.temp_bins, dtype=torch.float32, device=dev)
+    if dev.type == "cpu":
+        def one_step(st, temps, errs):
+            return step_plain(stack, edges, params, st, temps, errs)
+    else:
+        from repro_torch.kernels.replay_step import ops as replay_ops
+
+        one_step = replay_ops.StepKernel(stack, table.temp_bins, params)
+    timings = torch.empty((n_steps, n) + tuple(stack.shape[2:]), dtype=torch.float32,
+                          device=dev)
+    bin_idx = torch.empty((n_steps, n), dtype=torch.int32, device=dev)
+    switched = torch.empty((n_steps, n), dtype=torch.bool, device=dev)
+    fused = torch.empty((n_steps, n), dtype=torch.bool, device=dev)
+    for k in range(n_steps):
+        state, rows, sw, eff = one_step(state, traces[k], None if errors is None else errors[k])
+        timings[k] = rows
+        bin_idx[k] = eff
+        switched[k] = sw
+        fused[k] = state.fused
+    return ReplayResult(timings, bin_idx, switched, fused, state)
+
+
+def replay_stream(table: DimmTimingTable, traces, errors=None,
+                  params: ControllerParams = ControllerParams(),
+                  state: Optional[ControllerState] = None, chunk_steps: Optional[int] = None):
+    """Streamed (chunked) replay: the same state machine with no
+    materialized history. Delegates to
+    :func:`repro_torch.core.stream.replay_stream` (stream imports this
+    module, so the import is deferred)."""
+    from repro_torch.core import stream as _stream
+
+    kwargs = {} if chunk_steps is None else {"chunk_steps": chunk_steps}
+    return _stream.replay_stream(table, traces, errors=errors, params=params, state=state,
+                                 **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# Stateful wrapper (the per-observation API)
+# ---------------------------------------------------------------------------
+class ALDRAMController:
+    """Runtime timing selection with guard band, hysteresis and error fuse.
+
+    Every :meth:`observe` is one :func:`repro_torch.core.binning.advance_bin`
+    call on this DIMM's registers, which live on the host as numpy arrays,
+    as do the timing rows it reads (a host copy of the table). For whole
+    traces use :meth:`replay` (one :func:`step` per observation for the
+    whole fleet, on the table's device)."""
+
+    def __init__(self, table: DimmTimingTable, guard_band_c: float = GUARD_BAND_C,
+                 hysteresis_c: float = HYSTERESIS_C,
+                 hysteresis_steps: int = HYSTERESIS_STEPS):
+        self.table = table
+        self._host_table = table if table.device.type == "cpu" else table.to("cpu")
+        self.guard_band_c = guard_band_c
+        self.hysteresis_c = hysteresis_c
+        self.hysteresis_steps = hysteresis_steps
+        n, b = table.n_dimms, table.n_bins
+        self._bin = np.full((n,), b - 1, np.int32)
+        self._streak = np.zeros((n,), np.int32)
+        self._fused = np.zeros((n,), bool)
+        self.switch_count = 0
+        self.fallback_count = 0
+
+    @property
+    def params(self) -> ControllerParams:
+        return ControllerParams(self.guard_band_c, self.hysteresis_c, self.hysteresis_steps)
+
+    def observe(self, dimm: int, temp_c: float) -> AccessTimings:
+        """Feed a temperature observation; returns the read + write timing
+        sets to program."""
+        if self._fused[dimm]:
+            return JEDEC_ACCESS
+        new_bin, streak, switched = advance_bin(
+            self.table.temp_bins, int(self._bin[dimm]), int(self._streak[dimm]), temp_c,
+            guard=self.guard_band_c, margin=self.hysteresis_c,
+            hysteresis_steps=self.hysteresis_steps,
+        )
+        self._bin[dimm] = new_bin
+        self._streak[dimm] = streak
+        if switched:
+            self.switch_count += 1
+        return self.current(dimm)
+
+    def current(self, dimm: int) -> AccessTimings:
+        if self._fused[dimm]:
+            return JEDEC_ACCESS
+        return self._host_table.row(dimm, int(self._bin[dimm]))
+
+    def report_error(self, dimm: int) -> AccessTimings:
+        """Reliability fallback: any observed error fuses the DIMM to JEDEC
+        timings for good."""
+        self._fused[dimm] = True
+        self.fallback_count += 1
+        return JEDEC_ACCESS
+
+    def bin_of(self, dimm: int) -> Optional[int]:
+        return None if self._fused[dimm] else int(self._bin[dimm])
+
+    def state(self) -> ControllerState:
+        """Current registers as a :class:`ControllerState` on the table's device."""
+        dev = self.table.device
+        return ControllerState(
+            bin_idx=torch.from_numpy(self._bin.copy()).to(dev),
+            cool_streak=torch.from_numpy(self._streak.copy()).to(dev),
+            fused=torch.from_numpy(self._fused.copy()).to(dev),
+        )
+
+    def load_state(self, state: ControllerState) -> None:
+        self._bin = state.bin_idx.detach().cpu().numpy().astype(np.int32)
+        self._streak = state.cool_streak.detach().cpu().numpy().astype(np.int32)
+        self._fused = state.fused.detach().cpu().numpy().astype(bool)
+
+    def replay(self, traces, errors=None) -> ReplayResult:
+        """Advance this controller over whole traces with :func:`replay`,
+        then absorb the final registers and counters."""
+        result = replay(self.table, traces, errors=errors, params=self.params,
+                        state=self.state())
+        self.load_state(result.state)
+        self.switch_count += result.total_switches
+        if errors is not None:
+            self.fallback_count += int(torch.as_tensor(errors).to(torch.bool).sum())
+        return result
+
+    def replay_stream(self, traces, errors=None, chunk_steps: Optional[int] = None):
+        """Advance this controller over a host-memory trace in chunks
+        (:func:`replay_stream`) — the same absorption as :meth:`replay`
+        without a materialized history."""
+        result = replay_stream(self.table, traces, errors=errors, params=self.params,
+                               state=self.state(), chunk_steps=chunk_steps)
+        self.load_state(result.state)
+        self.switch_count += result.total_switches
+        self.fallback_count += result.errors_total
+        return result

@@ -6,10 +6,12 @@ bisection on ``ipc = 1 / cpi(ipc)``) evaluated over whole timing stacks at
 once, and the trace scorer the streaming controller finalizes:
 :class:`ScorePartials` (int32 occupancy per effective bin, int32 switch
 counts, float32 sums of the realized cycle-quantized timings — exact
-under any chunking) and :func:`trace_score_finalize`, which weights each
+under any chunking), :func:`trace_score_accumulate` (on a card, the fused
+CUDA kernel) and :func:`trace_score_finalize`, which weights each
 (DIMM, bin) register block's speedup over JEDEC by its time in that bin.
-
-Refresh-aware scoring is not ported yet (``refresh=None`` only).
+With ``refresh=`` (a :class:`~repro_torch.core.refresh.BinRefresh`) the
+score adds the combined latency + refresh figures: refresh steals bank and
+bus capacity and adds blocking latency in :func:`evaluate`.
 """
 
 from __future__ import annotations
@@ -165,21 +167,29 @@ def miss_service_ns(t: TimingParams, f: Dict[str, torch.Tensor], cfg: SystemConf
 
 
 def evaluate(t: TimingParams, cfg: SystemConfig, workloads: Tuple[Workload, ...] = WORKLOADS,
-             t_write: Optional[TimingParams] = None) -> Dict[str, torch.Tensor]:
+             t_write: Optional[TimingParams] = None, refresh_occ=0.0,
+             trfc_ns: float = 0.0) -> Dict[str, torch.Tensor]:
     """IPC per workload under timing set ``t`` (reads) and ``t_write``
     (writes). Timing fields are tensors that broadcast against the
-    workload axis (the last one)."""
+    workload axis (the last one).
+
+    ``refresh_occ`` — the rank's refresh occupancy (a float or a tensor
+    broadcasting like the timing fields): refresh shrinks the capacity of
+    the bank pool and the data bus by ``1 − occ`` and adds the expected
+    blocking ``occ · tRFC / 2`` to every request's latency. At the defaults
+    every term reduces exactly to the refresh-free arithmetic."""
     f = _fields(workloads, t.trcd.device)
-    lat = access_latency_ns(t, f, cfg, t_write)
+    lat = access_latency_ns(t, f, cfg, t_write) + refresh_occ * trfc_ns * 0.5
     svc = miss_service_ns(t, f, cfg, t_write)
     miss = 1.0 - f["row_hit"]
     banks_eff = cfg.n_banks * cfg.bank_balance
     ghz = cfg.cpu_ghz
+    avail = 1.0 - refresh_occ
 
     def cpi_of(ipc: torch.Tensor) -> torch.Tensor:
         rate = cfg.n_cores * ipc * ghz * f["mpki"] * 1e-3  # req/ns
-        rho_bank = torch.clamp(rate * miss * svc / banks_eff, 0.0, cfg.rho_max)
-        rho_bus = torch.clamp(rate * TBURST_NS, 0.0, cfg.rho_max)
+        rho_bank = torch.clamp(rate * miss * svc / (banks_eff * avail), 0.0, cfg.rho_max)
+        rho_bus = torch.clamp(rate * TBURST_NS / avail, 0.0, cfg.rho_max)
         queue = (
             rho_bank / (1.0 - rho_bank) * svc * 0.5
             + rho_bus / (1.0 - rho_bus) * TBURST_NS * 0.5
@@ -198,30 +208,48 @@ def evaluate(t: TimingParams, cfg: SystemConfig, workloads: Tuple[Workload, ...]
 
 
 def evaluate_stack(timings: torch.Tensor, cfg: SystemConfig,
-                   workloads: Tuple[Workload, ...] = WORKLOADS) -> torch.Tensor:
+                   workloads: Tuple[Workload, ...] = WORKLOADS,
+                   refresh_occ: Optional[torch.Tensor] = None,
+                   trfc_ns: float = 0.0) -> torch.Tensor:
     """IPC for a ``(..., 2, 4)`` per-access-type stack (read, write; ns):
-    ``(leading..., n_workloads)``."""
+    ``(leading..., n_workloads)``. ``refresh_occ`` — optional per-entry
+    refresh occupancy, broadcastable to the stack's leading axes."""
     if timings.dim() < 2 or tuple(timings.shape[-2:]) != (len(ACCESS_TYPES), len(PARAM_NAMES)):
         raise ValueError(f"expected a (..., 2, 4) timing stack, got {tuple(timings.shape)}")
     flat = timings.to(torch.float32).reshape(-1, 2, 4)
+    occ = None
+    if refresh_occ is not None:
+        occ = torch.as_tensor(refresh_occ, dtype=torch.float32, device=flat.device)
+        occ = occ.broadcast_to(timings.shape[:-2]).reshape(-1, 1)
     blocks = []
     for s in range(0, flat.shape[0], _ROWS_PER_BLOCK):
         ts = flat[s:s + _ROWS_PER_BLOCK, :, :, None]   # (M, 2, 4, 1)
         tr = TimingParams(ts[:, 0, 0], ts[:, 0, 1], ts[:, 0, 2], ts[:, 0, 3])
         tw = TimingParams(ts[:, 1, 0], ts[:, 1, 1], ts[:, 1, 2], ts[:, 1, 3])
-        blocks.append(evaluate(tr, cfg, workloads, t_write=tw)["ipc"])
+        kw = {} if occ is None else dict(refresh_occ=occ[s:s + _ROWS_PER_BLOCK],
+                                         trfc_ns=trfc_ns)
+        blocks.append(evaluate(tr, cfg, workloads, t_write=tw, **kw)["ipc"])
     ipc = torch.cat(blocks)
     return ipc.reshape(*timings.shape[:-2], ipc.shape[-1])
 
 
 def fleet_speedups(timings: torch.Tensor, cfg: SystemConfig = MULTI_CORE,
-                   workloads: Tuple[Workload, ...] = WORKLOADS) -> torch.Tensor:
+                   workloads: Tuple[Workload, ...] = WORKLOADS,
+                   refresh_occ: Optional[torch.Tensor] = None,
+                   trfc_ns: float = 0.0) -> torch.Tensor:
     """Per-entry geometric-mean speedup over JEDEC for a ``(..., 2, 4)``
-    per-access-type stack."""
+    per-access-type stack. With ``refresh_occ`` (per-entry occupancy,
+    broadcastable to the leading axes) it is the combined latency + refresh
+    speedup: each entry's JEDEC baseline pays the same refresh occupancy."""
     jedec = torch.tensor([list(JEDEC_DDR3_1600)] * 2, dtype=torch.float32,
                          device=timings.device)
-    base = evaluate_stack(jedec, cfg, workloads)
-    ratio = evaluate_stack(timings, cfg, workloads) / base
+    if refresh_occ is None:
+        base = evaluate_stack(jedec, cfg, workloads)
+        ratio = evaluate_stack(timings, cfg, workloads) / base
+    else:
+        kw = dict(refresh_occ=refresh_occ, trfc_ns=trfc_ns)
+        base = evaluate_stack(jedec.broadcast_to(timings.shape), cfg, workloads, **kw)
+        ratio = evaluate_stack(timings, cfg, workloads, **kw) / base
     return torch.exp(torch.log(ratio).mean(dim=-1))
 
 
@@ -236,8 +264,10 @@ class ScorePartials(NamedTuple):
     * ``switches`` — ``(n_dimms,)`` int32 timing-set switch counts. Exact.
     * ``timing_sums`` — ``(n_dimms, 2, 4)`` float32 sums of the realized
       rows (ns). Realized timings are multiples of tCK = 1.25 ns, so the
-      sums are exact under any accumulation order while
-      ``n_steps · max_timing < 2²⁴ · 1.25 ns`` (~600k steps).
+      sums are exact under any accumulation order while every partial sum
+      stays below 2²² ns, where the float32 spacing reaches 0.25 ns
+      (``n_steps · max_timing < 2²²``: ~120k steps at JEDEC tRAS; the
+      reference states ``2²⁴ · 1.25 ns``, which is 5× too loose).
     * ``n_steps`` — ``()`` int32 observations absorbed so far.
     """
 
@@ -261,7 +291,20 @@ def trace_score_init(n_dimms: int, n_bins: int,
 
 def trace_score_accumulate(partials: ScorePartials, timings: torch.Tensor,
                            bin_idx: torch.Tensor, switched: torch.Tensor) -> ScorePartials:
-    """Absorb a ``(chunk, n_dimms, 2, 4)`` block of replay outputs."""
+    """Absorb a ``(chunk, n_dimms, 2, 4)`` block of replay outputs: on CPU
+    partials :func:`trace_score_accumulate_plain`, on a card the fused CUDA
+    kernel (:func:`repro_torch.kernels.replay_step.ops.accumulate_chunk`),
+    bitwise the same by the exactness notes on :class:`ScorePartials`."""
+    if partials.occupancy.device.type == "cpu":
+        return trace_score_accumulate_plain(partials, timings, bin_idx, switched)
+    from repro_torch.kernels.replay_step import ops as replay_ops
+
+    return replay_ops.accumulate_chunk(partials, timings, bin_idx, switched)
+
+
+def trace_score_accumulate_plain(partials: ScorePartials, timings: torch.Tensor,
+                                 bin_idx: torch.Tensor, switched: torch.Tensor) -> ScorePartials:
+    """:func:`trace_score_accumulate` in torch ops, on any device."""
     n_bins1 = partials.occupancy.shape[-1]
     bins = torch.arange(n_bins1, dtype=torch.int32, device=bin_idx.device)
     occ = (bin_idx[:, :, None] == bins).sum(dim=0)
@@ -279,11 +322,15 @@ def trace_score_finalize(
     cfg: SystemConfig = MULTI_CORE,
     claim: float = PAPER_CLAIM_SPEEDUP,
     workloads: Tuple[Workload, ...] = WORKLOADS,
+    refresh=None,
 ) -> Dict[str, float]:
     """Final score dict from accumulated partials + the table's
     ``(n_dimms, n_bins, 2, 4)`` registers: realized latency reductions,
     realized speedups (all workloads and the claim's cohort), switching
-    activity and time at JEDEC."""
+    activity and time at JEDEC. ``refresh`` — an optional
+    :class:`~repro_torch.core.refresh.BinRefresh` — adds
+    ``refresh_occupancy_mean`` and ``speedup_combined_{mean, min,
+    intensive_mean, vs_claim}``; the latency-only figures do not change."""
     stack = stack.to(torch.float32)
     n_dimms, n_bins = stack.shape[0], stack.shape[1]
     if tuple(partials.occupancy.shape) != (n_dimms, n_bins + 1):
@@ -315,6 +362,20 @@ def trace_score_finalize(
     realized = (occ * sp).sum(dim=-1)
     realized_mem = (occ * sp_mem).sum(dim=-1)
     tras_flags = (stack[:, 0, 0, 1] < JEDEC_DDR3_1600.tras - 1e-6).to(torch.float32)
+    extra = None
+    if refresh is not None:
+        if len(refresh.occupancy) != occ.shape[-1]:
+            raise ValueError(f"refresh carries {len(refresh.occupancy)} per-bin occupancies "
+                             f"for {occ.shape[-1]} effective bins")
+        occ_bins = torch.tensor(refresh.occupancy, dtype=torch.float32, device=stack.device)
+        kw = dict(refresh_occ=occ_bins[None, :], trfc_ns=refresh.trfc_ns)
+        sp_c = fleet_speedups(rows, cfg, workloads, **kw)             # (N, B+1)
+        sp_c_mem = fleet_speedups(rows, cfg, MEM_INTENSIVE_WORKLOADS, **kw)
+        extra = {
+            "combined": (occ * sp_c).sum(dim=-1),
+            "combined_mem": (occ * sp_c_mem).sum(dim=-1),
+            "refresh_occ": (occ * occ_bins[None, :]).sum(dim=-1),
+        }
     switches = partials.switches.to(torch.int64)
     out = {
         "read_reduction_mean": float(red["read"].mean()),
@@ -330,6 +391,15 @@ def trace_score_finalize(
         "time_in_coolest_bin_frac": float(occ[:, 0].mean()),
         "tras_below_jedec_coolest_frac": float(tras_flags.mean()),
     }
+    if extra is not None:
+        combined_mem = float(extra["combined_mem"].mean() - 1.0)
+        out.update({
+            "refresh_occupancy_mean": float(extra["refresh_occ"].mean()),
+            "speedup_combined_mean": float(extra["combined"].mean() - 1.0),
+            "speedup_combined_min": float(extra["combined"].min() - 1.0),
+            "speedup_combined_intensive_mean": combined_mem,
+            "speedup_combined_vs_claim": combined_mem - claim,
+        })
     for access in ACCESS_TYPES:
         per = red[f"{access}_params"]
         for pi, param in enumerate(PARAM_NAMES):
@@ -339,12 +409,13 @@ def trace_score_finalize(
 
 def trace_score(stack: torch.Tensor, replay, cfg: SystemConfig = MULTI_CORE,
                 claim: float = PAPER_CLAIM_SPEEDUP,
-                workloads: Tuple[Workload, ...] = WORKLOADS) -> Dict[str, float]:
+                workloads: Tuple[Workload, ...] = WORKLOADS, refresh=None) -> Dict[str, float]:
     """Score a materialized replay (duck-typed: ``timings`` (S, N, 2, 4),
     ``bin_idx`` and ``switched`` (S, N)): init → accumulate the whole trace
-    as one block → finalize."""
+    as one block (on a card, one launch of the accumulate kernel) →
+    finalize, with the refresh figures when ``refresh`` is given."""
     partials = trace_score_accumulate(
         trace_score_init(stack.shape[0], stack.shape[1], stack.device),
         replay.timings, replay.bin_idx, replay.switched,
     )
-    return trace_score_finalize(partials, stack, cfg, claim, workloads)
+    return trace_score_finalize(partials, stack, cfg, claim, workloads, refresh)

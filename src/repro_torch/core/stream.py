@@ -180,10 +180,15 @@ class StreamResult(NamedTuple):
     def n_steps(self) -> int:
         return int(self.partials.n_steps)
 
+    @property
+    def total_switches(self) -> int:
+        return int(self.partials.switches.to(torch.int64).sum())
+
     def score(self, cfg=MULTI_CORE, claim: float = PAPER_CLAIM_SPEEDUP,
               workloads=WORKLOADS):
+        """The trace-score dict, with the table's refresh figures."""
         return trace_score_finalize(self.partials, self.table.oblivious_stack(),
-                                    cfg, claim, workloads)
+                                    cfg, claim, workloads, self.table.bin_refresh())
 
 
 class StreamingController:
@@ -251,9 +256,10 @@ class StreamingController:
 
     def score(self, cfg=MULTI_CORE, claim: float = PAPER_CLAIM_SPEEDUP,
               workloads=WORKLOADS):
-        """The running trace-score dict over everything ingested so far."""
+        """The running trace-score dict over everything ingested so far,
+        with the refresh figures when the table carries a refresh policy."""
         return trace_score_finalize(self.partials, self.table.oblivious_stack(),
-                                    cfg, claim, workloads)
+                                    cfg, claim, workloads, self.table.bin_refresh())
 
     def result(self) -> StreamResult:
         return StreamResult(state=self.state, partials=self.partials, table=self.table,

@@ -1,17 +1,35 @@
 """Thermal scenarios for trace-driven controller evaluation, in PyTorch.
 
-Only the paper's deployment regime, :func:`diurnal`, is ported: a
-day/night sinusoid in the measured 26–34 °C server band, per-DIMM placement
-skew and sensor noise, drift-bounded (<0.1 °C/s, paper §1.4). Traces are
-``(n_steps, n_dimms)`` float32. Random draws come from a
-``torch.Generator``, or are passed in pre-drawn (:class:`DiurnalNoise`),
-which is how the tests feed both packages the same draws.
+Whole-fleet temperature traces, ``(n_steps, n_dimms)`` float32 °C, that
+either respect the paper's field bounds (§1.4: drift <0.1 °C/s, never above
+34 °C) or deliberately violate them:
+
+* :func:`diurnal` — the paper's regime: a day/night sinusoid in the measured
+  26–34 °C server band, per-DIMM placement skew and sensor noise,
+  drift-bounded.
+* :func:`cold_start` — power-on below ambient, settling exponentially into
+  the diurnal band (drift-bounded).
+* :func:`load_bursts` — job-placement heat spikes with sharp onsets
+  (violates the drift bound on purpose).
+* :func:`hvac_failure` — cooling loss: a sustained ramp past the last
+  profiled bin (violates both bounds; exercises the JEDEC sentinel).
+* :func:`refresh_storm` — half the fleet dwells just inside the
+  extended-temperature range (>85 °C), where refresh doubles.
+* :func:`hot_bank` — a fraction of the fleet lifted a few °C by a hammered
+  bank, gradually.
+* :func:`design_skew` — thermally the diurnal regime (its signature is the
+  region-access mix, which waits for the region slice).
+* :func:`vendor_skew` — per-vendor constant thermal offsets.
+
+Random draws come from a ``torch.Generator``, or are passed in pre-drawn
+(:class:`DiurnalNoise`, :class:`EventDraws`), which is how the tests feed
+the port the reference's own ``jax.random`` draws.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -26,9 +44,6 @@ DEFAULT_DT_S: float = 60.0
 #: Lowest physically plausible machine-room temperature we generate.
 MIN_AMBIENT_C: float = 10.0
 
-#: Scenarios of the reference; only "diurnal" is ported.
-SCENARIOS = ("diurnal",)
-
 
 class DiurnalNoise(NamedTuple):
     """Standardized draws of one diurnal trace."""
@@ -36,6 +51,29 @@ class DiurnalNoise(NamedTuple):
     phase: torch.Tensor   # (n_dimms,) standard normal
     skew: torch.Tensor    # (n_dimms,) uniform in [-1, 1)
     noise: torch.Tensor   # (n_steps, n_dimms) standard normal
+
+
+class EventDraws(NamedTuple):
+    """Draws of a scenario made of a diurnal base plus one Bernoulli mask,
+    kept as uniforms in [0, 1) so the mask is ``u < probability``:
+    ``(n_steps, n_dimms)`` burst onsets (:func:`load_bursts`) or
+    ``(n_dimms,)`` hot DIMMs (:func:`refresh_storm`, :func:`hot_bank`)."""
+
+    base: DiurnalNoise
+    u: torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# Drift-bound helpers
+# ---------------------------------------------------------------------------
+def drift_rates(trace: torch.Tensor, dt_s: float) -> torch.Tensor:
+    """Absolute per-step drift rates, °C/s — shape (n_steps-1, n_dimms)."""
+    return torch.abs(torch.diff(trace, dim=0)) / dt_s
+
+
+def max_drift_rate(trace: torch.Tensor, dt_s: float) -> float:
+    """Worst |dT/dt| anywhere in the trace, °C/s."""
+    return float(drift_rates(trace, dt_s).max())
 
 
 def enforce_drift_bound(trace: torch.Tensor, dt_s: float,
@@ -47,6 +85,9 @@ def enforce_drift_bound(trace: torch.Tensor, dt_s: float,
     return torch.cat([trace[:1], trace[:1] + torch.cumsum(steps, dim=0)], dim=0)
 
 
+# ---------------------------------------------------------------------------
+# Draws
+# ---------------------------------------------------------------------------
 def draw_diurnal_noise(generator: torch.Generator, n_dimms: int, n_steps: int,
                        device: str | torch.device = "cuda") -> DiurnalNoise:
     dev = resolve_device(device)
@@ -58,6 +99,22 @@ def draw_diurnal_noise(generator: torch.Generator, n_dimms: int, n_steps: int,
     )
 
 
+def draw_events(generator: torch.Generator, n_dimms: int, n_steps: int,
+                shape: Tuple[int, ...], device: str | torch.device = "cuda") -> EventDraws:
+    base = draw_diurnal_noise(generator, n_dimms, n_steps, device)
+    u = torch.rand(shape, generator=generator, dtype=torch.float32,
+                   device=base.noise.device)
+    return EventDraws(base=base, u=u)
+
+
+def _steps(n_steps: int, like: torch.Tensor) -> torch.Tensor:
+    """(n_steps, 1) float32 step indices."""
+    return torch.arange(n_steps, dtype=torch.float32, device=like.device)[:, None]
+
+
+# ---------------------------------------------------------------------------
+# Scenarios
+# ---------------------------------------------------------------------------
 def diurnal(
     generator: Optional[torch.Generator],
     n_dimms: int,
@@ -75,8 +132,7 @@ def diurnal(
     Draws come from ``generator`` unless ``draws`` are given."""
     if draws is None:
         draws = draw_diurnal_noise(generator, n_dimms, n_steps, device)
-    dev = draws.noise.device
-    t_s = torch.arange(n_steps, dtype=torch.float32, device=dev)[:, None] * dt_s
+    t_s = _steps(n_steps, draws.noise) * dt_s
     phase = 0.15 * draws.phase
     skew = skew_c * draws.skew
     wave = swing_c * torch.sin(2.0 * math.pi * t_s / period_s + phase[None, :])
@@ -84,14 +140,152 @@ def diurnal(
     return enforce_drift_bound(torch.clamp(out, min=MIN_AMBIENT_C), dt_s)
 
 
-def generate(name: str, generator: torch.Generator, n_dimms: int, n_steps: int,
-             dt_s: float = DEFAULT_DT_S, device: str | torch.device = "cuda") -> torch.Tensor:
-    """Dispatch a scenario by name (only ``"diurnal"`` is ported)."""
-    if name != "diurnal":
-        raise NotImplementedError(
-            f"scenario {name!r}: the other seven scenarios are not ported yet"
-        )
-    return diurnal(generator, n_dimms, n_steps, dt_s, device=device)
+def cold_start(generator, n_dimms: int, n_steps: int, dt_s: float = DEFAULT_DT_S,
+               start_c: float = 18.0, settle_tau_s: float = 1800.0,
+               device: str | torch.device = "cuda", draws: Optional[DiurnalNoise] = None,
+               **diurnal_kw) -> torch.Tensor:
+    """Power-on below ambient, settling exponentially into the diurnal band
+    (drift-bounded: the default time constant warms at ~0.007 °C/s)."""
+    steady = diurnal(generator, n_dimms, n_steps, dt_s, device=device, draws=draws,
+                     **diurnal_kw)
+    settle = torch.exp(-(_steps(n_steps, steady) * dt_s) / settle_tau_s)
+    out = steady + (start_c - steady[0])[None, :] * settle
+    return enforce_drift_bound(out, dt_s)
+
+
+def _event_draws(generator, n_dimms: int, n_steps: int, shape, device,
+                 draws: Optional[EventDraws]) -> EventDraws:
+    return draw_events(generator, n_dimms, n_steps, shape, device) if draws is None else draws
+
+
+def load_bursts(generator, n_dimms: int, n_steps: int, dt_s: float = DEFAULT_DT_S,
+                burst_c: float = 18.0, burst_prob: float = 0.005, burst_len: int = 8,
+                device: str | torch.device = "cuda", draws: Optional[EventDraws] = None,
+                **diurnal_kw) -> torch.Tensor:
+    """Job-placement heat spikes on the diurnal base: a +``burst_c`` step in
+    one observation (violating the drift bound on purpose) that holds for
+    ``burst_len`` steps after each onset."""
+    draws = _event_draws(generator, n_dimms, n_steps, (n_steps, n_dimms), device, draws)
+    base = diurnal(None, n_dimms, n_steps, dt_s, draws=draws.base, **diurnal_kw)
+    onsets = draws.u < burst_prob
+    # A burst holds for `burst_len` steps: rolling any-onset window.
+    cs = torch.cumsum(onsets.to(torch.int32), dim=0)
+    lag = min(burst_len, n_steps)
+    lagged = torch.cat([torch.zeros((lag, n_dimms), dtype=cs.dtype, device=cs.device),
+                        cs[:n_steps - lag]], dim=0)
+    active = (cs - lagged) > 0
+    return base + burst_c * active.to(torch.float32)
+
+
+def hvac_failure(generator, n_dimms: int, n_steps: int, dt_s: float = DEFAULT_DT_S,
+                 onset_frac: float = 0.5, ramp_c_per_s: float = 0.25, peak_c: float = 95.0,
+                 device: str | torch.device = "cuda", draws: Optional[DiurnalNoise] = None,
+                 **diurnal_kw) -> torch.Tensor:
+    """Cooling loss at ``onset_frac`` of the trace: a sustained ramp past the
+    drift bound, beyond the last profiled bin, capped at ``peak_c``."""
+    base = diurnal(generator, n_dimms, n_steps, dt_s, device=device, draws=draws,
+                   **diurnal_kw)
+    onset = int(onset_frac * n_steps)
+    steps_after = torch.clamp(_steps(n_steps, base) - float(onset), min=0.0)
+    ramp = ramp_c_per_s * dt_s * steps_after
+    return torch.clamp(base + ramp, max=peak_c)
+
+
+def _excursion(generator, n_dimms: int, n_steps: int, dt_s: float, onset_frac: float,
+               recover_frac: float, cap, hot_frac: float, ramp_c_per_s: float, device,
+               draws: Optional[EventDraws], diurnal_kw) -> torch.Tensor:
+    """A random ``hot_frac`` of the fleet ramps up from ``onset_frac``, holds
+    at ``cap(base)`` and ramps back from ``recover_frac`` of the trace."""
+    draws = _event_draws(generator, n_dimms, n_steps, (n_dimms,), device, draws)
+    base = diurnal(None, n_dimms, n_steps, dt_s, draws=draws.base, **diurnal_kw)
+    onset = int(onset_frac * n_steps)
+    recover = int(recover_frac * n_steps)
+    t = _steps(n_steps, base)
+    rate = ramp_c_per_s * dt_s
+    rise = torch.clamp(t - float(onset), min=0.0) * rate
+    fall = torch.clamp(t - float(recover), min=0.0) * rate
+    env = torch.clamp(torch.minimum(rise, cap(base)) - fall, min=0.0)
+    hot = draws.u < hot_frac
+    return base + env * hot[None, :].to(torch.float32)
+
+
+def refresh_storm(generator, n_dimms: int, n_steps: int, dt_s: float = DEFAULT_DT_S,
+                  onset_frac: float = 0.25, recover_frac: float = 0.75,
+                  plateau_c: float = 88.0, hot_frac: float = 0.5, ramp_c_per_s: float = 0.05,
+                  device: str | torch.device = "cuda", draws: Optional[EventDraws] = None,
+                  **diurnal_kw) -> torch.Tensor:
+    """Extended-temperature storm: a random ``hot_frac`` of the fleet ramps
+    past 85 °C within the drift bound, holds a ``plateau_c`` plateau between
+    ``onset_frac`` and ``recover_frac`` of the trace, then ramps back."""
+    def lift(base):
+        return torch.clamp(plateau_c - base, min=0.0)
+
+    return _excursion(generator, n_dimms, n_steps, dt_s, onset_frac, recover_frac, lift,
+                      hot_frac, ramp_c_per_s, device, draws, diurnal_kw)
+
+
+def hot_bank(generator, n_dimms: int, n_steps: int, dt_s: float = DEFAULT_DT_S,
+             onset_frac: float = 0.2, recover_frac: float = 0.8, lift_c: float = 7.0,
+             hot_frac: float = 0.35, ramp_c_per_s: float = 0.05,
+             device: str | torch.device = "cuda", draws: Optional[EventDraws] = None,
+             **diurnal_kw) -> torch.Tensor:
+    """Bank-locality hotspot: a random ``hot_frac`` of the fleet lifted by
+    ``lift_c`` for the middle of the trace, ramped within the drift bound."""
+    def lift(base):
+        return torch.full_like(base, lift_c)
+
+    return _excursion(generator, n_dimms, n_steps, dt_s, onset_frac, recover_frac, lift,
+                      hot_frac, ramp_c_per_s, device, draws, diurnal_kw)
+
+
+def design_skew(generator, n_dimms: int, n_steps: int, dt_s: float = DEFAULT_DT_S,
+                device: str | torch.device = "cuda", draws: Optional[DiurnalNoise] = None,
+                **diurnal_kw) -> torch.Tensor:
+    """Design-induced-variation regime: thermally the diurnal one (its
+    region-access mix waits for the region slice)."""
+    return diurnal(generator, n_dimms, n_steps, dt_s, device=device, draws=draws,
+                   **diurnal_kw)
+
+
+def vendor_skew(generator, n_dimms: int, n_steps: int, dt_s: float = DEFAULT_DT_S,
+                vendor: Optional[torch.Tensor] = None,
+                offsets_c: Sequence[float] = (0.0, 3.0, 6.0),
+                device: str | torch.device = "cuda", draws: Optional[DiurnalNoise] = None,
+                **diurnal_kw) -> torch.Tensor:
+    """Fleet heterogeneity: each vendor's modules run at a constant thermal
+    offset. ``vendor`` is the fleet's vendor index (default round-robin)."""
+    base = diurnal(generator, n_dimms, n_steps, dt_s, device=device, draws=draws,
+                   **diurnal_kw)
+    if vendor is None:
+        vendor = torch.arange(n_dimms, device=base.device) % len(offsets_c)
+    offsets = torch.tensor(tuple(offsets_c), dtype=torch.float32, device=base.device)
+    return base + offsets[vendor.to(base.device).long() % len(offsets_c)][None, :]
+
+
+#: Scenario registry: name → generator with the uniform
+#: ``(generator, n_dimms, n_steps, dt_s, **kw)`` signature.
+SCENARIOS: Dict[str, Callable[..., torch.Tensor]] = {
+    "diurnal": diurnal,
+    "cold_start": cold_start,
+    "load_bursts": load_bursts,
+    "hvac_failure": hvac_failure,
+    "refresh_storm": refresh_storm,
+    "vendor_skew": vendor_skew,
+    "hot_bank": hot_bank,
+    "design_skew": design_skew,
+}
+
+
+def generate(name: str, generator: Optional[torch.Generator], n_dimms: int, n_steps: int,
+             dt_s: float = DEFAULT_DT_S, device: str | torch.device = "cuda",
+             **kw) -> torch.Tensor:
+    """Dispatch a scenario by name (see :data:`SCENARIOS`); ``kw`` goes to
+    the generator (``draws=``, ``vendor=`` for ``vendor_skew``, ...)."""
+    try:
+        fn = SCENARIOS[name]
+    except KeyError:
+        raise ValueError(f"unknown scenario {name!r}; choose from {sorted(SCENARIOS)}") from None
+    return fn(generator, n_dimms, n_steps, dt_s, device=device, **kw)
 
 
 def error_injections(generator: torch.Generator, n_steps: int, n_dimms: int,

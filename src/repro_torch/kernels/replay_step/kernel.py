@@ -15,6 +15,12 @@ so that a warp's reads are coalesced:
 :func:`replay_chunk_plain` converts to the public layouts and runs the
 reference scan (:func:`.ref.chunk_scan`). Both return new
 ``(state3, occ, sw, sums)``.
+
+The fused score accumulation over a materialized history works on the
+public layouts instead (the reference's ``(S, N, ...)`` replay outputs and
+``ScorePartials``): :func:`accumulate_cuda` launches ``csrc/accumulate.cu``,
+:func:`accumulate_plain` is the plain version. Both take and return
+``(occ (N, B+1) int32, sw (N,) int32, sums (N, 2, 4) float32)``.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.core.controller import ControllerParams, ControllerState
+from repro_torch.core.perfmodel import ScorePartials, trace_score_accumulate_plain
 from repro_torch.kernels import _build
 from repro_torch.kernels.replay_step import ref
 
@@ -142,3 +149,70 @@ def replay_chunk_cuda(state3, occ, sw, sums, stack_t, temps, errs,
 
 
 replay_chunk_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Fused score accumulation over a materialized history
+# ---------------------------------------------------------------------------
+Partials3 = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+@functools.lru_cache(maxsize=None)
+def _accumulate_lib() -> ctypes.CDLL:
+    lib = _build.load("accumulate")
+    lib.accumulate_launch.argtypes = [ctypes.c_void_p] * 9 + [
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int32, ctypes.c_void_p,
+    ]
+    lib.accumulate_launch.restype = ctypes.c_int
+    lib.accumulate_max_bins.restype = ctypes.c_int
+    if lib.accumulate_max_bins() != MAX_BINS:
+        raise RuntimeError(f"csrc/accumulate.cu is built for {lib.accumulate_max_bins()} "
+                           f"bins, this wrapper for {MAX_BINS}")
+    return lib
+
+
+def accumulate_plain(occ, sw, sums, timings, bins, switched) -> Partials3:
+    """Fold ``timings`` (S, N, 2, 4), ``bins`` (S, N) and ``switched`` (S, N)
+    into the running ``(occ, sw, sums)`` in torch ops on any device (same
+    contract as :func:`accumulate_cuda`)."""
+    zero = torch.zeros((), dtype=torch.int32, device=occ.device)
+    p = trace_score_accumulate_plain(ScorePartials(occ, sw, sums, zero), timings, bins,
+                                     switched != 0)
+    return p.occupancy, p.switches, p.timing_sums
+
+
+def accumulate_cuda(occ, sw, sums, timings, bins, switched) -> Partials3:
+    """Launch ``csrc/accumulate.cu`` on PyTorch's current stream: ``occ``
+    (N, B+1) int32, ``sw`` (N,) int32, ``sums`` (N, 2, 4) float32 running
+    partials; ``timings`` (S, N, 2, 4) float32 (16-byte aligned), ``bins``
+    (S, N) int32, ``switched`` (S, N) uint8 — all contiguous on one card.
+    Returns new partials. Counts its launches in ``accumulate_cuda.launches``."""
+    n, n_bins1 = occ.shape
+    if not 2 <= n_bins1 <= MAX_BINS + 1:
+        raise ValueError(f"the CUDA accumulate kernel takes 1..{MAX_BINS} bins, "
+                         f"got {n_bins1 - 1}")
+    steps = bins.shape[0]
+    shapes = dict(occ=(n, n_bins1), sw=(n,), sums=(n, 2, 4), timings=(steps, n, 2, 4),
+                  bins=(steps, n), switched=(steps, n))
+    dtypes = dict(occ=torch.int32, sw=torch.int32, sums=torch.float32,
+                  timings=torch.float32, bins=torch.int32, switched=torch.uint8)
+    args = dict(occ=occ, sw=sw, sums=sums, timings=timings, bins=bins, switched=switched)
+    for name, t in args.items():
+        _build.require(t, name, dtypes[name], shapes[name])
+        if t.device != occ.device:
+            raise ValueError(f"{name} is on {t.device}, occ on {occ.device}")
+    if timings.data_ptr() % 16:
+        raise ValueError("timings must be 16-byte aligned for the kernel's float4 loads")
+    outs = tuple(torch.empty_like(t) for t in (occ, sw, sums))
+    lib = _accumulate_lib()
+    rc = lib.accumulate_launch(
+        *(_build.ptr(t) for t in (bins, switched, timings, occ, sw, sums)),
+        *(_build.ptr(t) for t in outs),
+        n, steps, n_bins1 - 1, _build.stream_ptr(occ.device),
+    )
+    _build.check(lib, rc, "accumulate_launch")
+    accumulate_cuda.launches += 1
+    return outs
+
+
+accumulate_cuda.launches = 0

@@ -1,18 +1,21 @@
 """Policy folding, layout conversion and dispatch for the fused replay
-chunk scan.
+chunk scan and the fused score accumulation.
 
 :func:`chunk_scan` runs one chunk on the slot-major operands of
 :mod:`.kernel`: a CPU tensor goes to the plain version
 (:func:`.kernel.replay_chunk_plain`), a CUDA tensor to the CUDA kernel
 (:func:`.kernel.replay_chunk_cuda`), which raises if it cannot launch.
-The ``to_*`` / ``from_*`` helpers convert between the public layouts and
-the slot-major ones; the streaming engine converts the table once and the
-partials only when they are read.
+:class:`StepKernel` is ``controller.step`` on a card: the chunk kernel at
+chunk 1. :func:`accumulate_chunk` is ``perfmodel.trace_score_accumulate``
+on a card (:func:`.kernel.accumulate_cuda`). The ``to_*`` / ``from_*``
+helpers convert between the public layouts and the slot-major ones; the
+streaming engine converts the table once and the partials only when they
+are read.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +27,8 @@ from repro_torch.kernels.replay_step.kernel import (
     Operands,
     ReplayScalars,
     _lib,
+    accumulate_cuda,
+    accumulate_plain,
     replay_chunk_cuda,
     replay_chunk_plain,
 )
@@ -52,6 +57,59 @@ def chunk_scan(state3, occ, sw, sums, stack_t, temps, errs, scal: ReplayScalars)
     if state3.device.type == "cpu":
         return replay_chunk_plain(state3, occ, sw, sums, stack_t, temps, errs, scal)
     return replay_chunk_cuda(state3, occ, sw, sums, stack_t, temps, errs, scal)
+
+
+class StepKernel:
+    """``controller.step`` on a card, bound to one table: each call launches
+    the replay-chunk kernel for one step against zeroed partials. The
+    one-step occupancy is the one-hot of the effective bin, the switch count
+    is the switch flag, and the one-step timing sums are the realized rows
+    (``0 + row`` is exact), so all three come back bitwise. The table is
+    converted to the slot-major layout once, here."""
+
+    def __init__(self, stack: torch.Tensor, temp_bins: Sequence[float],
+                 params: ControllerParams):
+        n, n_bins = stack.shape[0], len(temp_bins)
+        dev = stack.device
+        self.scal = replay_scalars(temp_bins, params)
+        self.stack_t = to_stack_t(stack)
+        self.zero = (torch.zeros((n_bins + 1, n), dtype=torch.int32, device=dev),
+                     torch.zeros((n,), dtype=torch.int32, device=dev),
+                     torch.zeros((ROW_SLOTS, n), dtype=torch.float32, device=dev))
+        self.no_errors = torch.zeros((1, n), dtype=torch.uint8, device=dev)
+
+    def __call__(self, state: ControllerState, temps_c: torch.Tensor,
+                 errors: Optional[torch.Tensor] = None):
+        n = self.stack_t.shape[1]
+        temps = temps_c.to(torch.float32).reshape(1, n).contiguous()
+        errs = (self.no_errors if errors is None
+                else errors.to(torch.uint8).reshape(1, n).contiguous())
+        state3, occ, sw, sums = replay_chunk_cuda(to_state3(state), *self.zero,
+                                                  self.stack_t, temps, errs, self.scal)
+        rows = sums.t().reshape(n, 2, 4)
+        eff = occ.argmax(dim=0).to(torch.int32)
+        return from_state3(state3), rows, sw > 0, eff
+
+
+def step_kernel(stack, edges, params: ControllerParams, state: ControllerState, temps_c,
+                errors=None):
+    """One fleet observation on a card; ``controller.step``'s contract."""
+    return StepKernel(stack, edges.tolist(), params)(state, temps_c, errors)
+
+
+def accumulate_chunk(partials: ScorePartials, timings, bin_idx, switched) -> ScorePartials:
+    """``perfmodel.trace_score_accumulate`` through the fused kernel: fold a
+    ``(chunk, N)`` block of replay outputs into the running partials on the
+    operands' device — CPU → plain, CUDA → kernel."""
+    fn = accumulate_plain if partials.occupancy.device.type == "cpu" else accumulate_cuda
+    occ, sw, sums = fn(
+        partials.occupancy.contiguous(), partials.switches.contiguous(),
+        partials.timing_sums.contiguous(), timings.to(torch.float32).contiguous(),
+        bin_idx.to(torch.int32).contiguous(),
+        switched.contiguous().view(torch.uint8) if switched.dtype == torch.bool
+        else switched.to(torch.uint8).contiguous(),
+    )
+    return ScorePartials(occ, sw, sums, partials.n_steps + int(timings.shape[0]))
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,10 @@
 """Plain PyTorch replay chunk scan — the semantics definition.
 
 One chunk of observations advances the controller state machine
-(:func:`repro_torch.core.controller.step`) step by step and folds each
+(:func:`repro_torch.core.controller.step_plain`) step by step and folds each
 step's decisions into the running :class:`ScorePartials`
-(:func:`repro_torch.core.perfmodel.trace_score_accumulate` on a one-step
-block). Timing sums therefore take one float32 add per (step, slot) in
+(:func:`repro_torch.core.perfmodel.trace_score_accumulate_plain` on a
+one-step block). Timing sums therefore take one float32 add per (step, slot) in
 step order; the CUDA kernel (:mod:`.kernel`) must reproduce the final
 state and partials bit for bit. Public layouts are the reference's:
 ``(N,)`` state, ``(N, B+1)`` occupancy, ``(N, 2, 4)`` sums,
@@ -17,8 +17,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.controller import ControllerParams, ControllerState, step
-from repro_torch.core.perfmodel import ScorePartials, trace_score_accumulate
+from repro_torch.core.controller import ControllerParams, ControllerState, step_plain
+from repro_torch.core.perfmodel import ScorePartials, trace_score_accumulate_plain
 
 
 def chunk_body(stack: torch.Tensor, edges: torch.Tensor, params: ControllerParams,
@@ -26,10 +26,10 @@ def chunk_body(stack: torch.Tensor, edges: torch.Tensor, params: ControllerParam
                errors: Optional[torch.Tensor]) -> Tuple[ControllerState, ScorePartials]:
     """Scan one chunk, accumulating score partials per step."""
     for k in range(temps.shape[0]):
-        state, rows, switched, eff = step(
+        state, rows, switched, eff = step_plain(
             stack, edges, params, state, temps[k], None if errors is None else errors[k]
         )
-        partials = trace_score_accumulate(partials, rows[None], eff[None], switched[None])
+        partials = trace_score_accumulate_plain(partials, rows[None], eff[None], switched[None])
     return state, partials
 
 

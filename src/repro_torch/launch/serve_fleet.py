@@ -77,21 +77,22 @@ def _sync(dev: torch.device) -> None:
 _LOOP_RANGE = "serve_loop"
 
 
-def _trace_summary(prof, top: int = 6) -> Dict:
-    """Read a profiled streaming loop: the loop's span, the device's busy
-    time in it (the union of kernel, copy and memset intervals), device time
-    by activity, and the host operations with the most self time."""
+def _trace_summary(prof, top: int = 6, range_name: str = _LOOP_RANGE) -> Dict:
+    """Read a profiled loop (the ``record_function`` range ``range_name``):
+    the loop's span, the device's busy time in it (the union of kernel, copy
+    and memset intervals), device time by activity, and the host operations
+    with the most self time."""
     from torch.autograd import DeviceType
 
     events = prof.events()
-    loop = next(e for e in events if e.name == _LOOP_RANGE
+    loop = next(e for e in events if e.name == range_name
                 and e.device_type == DeviceType.CPU)
     lo, hi = loop.time_range.start, loop.time_range.end
     spans = sorted(
         (max(e.time_range.start, lo), min(e.time_range.end, hi), e.name)
         for e in events
         if e.device_type == DeviceType.CUDA and not e.is_user_annotation
-        and e.name != _LOOP_RANGE
+        and e.name != range_name
     )
     busy_us, reach, by_name = 0.0, lo, {}
     for a, b, name in spans:
@@ -102,7 +103,7 @@ def _trace_summary(prof, top: int = 6) -> Dict:
             busy_us += b - max(a, reach)
             reach = b
     host = sorted(((e.key, e.self_cpu_time_total * 1e-6, e.count)
-                   for e in prof.key_averages() if e.key != _LOOP_RANGE),
+                   for e in prof.key_averages() if e.key != range_name),
                   key=lambda r: -r[1])[:top]
     loop_s = (hi - lo) * 1e-6
     return {

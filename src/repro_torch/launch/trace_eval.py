@@ -1,0 +1,291 @@
+"""Trace-driven controller evaluation: a fleet's week of telemetry, replayed.
+
+Profiles a synthetic fleet into timing registers (the charge-sweep kernel on
+a card), gives the table a refresh policy, generates one of the thermal
+scenarios (:mod:`repro_torch.core.traces`), replays it through the
+controller with the dense history kept (:func:`~repro_torch.core.controller.replay`:
+on a card one replay-chunk kernel launch per step), holds the replay
+bitwise against the per-observation :class:`ALDRAMController` loop on a
+sub-grid, and scores the realized latency reductions, switching activity
+and speedups against the paper's 14 % claim — latency-only and combined
+with refresh (:func:`~repro_torch.core.perfmodel.trace_score_accumulate`:
+on a card one launch of the accumulate kernel).
+
+  PYTHONPATH=src python -m repro_torch.launch.trace_eval --device cpu --tiny
+  PYTHONPATH=src python -m repro_torch.launch.trace_eval --device cuda \\
+      --n-dimms 65536 --n-steps 10000 --scenario refresh_storm
+
+Gates (the run raises on any): the replay equals the observe loop
+exactly on the sub-grid; every DIMM's coolest-bin read tRAS sits below
+JEDEC; with a refresh policy the combined speedups do not exceed the
+latency-only ones. Rows print as ``name,value,reference`` lines; no file is
+written. The reference's region and sharded sections are not ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import controller, fleet, perfmodel, traces
+from repro_torch.core import refresh as rf
+
+#: --refresh choices -> table refresh policy.
+REFRESH_POLICIES = {"ddr3": rf.DDR3_EXTENDED, "ddr3_4x": rf.DDR3_EXTENDED_4X, "off": None}
+
+#: Scenarios whose reference evaluation adds a region section by default.
+REGION_SCENARIOS = ("design_skew", "hot_bank")
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def observe_loop(table: controller.DimmTimingTable, trace: np.ndarray,
+                 errors: np.ndarray):
+    """The per-observation execution model: one :meth:`ALDRAMController.observe`
+    per (step, DIMM). Returns ``(rows (S, N, 2, 4) float32, seconds)``."""
+    ctl = controller.ALDRAMController(table)
+    n_steps, n_dimms = trace.shape
+    rows = np.zeros((n_steps, n_dimms, 2, 4), np.float32)
+    t0 = time.perf_counter()
+    for s in range(n_steps):
+        for d in range(n_dimms):
+            if errors[s, d]:
+                ctl.report_error(d)
+            t = ctl.observe(d, float(trace[s, d]))
+            rows[s, d, 0] = tuple(t.read)
+            rows[s, d, 1] = tuple(t.write)
+    return rows, time.perf_counter() - t0
+
+
+def run(
+    n_dimms: int = 1000,
+    n_steps: int = 10_000,
+    scenario: str = "diurnal",
+    temp_bins=controller.DEFAULT_TEMP_BINS,
+    dt_s: float = traces.DEFAULT_DT_S,
+    error_rate: float = 0.0,
+    baseline_dimms: int = 24,
+    baseline_steps: int = 500,
+    seed: int = 0,
+    verbose: bool = True,
+    sharded: bool = False,
+    refresh: str = "ddr3",
+    regions: Optional[int] = None,
+    device: str | torch.device = "cuda",
+    fleet_in: Optional[fleet.Fleet] = None,
+    table: Optional[controller.DimmTimingTable] = None,
+    trace: Optional[torch.Tensor] = None,
+    errors: Optional[torch.Tensor] = None,
+) -> Dict:
+    """Evaluate the controller on one scenario; returns ``rows`` (name,
+    value, reference) as the reference benchmark prints them, the ``score``
+    dict, the ``partials``, the ``replay`` history, and the ``table``,
+    ``trace`` and ``errors`` it used.
+
+    Inputs are made from ``seed`` with one ``torch.Generator`` on the device
+    (fleet, then trace, then errors) unless given: ``fleet_in`` (on
+    ``device``) replaces the synthesized fleet, ``table`` the profiled
+    registers (its refresh policy is replaced by ``refresh``'s), ``trace``
+    / ``errors`` the generated telemetry; the last three are moved to
+    ``device``."""
+    if sharded:
+        raise NotImplementedError(
+            "--sharded: the DIMM-axis split over torch.distributed is not ported yet "
+            "(ROADMAP queue 1 item 6, shard.py)")
+    if regions is None and scenario in REGION_SCENARIOS:
+        regions = 0
+        if verbose:
+            print(f"# note: {scenario} pairs with a region-access mix in the reference; "
+                  "regions are not ported yet (ROADMAP queue 1 item 1), so this run "
+                  "scores the region-free table only")
+    if regions:
+        raise NotImplementedError(
+            f"regions={regions}: the region section (sweep_regions, rank-5 tables, "
+            "region_trace_score) is not ported yet (ROADMAP queue 1 item 1)")
+    if scenario not in traces.SCENARIOS:
+        raise ValueError(f"unknown scenario {scenario!r}; choose from {sorted(traces.SCENARIOS)}")
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    policy = REFRESH_POLICIES[refresh]
+
+    fl = fleet_in
+    if table is None:
+        if fl is None:
+            fl = fleet.synthesize(gen, n_dimms, device=dev)
+        sweep = fleet.sweep(fl, temps_c=tuple(temp_bins), patterns=(1.0,))
+        table = controller.DimmTimingTable.from_fleet(sweep, refresh=policy)
+    else:
+        table = controller.DimmTimingTable(table.temp_bins, table.stack.to(dev), policy)
+    n_dimms = table.n_dimms
+    if trace is None:
+        kw = ({"vendor": None if fl is None else fl.vendor}
+              if scenario == "vendor_skew" else {})
+        trace = traces.generate(scenario, gen, n_dimms, n_steps, dt_s, device=dev, **kw)
+    trace = torch.as_tensor(trace).to(device=dev, dtype=torch.float32)
+    n_steps = int(trace.shape[0])
+    if errors is None:
+        errors = traces.error_injections(gen, n_steps, n_dimms, error_rate, device=dev)
+    errors = torch.as_tensor(errors).to(device=dev, dtype=torch.bool)
+    drift = traces.max_drift_rate(trace, dt_s)
+
+    # -- replay: a warm run, then the timed one ----------------------------
+    res = controller.replay(table, trace, errors)
+    _sync(dev)
+    res = None  # free the warm history before the timed replay allocates its own
+    t0 = time.perf_counter()
+    res = controller.replay(table, trace, errors)
+    _sync(dev)
+    t_scan = time.perf_counter() - t0
+
+    # -- per-observation loop on a sub-grid, and the exactness gate --------
+    n_b, s_b = min(baseline_dimms, n_dimms), min(baseline_steps, n_steps)
+    sub_table = controller.DimmTimingTable(table.temp_bins, table.stack[:n_b].contiguous())
+    sub_trace = trace[:s_b, :n_b].cpu().numpy()
+    sub_err = errors[:s_b, :n_b].cpu().numpy()
+    loop_rows, t_loop_measured = observe_loop(sub_table, sub_trace, sub_err)
+    t_loop = t_loop_measured * (n_dimms * n_steps) / (n_b * s_b)
+    speedup = t_loop / t_scan
+    sub_res = controller.replay(sub_table, sub_trace, sub_err)
+    sub_rows = sub_res.timings.cpu().numpy()
+    exact = bool(np.array_equal(sub_rows, loop_rows))
+    max_err = float(np.abs(sub_rows - loop_rows).max())
+    if not exact:
+        raise AssertionError(f"replay diverged from the observe loop: max|err| = {max_err} ns "
+                             f"on the {n_b}x{s_b} sub-grid")
+
+    # -- scoring: init -> accumulate the whole history -> finalize ---------
+    t0 = time.perf_counter()
+    partials = perfmodel.trace_score_accumulate(
+        perfmodel.trace_score_init(n_dimms, table.n_bins, dev),
+        res.timings, res.bin_idx, res.switched)
+    _sync(dev)
+    t_accumulate = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    score = perfmodel.trace_score_finalize(partials, table.stack, refresh=table.bin_refresh())
+    t_finalize = time.perf_counter() - t0
+    fused_dimms = float(res.state.fused.sum())
+
+    if score["tras_below_jedec_coolest_frac"] < 1.0:
+        raise AssertionError(
+            "tRAS-at-JEDEC symptom: some DIMM's coolest-bin read set does not reduce "
+            f"tRAS below JEDEC (frac={score['tras_below_jedec_coolest_frac']:.6f})")
+    if policy is not None:
+        for lat, comb in (("speedup_realized_mean", "speedup_combined_mean"),
+                          ("speedup_realized_intensive_mean",
+                           "speedup_combined_intensive_mean")):
+            if score[comb] > score[lat]:
+                raise AssertionError(f"{comb} {score[comb]:.6f} exceeds the latency-only "
+                                     f"{lat} {score[lat]:.6f}")
+
+    rows = [
+        ("trace/scenario_" + scenario, 1.0, ""),
+        ("trace/n_dimms", float(n_dimms), ""),
+        ("trace/n_steps", float(n_steps), ""),
+        ("trace/transitions", float(n_dimms) * n_steps, ""),
+        ("trace/max_drift_c_per_s", drift, f"paper bound {traces.PAPER_MAX_DRIFT_C_PER_S}"),
+        ("trace/scan_seconds", t_scan, f"device {dev}"),
+        ("trace/accumulate_seconds", t_accumulate, ""),
+        ("trace/finalize_seconds", t_finalize, ""),
+        ("trace/loop_seconds_extrapolated", t_loop, ""),
+        ("trace/speedup_vs_loop", speedup, ""),
+        ("trace/loop_equivalence_exact", float(exact), "==1"),
+        ("trace/loop_max_abs_error_ns", max_err, "==0"),
+        ("trace/read_reduction_mean", score["read_reduction_mean"], ""),
+        ("trace/write_reduction_mean", score["write_reduction_mean"], ""),
+        ("trace/read_tras_reduction_mean", score["read_tras_reduction_mean"], "> 0"),
+        ("trace/write_tras_reduction_mean", score["write_tras_reduction_mean"], ""),
+        ("trace/read_trcd_reduction_mean", score["read_trcd_reduction_mean"], ""),
+        ("trace/write_twr_reduction_mean", score["write_twr_reduction_mean"], ""),
+        ("trace/tras_below_jedec_coolest_frac", score["tras_below_jedec_coolest_frac"], "==1"),
+        ("trace/speedup_realized_mean", score["speedup_realized_mean"], ""),
+        ("trace/speedup_realized_intensive_mean", score["speedup_realized_intensive_mean"],
+         f"paper claim {perfmodel.PAPER_CLAIM_SPEEDUP}"),
+        ("trace/speedup_vs_claim", score["speedup_vs_claim"], ""),
+        ("trace/switches_total", score["switches_total"], ""),
+        ("trace/switches_per_kstep", score["switches_per_kstep"], ""),
+        ("trace/time_at_jedec_frac", score["time_at_jedec_frac"], ""),
+        ("trace/time_in_coolest_bin_frac", score["time_in_coolest_bin_frac"], ""),
+        ("trace/fused_dimms", fused_dimms, "0 unless error injection"),
+    ]
+    if policy is not None:
+        rows.extend([
+            ("trace/refresh_occupancy_mean", score["refresh_occupancy_mean"],
+             f"1x floor {policy.occupancy_of(1.0):.5f}"),
+            ("trace/speedup_combined_mean", score["speedup_combined_mean"], "<= latency-only"),
+            ("trace/speedup_combined_intensive_mean", score["speedup_combined_intensive_mean"],
+             f"paper claim {perfmodel.PAPER_CLAIM_SPEEDUP} (latency+refresh)"),
+            ("trace/speedup_combined_vs_claim", score["speedup_combined_vs_claim"], ""),
+            ("trace/refresh_dilution_intensive",
+             score["speedup_realized_intensive_mean"] - score["speedup_combined_intensive_mean"],
+             ">= 0"),
+        ])
+
+    if verbose:
+        print(f"# {scenario}: {n_dimms} DIMMs x {n_steps} steps = {n_dimms * n_steps:,} "
+              f"transitions on {dev} (max drift {drift:.3f} C/s)")
+        print(f"# replay: {t_scan:.3f} s | observe loop: {t_loop_measured:.2f} s for "
+              f"{n_b}x{s_b} -> {t_loop:.1f} s extrapolated | speedup {speedup:,.0f}x")
+        print(f"# loop equivalence: exact={exact} max|err|={max_err:.2e} ns")
+        print(f"# realized: read -{score['read_reduction_mean'] * 100:.1f}% write "
+              f"-{score['write_reduction_mean'] * 100:.1f}% | perf "
+              f"+{score['speedup_realized_mean'] * 100:.1f}% all, "
+              f"+{score['speedup_realized_intensive_mean'] * 100:.1f}% mem-intensive | "
+              f"{score['switches_total']:.0f} switches")
+        if policy is not None:
+            print(f"# refresh ({refresh}): occupancy {score['refresh_occupancy_mean'] * 100:.2f}% "
+                  f"of tREFI | combined +{score['speedup_combined_mean'] * 100:.1f}% all, "
+                  f"+{score['speedup_combined_intensive_mean'] * 100:.1f}% mem-intensive")
+    return {"rows": rows, "score": score, "partials": partials, "replay": res,
+            "table": table, "trace": trace, "errors": errors, "scan_s": t_scan,
+            "loop_exact": exact}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--n-dimms", type=int, default=None, help="fleet size (default 1000)")
+    ap.add_argument("--n-steps", type=int, default=None,
+                    help="trace length in observations (default 10000)")
+    ap.add_argument("--scenario", choices=sorted(traces.SCENARIOS), default="diurnal")
+    ap.add_argument("--dt-s", type=float, default=traces.DEFAULT_DT_S,
+                    help="seconds per observation (default 60)")
+    ap.add_argument("--error-rate", type=float, default=0.0,
+                    help="per-(step, DIMM) error-injection probability")
+    ap.add_argument("--refresh", choices=sorted(REFRESH_POLICIES), default="ddr3",
+                    help="refresh policy of the table (default ddr3: 1x/2x above 85 C)")
+    ap.add_argument("--baseline-dimms", type=int, default=None,
+                    help="DIMMs timed in the observe loop (default 24)")
+    ap.add_argument("--baseline-steps", type=int, default=None,
+                    help="steps timed in the observe loop (default 500)")
+    ap.add_argument("--tiny", action="store_true", help="64 DIMMs x 512 steps, loop 8 x 128")
+    ap.add_argument("--sharded", action="store_true", help="not ported yet (raises)")
+    ap.add_argument("--regions", type=int, default=None, help="not ported yet (> 0 raises)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args()
+    sizes = dict(n_dimms=args.n_dimms, n_steps=args.n_steps,
+                 baseline_dimms=args.baseline_dimms, baseline_steps=args.baseline_steps)
+    if args.tiny:
+        conflicts = [f"--{k.replace('_', '-')}" for k, v in sizes.items() if v is not None]
+        if conflicts:
+            ap.error(f"--tiny fixes the configuration; remove {', '.join(conflicts)}")
+        sizes = dict(n_dimms=64, n_steps=512, baseline_dimms=8, baseline_steps=128)
+    defaults = dict(n_dimms=1000, n_steps=10_000, baseline_dimms=24, baseline_steps=500)
+    sizes = {k: defaults[k] if v is None else v for k, v in sizes.items()}
+    report = run(scenario=args.scenario, dt_s=args.dt_s, error_rate=args.error_rate,
+                 seed=args.seed, sharded=args.sharded, refresh=args.refresh,
+                 regions=args.regions, device=args.device, **sizes)
+    for name, value, ref in report["rows"]:
+        print(f"{name},{value:.6g},{ref}")
+
+
+if __name__ == "__main__":
+    main()

@@ -13,12 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import charge, controller, fleet
+from repro_torch.core import charge, controller, fleet, perfmodel
 from repro_torch.kernels.charge_sweep import kernel as sweep_kernel
 from repro_torch.kernels.charge_sweep import ops as sweep_ops
 from repro_torch.kernels.replay_step import kernel as replay_kernel
 from repro_torch.kernels.replay_step import ops as replay_ops
-from repro_torch.launch import serve_fleet
+from repro_torch.launch import serve_fleet, trace_eval
 
 pytestmark = pytest.mark.cuda
 
@@ -121,3 +121,77 @@ def test_service_with_errors_arriving_midstream(cuda_device):
     assert on_card.engine.errors_total == on_cpu.engine.errors_total > 0
     for a, b in zip(on_card.engine.partials, on_cpu.engine.partials):
         assert torch.equal(_bits(a.cpu()), _bits(b))
+
+
+def _card_replay(g, dev, n, steps, error_rate=1e-3):
+    """A card replay of temperatures over every bin, with errors."""
+    table = serve_fleet.bootstrap_table(g, n, device=dev)
+    temps = torch.rand((steps, n), generator=g, device=dev) * 75 + 20
+    errs = torch.rand(temps.shape, generator=g, device=dev) < error_rate
+    return table, temps, errs
+
+
+def test_accumulate_kernel_matches_plain(cuda_device):
+    """A ragged real history folded into nonzero running partials: every
+    word equal; the JEDEC column is reached; one launch."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    table, temps, errs = _card_replay(g, cuda_device, 4099, 97)
+    res = controller.replay(table, temps, errs)
+    n, b1 = table.n_dimms, table.n_bins + 1
+    start = (torch.randint(0, 50, (n, b1), generator=g, device=cuda_device, dtype=torch.int32),
+             torch.randint(0, 50, (n,), generator=g, device=cuda_device, dtype=torch.int32),
+             torch.randint(0, 400, (n, 2, 4), generator=g, device=cuda_device,
+                           dtype=torch.int32).to(torch.float32) * 1.25)
+    args = (*start, res.timings, res.bin_idx, res.switched.view(torch.uint8))
+    before = replay_kernel.accumulate_cuda.launches
+    got = replay_kernel.accumulate_cuda(*args)
+    assert replay_kernel.accumulate_cuda.launches == before + 1
+    want = replay_kernel.accumulate_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(_bits(a), _bits(b))
+    assert int((got[0] - start[0])[:, -1].sum()) > 0      # fused or too hot: JEDEC
+    # The perfmodel entry point dispatches to the kernel on the card.
+    p = perfmodel.trace_score_accumulate(perfmodel.trace_score_init(n, table.n_bins, cuda_device),
+                                         res.timings, res.bin_idx, res.switched)
+    assert replay_kernel.accumulate_cuda.launches == before + 2
+    assert int(p.n_steps) == 97
+
+
+def test_card_step_matches_plain_step(cuda_device):
+    """``replay`` on the card (the chunk kernel at chunk 1, every step) is
+    bitwise the plain step loop on the card."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    table, temps, errs = _card_replay(g, cuda_device, 4099, 64, error_rate=5e-3)
+    before = replay_kernel.replay_chunk_cuda.launches
+    res = controller.replay(table, temps, errs)
+    assert replay_kernel.replay_chunk_cuda.launches == before + 64
+    edges = torch.tensor(table.temp_bins, dtype=torch.float32, device=cuda_device)
+    st = controller.init_state(table.n_dimms, table.n_bins, cuda_device)
+    p = controller.ControllerParams()
+    for k in range(64):
+        st, rows, sw, eff = controller.step_plain(table.stack, edges, p, st, temps[k], errs[k])
+        assert torch.equal(_bits(res.timings[k]), _bits(rows))
+        assert torch.equal(res.bin_idx[k], eff) and torch.equal(res.switched[k], sw)
+        assert torch.equal(res.fused[k], st.fused)
+    for a, b in zip(res.state, st):
+        assert torch.equal(a, b)
+    one = controller.step(table.stack, edges, p, controller.init_state(
+        table.n_dimms, table.n_bins, cuda_device), temps[0], errs[0])
+    assert torch.equal(_bits(one[1]), _bits(res.timings[0]))
+
+
+def test_trace_eval_card_matches_cpu(cuda_device):
+    kw = dict(scenario="refresh_storm", error_rate=1e-3, verbose=False,
+              baseline_dimms=8, baseline_steps=64)
+    card = trace_eval.run(n_dimms=512, n_steps=200, device=cuda_device, **kw)
+    host = trace_eval.run(device="cpu", table=card["table"].to("cpu"),
+                          trace=card["trace"].cpu(), errors=card["errors"].cpu(), **kw)
+    for k in ("timings", "bin_idx", "switched", "fused"):
+        assert torch.equal(_bits(getattr(card["replay"], k).cpu()),
+                           _bits(getattr(host["replay"], k))), k
+    for a, b in zip(card["partials"], host["partials"]):
+        assert torch.equal(_bits(a.cpu()), _bits(b))
+    assert set(card["score"]) == set(host["score"])
+    for k, v in host["score"].items():
+        assert card["score"][k] == pytest.approx(v, abs=1e-5), k
