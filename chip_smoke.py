@@ -7,8 +7,9 @@ Run from the repository root with no arguments::
 
 Phases, each of which exits non-zero on failure:
 
-1. Card check: name and power limit, versions, and the build of the three
-   CUDA kernels (one ``nvcc`` per source, started together).
+1. Card check: name and power limit, versions, float32 matrix products in
+   full float32 (no TF32), and the build of the four CUDA kernels (one
+   ``nvcc`` per source, started together).
 2. Charge sweep, kernel vs plain PyTorch version, on the full boot sweep
    (1,048,576 DIMMs × 4 bins) plus the JEDEC-corner cell and a 95 °C
    above-grid column: indices must be equal. Timed at the boot shape.
@@ -45,12 +46,28 @@ Phases, each of which exits non-zero on failure:
    refresh ddr3, no errors, each with every kernel's launch count read
    around it; then a 200-step window of such a replay under
    ``torch.profiler`` for the device's busy share per step.
-9. One JSON line describing each kernel; the card's name and power limit;
+9. Flash attention, kernel vs plain on six cases — the LM serve shape
+   (B 4, H 24, Hk 8, S 1,024, dh 128, causal), a long causal 8,192, a
+   ragged 1,000, a 512-token window, SmolLM's heads (H 9, Hk 3, dh 64) and
+   a non-causal ragged cross shape: ``max|kernel - plain| <= 1e-5 *
+   max|plain| + 1e-6``. Timed at the serve shape against its bound, beside
+   its plain version and ``scaled_dot_product_attention`` (the yardstick).
+10. LM serve, card vs CPU: reduced Llama-3.2-3B with the same weights and
+   prompts, prefill and 8 teacher-forced decode steps: logits within 1e-4,
+   greedy ids equal wherever the CPU's top-2 gap exceeds 2e-4.
+11. LM serve main path: ``launch.serve.serve`` on Llama-3.2-3B at full
+   width (28 layers, d_model 3,072, random weights from a seed), 4 prompts
+   of 1,024 tokens, 32 new tokens: one flash-attention launch per layer in
+   the prefill, none elsewhere; prefill ms, decode ms a token, peak device
+   memory. Then one prefill and a few decode steps of the same model under
+   ``torch.profiler`` for the device's busy share and where the time goes.
+12. One JSON line describing each kernel; the card's name and power limit;
    the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -78,6 +95,20 @@ RAGGED_ACC_DIMMS, RAGGED_ACC_STEPS = 4096, 97
 STEP_CHECK_STEPS = 512
 PROFILED_STEPS = 200
 EVAL_SMALL_DIMMS, EVAL_SMALL_STEPS = 4096, 500
+#: Flash-attention checks: (name, B, Sq, Skv, H, Hk, dh, causal, window).
+FA_CASES = (
+    ("serve", 4, 1024, 1024, 24, 8, 128, True, 0),
+    ("long causal", 1, 8192, 8192, 24, 8, 128, True, 0),
+    ("ragged", 4, 1000, 1000, 24, 8, 128, True, 0),
+    ("window 512", 2, 2048, 2048, 24, 8, 128, True, 512),
+    ("smollm heads", 4, 1024, 1024, 9, 3, 64, True, 0),
+    ("non-causal", 2, 1000, 777, 24, 8, 128, False, 0),
+)
+LM_ARCH = "llama3.2-3b"
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 1024, 32
+LM_SMALL_BATCH, LM_SMALL_PROMPT, LM_SMALL_STEPS = 2, 40, 8
+LM_TOL = 1e-4
+LM_PROFILED_DECODE = 4
 
 #: Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 non-tensor FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -92,6 +123,9 @@ SWEEP_OPS_PER_CANDIDATE = 39
 REPLAY_OPS_PER_STEP = 15
 #: Float operations per (step, DIMM) of the accumulation: eight sum adds.
 ACCUMULATE_OPS_PER_STEP = 8
+#: Float operations per unmasked (query, key) pair and head dim of attention:
+#: a multiply-add in Q K^T and one in P V.
+ATTENTION_OPS_PER_PAIR_DIM = 4
 
 
 def fail(msg: str) -> None:
@@ -130,6 +164,134 @@ def bound_ms(n_bytes: float, n_ops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def flash_attention_phase(torch, dev, gen, fa_k):
+    """Phase 9: the kernel against its plain version on every case, then
+    timed at the serve shape. Returns the kernel's figures."""
+    max_err = 0.0
+    for name, b, sq, skv, h, hk, dh, causal, window in FA_CASES:
+        q = torch.randn((b, sq, h, dh), generator=gen, device=dev)
+        k, v = (torch.randn((b, skv, hk, dh), generator=gen, device=dev) for _ in range(2))
+        got = fa_k.flash_attention_cuda(q, k, v, causal=causal, window=window)
+        want = fa_k.flash_attention_plain(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        tol = fa_k.tolerance(want)
+        log(f"flash attention, {name}: B {b}, Sq {sq}, Skv {skv}, H {h}, Hk {hk}, dh {dh}, "
+            f"causal {causal}, window {window}: max|kernel - plain| {err:.3e} (tolerance "
+            f"{tol:.3e})")
+        if not (err <= tol and bool(torch.isfinite(got).all())):
+            fail(f"flash-attention kernel disagrees with its plain version on {name}")
+        max_err = max(max_err, err)
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+
+    _, b, s, _, h, hk, dh, _, _ = FA_CASES[0]
+    q = torch.randn((b, s, h, dh), generator=gen, device=dev)
+    k, v = (torch.randn((b, s, hk, dh), generator=gen, device=dev) for _ in range(2))
+    fa_ms = cuda_ms(torch, lambda: fa_k.flash_attention_cuda(q, k, v, causal=True), 20)
+    plain_ms = cuda_ms(torch, lambda: fa_k.flash_attention_plain(q, k, v, causal=True), 3)
+    # The library yardstick on head-major copies (its preferred layout).
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa_ms = cuda_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True, enable_gqa=True), 20)
+    pairs = b * h * s * (s + 1) // 2
+    bound, by = bound_ms(4 * (2 * b * s * h * dh + 2 * b * s * hk * dh),
+                         ATTENTION_OPS_PER_PAIR_DIM * dh * pairs)
+    log(f"flash attention at the serve shape: kernel {fa_ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        f"scaled_dot_product_attention {sdpa_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+        f"{ATTENTION_OPS_PER_PAIR_DIM * dh * pairs / fa_ms / 1e9:.2f} TFLOP/s")
+    return {"max_abs_err": max_err, "ms": fa_ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": sdpa_ms}
+
+
+def lm_card_vs_cpu_phase(dev):
+    """Phase 10: reduced Llama on the card and on the CPU, same weights and
+    prompts; the decode is teacher-forced with the CPU's ids."""
+    from repro_torch.launch import serve as lm_launch
+
+    r = lm_launch.compare_card_to_cpu(LM_ARCH, dev, LM_SMALL_BATCH, LM_SMALL_PROMPT,
+                                      LM_SMALL_STEPS, LM_TOL)
+    log(f"LM serve card vs CPU, reduced {LM_ARCH} ({r['n_layers']} layers, d_model "
+        f"{r['d_model']}, dh {r['d_head']}), {LM_SMALL_BATCH} × {LM_SMALL_PROMPT}-token "
+        f"prompts + {LM_SMALL_STEPS} decode steps: max logit difference {r['logit_err']:.3e}, "
+        f"max cache difference {r['cache_err']:.3e} (tolerance {LM_TOL:g}); greedy ids equal "
+        f"at {r['agree']} of {r['sure']} positions whose top-2 gap exceeds {2 * LM_TOL:g}; "
+        f"flash-attention launches in the card's prefill {r['prefill_launches']}, in its "
+        f"decode {r['decode_launches']}")
+    if (r["logit_err"] > LM_TOL or r["cache_err"] > LM_TOL or not r["sure"]
+            or r["agree"] != r["sure"]
+            or r["prefill_launches"] != r["n_layers"] or r["decode_launches"]):
+        fail("LM serve on the card disagrees with the CPU reference")
+
+
+def lm_main_path_phase(torch, dev, zero_counts, read_counts):
+    """Phase 11: the main path, every kernel's count read around it, then a
+    profiled prefill and a few decode steps of the same model."""
+    import repro_torch.configs as lm_configs
+    from repro_torch.launch import serve as lm_launch
+    from repro_torch.launch import serve_fleet
+    from repro_torch.models import model as lm
+    from repro_torch.train import serve as lm_serve
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    cfg = lm_configs.get(LM_ARCH)
+    torch.cuda.empty_cache()
+    zero_counts()
+    ids, rep = lm_launch.serve(LM_ARCH, batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN,
+                               reduced=False, device=dev, return_report=True)
+    launches = read_counts()
+    torch.cuda.synchronize()
+    n_params = cfg.param_count()
+    log(f"LM serve main path: {LM_ARCH} at full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, dh {cfg.d_head}, vocab "
+        f"{cfg.vocab_size:,}, {n_params / 1e9:.3f}e9 parameters, float32), {LM_BATCH} × "
+        f"{LM_PROMPT}-token prompts, {LM_GEN} new tokens: prefill "
+        f"{rep['prefill_s'] * 1e3:.3f} ms, decode {rep['decode_s_per_token'] * 1e3:.3f} ms a "
+        f"token, peak device memory {rep['peak_device_bytes'] / 2**30:.2f} GiB, launches "
+        f"{launches}")
+    log(f"  generated ids[0, :16]: {ids[0, :16].tolist()}")
+    want = {name: 0 for name in launches}
+    want["flash_attention"] = cfg.n_layers
+    if launches != want:
+        fail(f"LM serve main path launched {launches}, expected {want} (one flash-attention "
+             f"launch per layer in the prefill)")
+    if (tuple(ids.shape) != (LM_BATCH, LM_GEN) or not rep["logits_finite"]
+            or int(ids.min()) < 0 or int(ids.max()) >= cfg.vocab_size):
+        fail("LM serve main path: malformed ids or non-finite logits")
+    del ids
+
+    # Where the time goes: one prefill and a few decode steps, profiled.
+    cfg = dataclasses.replace(cfg, attn_impl="pallas")
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), dtype=torch.int32,
+                            generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    sc = lm_serve.ServeConfig(max_len=LM_PROMPT + LM_PROFILED_DECODE + 1,
+                              cache_dtype="float32")
+    prefill, decode = lm_serve.make_prefill_step(cfg, sc), lm_serve.make_decode_step(cfg, sc)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("lm_prefill"):
+            last, caches = prefill(params, {"tokens": prompts})
+            nxt = torch.argmax(last, -1)[:, None].to(torch.int32)
+            torch.cuda.synchronize()
+        with record_function("lm_decode"):
+            for i in range(LM_PROFILED_DECODE):
+                nxt, _, caches = decode(params, caches, nxt, LM_PROMPT + i)
+            torch.cuda.synchronize()
+    for name in ("lm_prefill", "lm_decode"):
+        tr = serve_fleet._trace_summary(prof, top=8, range_name=name)
+        steps = 1 if name == "lm_prefill" else LM_PROFILED_DECODE
+        log(f"{name} under torch.profiler ({steps} call(s)): span {tr['loop_s']:.4f} s "
+            f"({tr['loop_s'] / steps * 1e3:.3f} ms a call), device busy "
+            f"{tr['device_busy_s'] * 1e3:.3f} ms ({tr['device_busy_frac'] * 100:.2f} %)")
+        top = dict(list(tr["device_s_by_name"].items())[:8])
+        log("  device time by activity (s): " + json.dumps(top))
+    log("  host ops by self time (both ranges): " + json.dumps(tr["host_self_s_top"]))
+    del params, caches, prompts, prof
+    torch.cuda.empty_cache()
+    return {"launches": launches, "report": rep}
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -141,6 +303,7 @@ def main() -> None:
         from repro_torch.kernels import _build
         from repro_torch.kernels.charge_sweep import kernel as sweep_k
         from repro_torch.kernels.charge_sweep import ops as sweep_ops
+        from repro_torch.kernels.flash_attention import kernel as fa_k
         from repro_torch.kernels.replay_step import kernel as replay_k
         from repro_torch.kernels.replay_step import ops as replay_ops
         from repro_torch.launch import serve_fleet, trace_eval
@@ -148,12 +311,28 @@ def main() -> None:
         fail(f"cannot import the port (run from the repository root): {e}")
 
     dev = torch.device("cuda")
+    counters = {"charge_sweep": sweep_k.charge_sweep_cuda,
+                "replay_chunk": replay_k.replay_chunk_cuda,
+                "accumulate": replay_k.accumulate_cuda,
+                "flash_attention": fa_k.flash_attention_cuda}
+
+    def zero_counts() -> None:
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts() -> dict:
+        return {name: fn.launches for name, fn in counters.items()}
+
     # ---- 1. card check and build -------------------------------------------
     smi = nvidia_smi()
     log(f"card: {smi} | torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        fail("float32 matrix products must run in full float32 (TF32 off, precision "
+             "'highest'): the LM checks hold the card to the CPU in float32")
     t0 = time.perf_counter()
-    logs = _build.build(["charge_sweep", "replay_step", "accumulate"])
+    logs = _build.build(["charge_sweep", "replay_step", "accumulate", "flash_attention"])
     log(f"kernels built in {time.perf_counter() - t0:.2f} s (parallel nvcc)")
     for name, out in logs.items():
         regs = sorted({line.split("Used ")[1].split(",")[0]
@@ -346,12 +525,10 @@ def main() -> None:
     if not same or score_err > 1e-5:
         fail("the service on the card disagrees with the CPU reference")
 
-    sweep_k.charge_sweep_cuda.launches = 0
-    replay_k.replay_chunk_cuda.launches = 0
+    zero_counts()
     report = serve_fleet.serve(n_dimms=FULL_DIMMS, n_steps=SERVE_STEPS, chunk=CHUNK,
                                scenario="diurnal", error_rate=0.0, device=dev)
-    launches = {"charge_sweep": sweep_k.charge_sweep_cuda.launches,
-                "replay_chunk": replay_k.replay_chunk_cuda.launches}
+    launches = read_counts()
     score = report["score"]
     log(f"serve main path: {FULL_DIMMS:,} DIMMs × {SERVE_STEPS} steps in "
         f"{report['n_chunks']} chunks: wall {report['wall_s']:.3f} s, "
@@ -364,6 +541,8 @@ def main() -> None:
         fail("the main path never launched the charge-sweep kernel")
     if launches["replay_chunk"] != report["n_chunks"]:
         fail(f"replay-chunk launches {launches['replay_chunk']} != chunks {report['n_chunks']}")
+    if launches["accumulate"] or launches["flash_attention"]:
+        fail(f"the serve main path launched kernels of other paths: {launches}")
     if not all(math.isfinite(v) for v in score.values()):
         fail("non-finite score figure")
     if {m.split(".")[0] for m in sys.modules} & {"jax", "jaxlib", "repro"}:
@@ -493,16 +672,12 @@ def main() -> None:
     for scenario in EVAL_SCENARIOS:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
-        sweep_k.charge_sweep_cuda.launches = 0
-        replay_k.replay_chunk_cuda.launches = 0
-        replay_k.accumulate_cuda.launches = 0
+        zero_counts()
         t0 = time.perf_counter()
         rep = trace_eval.run(n_dimms=EVAL_DIMMS, n_steps=EVAL_STEPS, scenario=scenario,
                              refresh="ddr3", error_rate=0.0, device=dev)
         wall = time.perf_counter() - t0
-        got_l = {"charge_sweep": sweep_k.charge_sweep_cuda.launches,
-                 "replay_chunk": replay_k.replay_chunk_cuda.launches,
-                 "accumulate": replay_k.accumulate_cuda.launches}
+        got_l = read_counts()
         eval_launches[scenario] = got_l
         sc = rep["score"]
         log(f"trace-eval main path, {scenario}: {EVAL_DIMMS:,} DIMMs × {EVAL_STEPS:,} steps, "
@@ -515,7 +690,7 @@ def main() -> None:
             f"{sc['refresh_occupancy_mean']:.6f}, switches_total {sc['switches_total']:.0f}")
         log("  rows: " + json.dumps({name: value for name, value, _ in rep["rows"]}))
         want_l = {"charge_sweep": 1, "replay_chunk": 2 * EVAL_STEPS + EVAL_LOOP_STEPS,
-                  "accumulate": 1}
+                  "accumulate": 1, "flash_attention": 0}
         if got_l != want_l:
             fail(f"trace-eval {scenario}: launches {got_l}, expected {want_l} (two "
                  f"replays of {EVAL_STEPS} steps and the {EVAL_LOOP_STEPS}-step sub-grid)")
@@ -547,36 +722,48 @@ def main() -> None:
     log("  host ops by self time: " + json.dumps(tr["host_self_s_top"]))
     del prof_table, prof_temps
 
-    # ---- 9. summary ------------------------------------------------------------
-    eval_total = {k: sum(v[k] for v in eval_launches.values())
-                  for k in ("charge_sweep", "replay_chunk", "accumulate")}
+    # ---- 9-11. flash attention and the LM serving path ---------------------------
+    torch.cuda.empty_cache()
+    fa = flash_attention_phase(torch, dev, gen, fa_k)
+    lm_card_vs_cpu_phase(dev)
+    lm = lm_main_path_phase(torch, dev, zero_counts, read_counts)
+    if {m.split(".")[0] for m in sys.modules} & {"jax", "jaxlib", "repro"}:
+        fail("the port imported JAX or the JAX package")
+
+    # ---- 12. summary -----------------------------------------------------------
+    by_path = {"serve": launches, "trace_eval": {
+        k: sum(v[k] for v in eval_launches.values()) for k in counters},
+        "lm_serve": lm["launches"]}
+
+    def counted(name: str) -> dict:
+        """Launches of one kernel on each main path, as read around it."""
+        return {"launches": sum(p[name] for p in by_path.values()),
+                "launches_by_path": {path: p[name] for path, p in by_path.items()}}
+
     kernels = [
         {"name": "charge_sweep", "route": "cuda",
          "source": "src/repro_torch/csrc/charge_sweep.cu",
          "replaces": "src/repro/kernels/charge_sweep/kernel.py:96",
-         "launches": launches["charge_sweep"] + eval_total["charge_sweep"],
-         "launches_by_path": {"serve": launches["charge_sweep"],
-                              "trace_eval": eval_total["charge_sweep"]},
-         "mismatches": sweep_mism,
+         **counted("charge_sweep"), "mismatches": sweep_mism,
          "max_abs_err": sweep_err, "ms": sweep_ms, "plain_ms": sweep_plain_ms,
          "bound_ms": sweep_bound, "bound_by": sweep_by, "library_ms": None},
         {"name": "replay_chunk", "route": "cuda",
          "source": "src/repro_torch/csrc/replay_step.cu",
          "replaces": "src/repro/kernels/replay_step/kernel.py:92",
-         "launches": launches["replay_chunk"] + eval_total["replay_chunk"],
-         "launches_by_path": {"serve": launches["replay_chunk"],
-                              "trace_eval": eval_total["replay_chunk"]},
-         "mismatches": replay_mism + sum(step_mism.values()),
+         **counted("replay_chunk"), "mismatches": replay_mism + sum(step_mism.values()),
          "max_abs_err": replay_err, "ms": replay_ms, "plain_ms": replay_plain_ms,
          "bound_ms": replay_bound, "bound_by": replay_by, "library_ms": None},
         {"name": "accumulate", "route": "cuda",
          "source": "src/repro_torch/csrc/accumulate.cu",
          "replaces": "src/repro/kernels/replay_step/kernel.py:240",
-         "launches": eval_total["accumulate"],
-         "launches_by_path": {"serve": 0, "trace_eval": eval_total["accumulate"]},
-         "mismatches": sum(acc_mism.values()), "max_abs_err": acc_err, "ms": acc_ms,
-         "plain_ms": acc_plain_ms, "bound_ms": acc_bound, "bound_by": acc_by,
-         "library_ms": None, "sum_alone_ms": acc_sum_ms},
+         **counted("accumulate"), "mismatches": sum(acc_mism.values()),
+         "max_abs_err": acc_err, "ms": acc_ms, "plain_ms": acc_plain_ms,
+         "bound_ms": acc_bound, "bound_by": acc_by, "library_ms": None,
+         "sum_alone_ms": acc_sum_ms},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:35",
+         **counted("flash_attention"), **fa},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

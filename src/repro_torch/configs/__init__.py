@@ -1,0 +1,58 @@
+"""Architecture registry: ``get(name)`` → ModelConfig, ``reduced(name)`` →
+the CPU-test-sized config of the same family.
+
+The port carries the configs of the architectures its layer stack runs
+(the attention-only dense models); the reference's other architectures
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import Tuple
+
+from repro_torch.models.config import ModelConfig
+
+ARCH_IDS: Tuple[str, ...] = (
+    "smollm-135m",
+    "gemma3-4b",
+    "llama3.2-3b",
+    "chatglm3-6b",
+    "deepseek-moe-16b",
+    "kimi-k2-1t-a32b",
+    "qwen2-vl-72b",
+    "hubert-xlarge",
+    "xlstm-125m",
+    "recurrentgemma-9b",
+)
+
+#: Ported architectures → their module under ``repro_torch.configs``.
+_MODULES = {"smollm-135m": "smollm_135m", "llama3.2-3b": "llama3_2_3b"}
+
+#: Architectures not ported yet → the ROADMAP item that ports them.
+_ROADMAP = {
+    "gemma3-4b": "queue 1 item 9f (the other dense configs)",
+    "chatglm3-6b": "queue 1 item 9f (the other dense configs)",
+    "deepseek-moe-16b": "queue 1 item 9a (experts)",
+    "kimi-k2-1t-a32b": "queue 1 item 9a (experts)",
+    "qwen2-vl-72b": "queue 1 item 9e (M-RoPE and embedding inputs)",
+    "hubert-xlarge": "queue 1 item 9e (M-RoPE and embedding inputs)",
+    "xlstm-125m": "queue 1 item 9b (xLSTM)",
+    "recurrentgemma-9b": "queue 1 item 9c (RG-LRU)",
+}
+
+
+def _module(name: str):
+    if name in _ROADMAP:
+        raise NotImplementedError(f"{name} is not ported yet: ROADMAP {_ROADMAP[name]}")
+    if name not in _MODULES:
+        raise KeyError(f"unknown architecture {name!r}; known: {ARCH_IDS}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+
+
+def get(name: str) -> ModelConfig:
+    return _module(name).CONFIG
+
+
+def reduced(name: str) -> ModelConfig:
+    return _module(name).REDUCED

@@ -1,18 +1,22 @@
 """State carried across packages, as numpy arrays.
 
-This system has no model weights; what a deployment carries is state: the
-fleet's cell parameters and vendor index, a timing table (bin edges,
-``(N, B, 2, 4)`` stack and refresh policy), the controller registers, the
-score partials and a materialized replay history.
+The fleet controller carries state: the fleet's cell parameters and vendor
+index, a timing table (bin edges, ``(N, B, 2, 4)`` stack and refresh
+policy), the controller registers, the score partials and a materialized
+replay history. The LM serving path carries weights and KV caches.
 The ``*_from_numpy`` functions take them as numpy arrays — as
 ``np.asarray`` gives them from the reference package's objects, which use
 the same field names and layouts — and return this package's objects on a
 device; the ``*_to_numpy`` functions go back, for comparisons.
+
+The reference stacks LM layers as ``prefix`` (list) / ``groups`` (``pos{i}``
+leaves stacked over the repeats of ``layer_pattern``) / ``suffix`` (list);
+the port keeps one entry per layer. ``lm_*`` unstack and restack.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -22,6 +26,9 @@ from repro_torch.core.controller import ControllerState, DimmTimingTable, Replay
 from repro_torch.core.fleet import Fleet
 from repro_torch.core.perfmodel import ScorePartials
 from repro_torch.core.refresh import RefreshPolicy
+from repro_torch.models import stack as lm_stack
+from repro_torch.models.blocks import KVCache
+from repro_torch.models.config import ModelConfig
 
 
 def _t(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -99,3 +106,77 @@ def replay_to_numpy(res: ReplayResult) -> Dict[str, np.ndarray]:
     out = {k: _np(getattr(res, k)) for k in ("timings", "bin_idx", "switched", "fused")}
     out.update({f"state_{k}": v for k, v in state_to_numpy(res.state).items()})
     return out
+
+
+# ---------------------------------------------------------------------------
+# LM weights and KV caches
+# ---------------------------------------------------------------------------
+def _zip_map(fn: Callable, trees: List[Any]):
+    """Apply ``fn`` leafwise across trees of one structure (dicts, lists,
+    tuples and named tuples; anything else is a leaf)."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: _zip_map(fn, [t[k] for t in trees]) for k in t0}
+    if isinstance(t0, (list, tuple)):
+        items = [_zip_map(fn, [t[i] for t in trees]) for i in range(len(t0))]
+        return type(t0)(*items) if hasattr(t0, "_fields") else type(t0)(items)
+    return fn(*trees)
+
+
+def _unstack(stack_tree, cfg: ModelConfig) -> List[Any]:
+    """The reference's prefix / groups / suffix stack → one subtree per layer."""
+    layers = list(stack_tree["prefix"])
+    for g in range(cfg.n_groups):
+        for p in range(cfg.pattern_len):
+            layers.append(_zip_map(lambda a, g=g: np.asarray(a)[g],
+                                   [stack_tree["groups"][f"pos{p}"]]))
+    return layers + list(stack_tree["suffix"])
+
+
+def _restack(layers: List[Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """One subtree per layer → the reference's prefix / groups / suffix stack."""
+    start = cfg.n_prefix + cfg.n_groups * cfg.pattern_len
+    groups = {}
+    for p in range(cfg.pattern_len):
+        members = [layers[cfg.n_prefix + g * cfg.pattern_len + p] for g in range(cfg.n_groups)]
+        if members:
+            groups[f"pos{p}"] = _zip_map(lambda *xs: np.stack(xs), members)
+    return {"prefix": layers[:cfg.n_prefix], "groups": groups, "suffix": layers[start:]}
+
+
+def lm_params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
+                         device="cuda") -> Dict[str, Any]:
+    """The reference's LM parameters (``jax.tree.map(np.asarray, params)``)
+    → the port's parameter dictionary on ``device``, dtypes kept."""
+    layers = _unstack(tree["stack"], cfg)
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"{len(layers)} layers in the tree, the config has {cfg.n_layers}")
+    for i in range(cfg.n_layers):
+        lm_stack._check_layer(cfg, i)
+
+    def to_t(a):
+        return torch.tensor(np.asarray(a), device=device)
+
+    out = {k: _zip_map(to_t, [tree[k]]) for k in tree if k != "stack"}
+    out["stack"] = [_zip_map(to_t, [layer]) for layer in layers]
+    return out
+
+
+def lm_params_to_numpy(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """The port's parameters → the reference's tree of numpy arrays."""
+    out = {k: _zip_map(_np, [params[k]]) for k in params if k != "stack"}
+    out["stack"] = _restack([_zip_map(_np, [layer]) for layer in params["stack"]], cfg)
+    return out
+
+
+def lm_cache_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
+                        device="cuda") -> List[KVCache]:
+    """The reference's serving caches (a stack of ``KVCache(k, v)``, as
+    named tuples or ``{"k", "v"}`` dictionaries of numpy arrays) → the
+    port's per-layer list of :class:`KVCache` on ``device``."""
+    def kv(c):
+        k, v = (c.k, c.v) if hasattr(c, "_fields") else (c["k"], c["v"])
+        return KVCache(k=torch.tensor(np.asarray(k), device=device),
+                       v=torch.tensor(np.asarray(v), device=device))
+
+    return [kv(c) for c in _unstack(tree, cfg)]

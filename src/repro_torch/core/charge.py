@@ -58,9 +58,11 @@ class CellParams(NamedTuple):
 def div(num, den: torch.Tensor) -> torch.Tensor:
     """``num / den`` as ONE rounded float32 division, also for a Python-float
     numerator (torch's ``float / tensor`` is ``reciprocal(den) * num``,
-    which rounds twice)."""
+    which rounds twice). A Python numerator becomes a 0-d float32 tensor
+    by a fill on ``den``'s device, not a host-to-device copy, which would
+    wait for the device."""
     if not isinstance(num, torch.Tensor):
-        num = torch.tensor(num, dtype=torch.float32, device=den.device)
+        num = torch.full((), num, dtype=torch.float32, device=den.device)
     return torch.div(num, den)
 
 

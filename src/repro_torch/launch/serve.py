@@ -1,0 +1,175 @@
+"""Batched LM serving entry point: prefill once, decode autoregressively.
+
+The counterpart of the reference's ``repro.launch.serve``, with the same
+arguments and defaults plus ``device`` (the card unless the caller asks for
+the CPU) and ``attn_impl``: ``"pallas"`` (default) runs the prefill's
+attention through the flash-attention kernel on a card (its plain version
+on the CPU), ``"chunked"`` through the plain chunked attention, the
+reference's default arm. Weights are random, drawn from ``seed``, unless
+``params`` (e.g. the reference's, through ``convert.lm_params_from_numpy``)
+and ``prompts`` are given.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --arch llama3.2-3b --batch 2 --prompt-len 16 --gen 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b --full \\
+      --batch 4 --prompt-len 1024 --gen 32
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+import repro_torch.configs as C
+from repro_torch import resolve_device
+from repro_torch.models import model as lm
+from repro_torch.train.serve import ServeConfig, make_decode_step, make_prefill_step
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serve(arch: str, batch: int = 4, prompt_len: int = 32, gen: int = 32,
+          reduced: bool = True, temperature: float = 0.0, seed: int = 0,
+          device: str | torch.device = "cuda", attn_impl: str = "pallas",
+          params=None, prompts=None, return_report: bool = False):
+    """Serve ``batch`` prompts of ``prompt_len`` tokens for ``gen`` new tokens.
+
+    Given ``prompts`` (B, S) ids, their shape sets ``batch`` and
+    ``prompt_len``. Returns the generated ids (B, gen) int32 on the device,
+    or with ``return_report`` the pair (ids, report): prefill seconds,
+    decode seconds per token, peak device bytes (None on the CPU), whether
+    the last step's logits were finite, and the device."""
+    dev = resolve_device(device)
+    cfg = C.reduced(arch) if reduced else C.get(arch)
+    if not cfg.causal:
+        raise ValueError(f"{arch} is encoder-only (no autoregressive serving)")
+    if attn_impl not in ("pallas", "chunked"):
+        raise ValueError(f"attn_impl must be 'pallas' or 'chunked', got {attn_impl!r}")
+    cfg = dataclasses.replace(cfg, attn_impl=attn_impl)
+    if prompts is not None:
+        batch, prompt_len = prompts.shape
+    sc = ServeConfig(max_len=prompt_len + gen, temperature=temperature,
+                     cache_dtype="float32")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    if params is None:
+        params = lm.init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
+    if prompts is None:
+        prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), dtype=torch.int32,
+                                generator=torch.Generator(device=dev).manual_seed(seed + 1),
+                                device=dev)
+    prompts = prompts.to(dev)
+    sampler = torch.Generator(device=dev).manual_seed(seed + 100)
+
+    prefill = make_prefill_step(cfg, sc)
+    decode = make_decode_step(cfg, sc)
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    last_logits, caches = prefill(params, {"tokens": prompts})
+    nxt = torch.argmax(last_logits.to(torch.float32), dim=-1)[:, None].to(torch.int32)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+
+    out_tokens = [nxt]
+    lf = last_logits
+    t0 = time.perf_counter()
+    for i in range(gen - 1):
+        nxt, lf, caches = decode(params, caches, nxt, prompt_len + i, sampler)
+        out_tokens.append(nxt)
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+    gen_ids = torch.cat(out_tokens, dim=1)
+    print(f"[serve] {arch}: batch={batch} prompt={prompt_len} gen={gen} | "
+          f"prefill {t_prefill * 1e3:.1f} ms, decode {t_decode / max(gen - 1, 1) * 1e3:.2f} "
+          f"ms/tok")
+    if not return_report:
+        return gen_ids
+    report = {
+        "device": str(dev), "prefill_s": t_prefill,
+        "decode_s_per_token": t_decode / max(gen - 1, 1),
+        "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
+                              if dev.type == "cuda" else None),
+        "logits_finite": bool(torch.isfinite(lf).all()),
+    }
+    return gen_ids, report
+
+
+def compare_card_to_cpu(arch: str, device: str | torch.device = "cuda", batch: int = 2,
+                        prompt_len: int = 40, steps: int = 8, tol: float = 1e-4,
+                        seed: int = 0) -> dict:
+    """Serve reduced ``arch`` on ``device`` (prefill attention through the
+    flash-attention kernel) and on the CPU (plain versions) with the same
+    weights and prompts: the prefill, then ``steps`` decode steps
+    teacher-forced with the CPU's greedy ids.
+
+    Returns ``logit_err`` (the largest last-position logit difference over
+    the prefill and every step), ``cache_err`` (the prefill's caches),
+    ``sure`` (rows, over the prefill and every step, whose CPU top-2 logit
+    gap exceeds ``2 * tol``), ``agree`` (how many of those have equal greedy
+    ids on both) and the flash-attention launches of the card's prefill and
+    of its decode steps."""
+    from repro_torch import convert
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+
+    dev = resolve_device(device)
+    cfg = dataclasses.replace(C.reduced(arch), attn_impl="pallas")
+    host = lm.init_params(torch.Generator().manual_seed(seed), cfg)
+    card = convert.lm_params_from_numpy(convert.lm_params_to_numpy(host, cfg), cfg, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), dtype=torch.int32,
+                            generator=torch.Generator().manual_seed(seed + 1))
+    sc = ServeConfig(max_len=prompt_len + steps, cache_dtype="float32")
+    prefill, decode = make_prefill_step(cfg, sc), make_decode_step(cfg, sc)
+    before = fa_kernel.flash_attention_cuda.launches
+    lc, cc = prefill(card, {"tokens": prompts.to(dev)})
+    prefill_launches = fa_kernel.flash_attention_cuda.launches - before
+    lh, ch = prefill(host, {"tokens": prompts})
+    cache_err = max(float((a.cpu() - b).abs().max()) for x, y in zip(cc, ch)
+                    for a, b in zip(x, y))
+    logit_err, sure, agree = 0.0, 0, 0
+    nxt = torch.argmax(lh, -1)[:, None].to(torch.int32)
+    before = fa_kernel.flash_attention_cuda.launches
+    for i in range(steps + 1):
+        lc_host = lc.cpu()
+        logit_err = max(logit_err, float((lc_host - lh).abs().max()))
+        top2 = torch.topk(lh, 2, dim=-1).values
+        gap = (top2[:, 0] - top2[:, 1]) > 2 * tol
+        sure += int(gap.sum())
+        agree += int((torch.argmax(lc_host, -1) == torch.argmax(lh, -1))[gap].sum())
+        if i == steps:
+            break
+        _, lc, cc = decode(card, cc, nxt.to(dev), prompt_len + i)
+        nxt, lh, ch = decode(host, ch, nxt, prompt_len + i)
+    return {"n_layers": cfg.n_layers, "d_model": cfg.d_model, "d_head": cfg.d_head,
+            "logit_err": logit_err, "cache_err": cache_err, "sure": sure, "agree": agree,
+            "prefill_launches": prefill_launches,
+            "decode_launches": fa_kernel.flash_attention_cuda.launches - before}
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--full", action="store_true",
+                    help="the published config (default: the reduced one)")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--attn-impl", default="pallas", choices=("pallas", "chunked"))
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args()
+    ids = serve(args.arch, args.batch, args.prompt_len, args.gen, reduced=not args.full,
+                temperature=args.temperature, seed=args.seed, device=args.device,
+                attn_impl=args.attn_impl)
+    print("generated ids[0,:16]:", ids[0, :16].tolist())
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,108 @@
+"""Language model: embed → layer stack → norm → head, and serving caches.
+
+The port of ``src/repro/models/model.py``'s serving surface: parameters are
+a plain dictionary (``embed``, ``stack`` — a list of per-layer
+dictionaries, ``ln_f``, and ``head`` unless the embeddings are tied),
+drawn with the reference's distributions and scales from a
+``torch.Generator`` on the device. ``lm_loss`` and the sharding specs come
+with the training slice (ROADMAP queue 1 item 9g).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.models import blocks, stack
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.rope import default_positions
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+def init_params(gen: torch.Generator, cfg: ModelConfig,
+                dtype=torch.float32) -> Dict[str, Any]:
+    """Random parameters on ``gen.device``: the embedding and head are
+    Normal · d_model^-0.5, the stack as :func:`.stack.init_stack` draws it,
+    norm scales zero (the norm multiplies by 1 + scale)."""
+    p: Dict[str, Any] = {
+        "embed": blocks.init_dense(gen, (cfg.vocab_size, cfg.d_model),
+                                   cfg.d_model ** -0.5, dtype),
+        "stack": stack.init_stack(gen, cfg, dtype),
+        "ln_f": blocks.init_rmsnorm(cfg.d_model, gen.device),
+    }
+    if not cfg.tie_embeddings:
+        p["head"] = blocks.init_dense(gen, (cfg.d_model, cfg.vocab_size),
+                                      cfg.d_model ** -0.5, dtype)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Forward / prefill / decode
+# ---------------------------------------------------------------------------
+def forward(params: Dict[str, Any], cfg: ModelConfig,
+            tokens: Optional[torch.Tensor] = None, embeds: Optional[torch.Tensor] = None,
+            positions=None, mode: str = "forward",
+            caches: Optional[List[blocks.KVCache]] = None, pos: int = 0,
+            cache_len: int = 0) -> Tuple[torch.Tensor, torch.Tensor,
+                                         Optional[List[blocks.KVCache]]]:
+    """Returns (logits, aux_loss, caches_out); aux_loss is 0 (no experts)."""
+    if embeds is not None:
+        x = embeds.to(params["embed"].dtype)
+        b, s = x.shape[:2]
+    else:
+        x = params["embed"][tokens]
+        b, s = tokens.shape
+    if cfg.scale_embed:
+        x = x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+    if positions is None:
+        offset = pos if mode == "decode" else 0
+        positions = default_positions(cfg, b, s, offset, device=x.device)
+    x, caches_out = stack.apply_stack(params["stack"], x, cfg, positions, mode=mode,
+                                      caches=caches, pos=pos, cache_len=cache_len)
+    x = blocks.rmsnorm(params["ln_f"], x, cfg.norm_eps)
+    head = params["embed"].t() if cfg.tie_embeddings else params["head"]
+    logits = x @ head
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux, caches_out
+
+
+def prefill(params, cfg: ModelConfig, cache_len: int, tokens=None, embeds=None):
+    """Full-sequence forward that also builds serving caches."""
+    return forward(params, cfg, tokens=tokens, embeds=embeds, mode="prefill",
+                   cache_len=cache_len)
+
+
+def decode_step(params, cfg: ModelConfig, caches: List[blocks.KVCache],
+                tokens: torch.Tensor, pos: int):
+    """One-token step. tokens: (B, 1) int; pos: the number of tokens already
+    in the cache (a Python int). Returns (logits (B,1,V), caches), the
+    caches updated in place."""
+    logits, _, caches_out = forward(params, cfg, tokens=tokens, mode="decode",
+                                    caches=caches, pos=pos)
+    return logits, caches_out
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+               device=None) -> List[blocks.KVCache]:
+    return stack.init_stack_cache(cfg, batch, max_len, dtype, device)
+
+
+# ---------------------------------------------------------------------------
+# Parameter counting
+# ---------------------------------------------------------------------------
+def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Exact parameter count from the shapes :func:`init_params` draws
+    (``active_only`` equals the total: no experts in this slice)."""
+    d, h, hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    attn = d * h * dh + 2 * d * hk * dh + h * dh * d + (2 * dh if cfg.qk_norm else 0)
+    ffn = (2 if cfg.ffn_variant == "gelu" else 3) * d * cfg.d_ff
+    total = cfg.vocab_size * d + d  # embed, ln_f
+    if not cfg.tie_embeddings:
+        total += d * cfg.vocab_size
+    for i in range(cfg.n_layers):
+        stack._check_layer(cfg, i)
+        total += d + attn + ((d + ffn) if cfg.ffn_variant != "none" else 0)
+    return total

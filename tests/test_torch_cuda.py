@@ -16,8 +16,11 @@ import torch
 from repro_torch.core import charge, controller, fleet, perfmodel
 from repro_torch.kernels.charge_sweep import kernel as sweep_kernel
 from repro_torch.kernels.charge_sweep import ops as sweep_ops
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.replay_step import kernel as replay_kernel
 from repro_torch.kernels.replay_step import ops as replay_ops
+from repro_torch.launch import serve as lm_launch
 from repro_torch.launch import serve_fleet, trace_eval
 
 pytestmark = pytest.mark.cuda
@@ -195,3 +198,57 @@ def test_trace_eval_card_matches_cpu(cuda_device):
     assert set(card["score"]) == set(host["score"])
     for k, v in host["score"].items():
         assert card["score"][k] == pytest.approx(v, abs=1e-5), k
+
+
+#: (b, sq, skv, h, hk, dh, causal, window): causal, windowed, ragged (no
+#: multiple of the 64-row tile) and non-causal, GQA groups 1 to 3, every
+#: head width the kernel is built for.
+FA_CASES = {
+    "causal-g3-dh128": (2, 200, 200, 24, 8, 128, True, 0),
+    "window-g2-dh64": (1, 300, 300, 8, 4, 64, True, 100),
+    "noncausal-ragged-g3-dh64": (2, 130, 77, 9, 3, 64, False, 0),
+    "causal-g1-dh32": (2, 97, 97, 4, 4, 32, True, 0),
+}
+
+
+@pytest.mark.parametrize("case", list(FA_CASES))
+def test_flash_attention_kernel_matches_plain(cuda_device, case):
+    b, sq, skv, h, hk, dh, causal, window = FA_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q = torch.randn((b, sq, h, dh), generator=g, device=cuda_device)
+    k, v = (torch.randn((b, skv, hk, dh), generator=g, device=cuda_device) for _ in range(2))
+    before = fa_kernel.flash_attention_cuda.launches
+    got = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa_kernel.flash_attention_cuda.launches == before + 1
+    want = fa_kernel.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (b, sq, h, dh)
+    assert float((got - want).abs().max()) <= fa_kernel.tolerance(want)
+
+
+def test_flash_attention_kernel_reads_strided_views(cuda_device):
+    """q, k, v as slices of one fused projection, read in place."""
+    b, s, h, hk, dh = 2, 150, 8, 2, 64
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    qkv = torch.randn((b, s, h + 2 * hk, dh), generator=g, device=cuda_device)
+    q, k, v = qkv[:, :, :h], qkv[:, :, h:h + hk], qkv[:, :, h + hk:]
+    got = fa_kernel.flash_attention_cuda(q, k, v, causal=True)
+    want = fa_kernel.flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(),
+                                           causal=True)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= fa_kernel.tolerance(want)
+
+
+def test_lm_serve_on_card_matches_cpu(cuda_device):
+    """Reduced Llama-3.2-3B with the same weights and prompts on the card
+    (the flash-attention kernel, once per layer in the prefill) and on the
+    CPU (plain versions). Last-position logits and caches within 1e-4
+    (float32 sums in another order, transcendentals an ulp apart between the
+    CPU and CUDA builds); greedy ids equal wherever the CPU's top-2 gap
+    exceeds twice that. The decode is teacher-forced with the CPU's ids."""
+    tol = 1e-4
+    r = lm_launch.compare_card_to_cpu("llama3.2-3b", cuda_device, batch=2, prompt_len=40,
+                                      steps=8, tol=tol)
+    assert r["logit_err"] <= tol and r["cache_err"] <= tol
+    assert r["sure"] > 0 and r["agree"] == r["sure"]
+    assert r["prefill_launches"] == r["n_layers"] and r["decode_launches"] == 0
