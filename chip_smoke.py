@@ -8,8 +8,8 @@ Run from the repository root with no arguments::
 Phases, each of which exits non-zero on failure:
 
 1. Card check: name and power limit, versions, float32 matrix products in
-   full float32 (no TF32), and the build of the four CUDA kernels (one
-   ``nvcc`` per source, started together).
+   full float32 (no TF32), and the build of the seven CUDA kernels and the
+   empty launch probe (one ``nvcc`` per source, started together).
 2. Charge sweep, kernel vs plain PyTorch version, on the full boot sweep
    (1,048,576 DIMMs × 4 bins) plus the JEDEC-corner cell and a 95 °C
    above-grid column: indices must be equal. Timed at the boot shape.
@@ -61,7 +61,23 @@ Phases, each of which exits non-zero on failure:
    the prefill, none elsewhere; prefill ms, decode ms a token, peak device
    memory. Then one prefill and a few decode steps of the same model under
    ``torch.profiler`` for the device's busy share and where the time goes.
-12. One JSON line describing each kernel; the card's name and power limit;
+12. The altune kernels against their plain versions on every instantiated
+   tile: the latency matmul at 4096³ float32 (timed beside ``torch.matmul``)
+   and ragged (1000, 3000, 700) in float32 and bfloat16, within
+   ``kernel.tolerance``; the RG-LRU scan at (8, 4096, 4096) float32 (timed)
+   and ragged S and D in float32 and bfloat16, 0 mismatching words; flash
+   decode at B 8, L 32,768, H 64, Hk 8, dh 128 with lengths 32,768 (timed
+   beside ``scaled_dot_product_attention``), 1,000 and 1, and in bfloat16,
+   within ``kernel.tolerance``.
+13. The tile gate against the card: for every instantiated tile of the four
+   altune kernels, the cost model's verdict and its shared memory and
+   threads against ``cudaFuncGetAttributes``; then an empty kernel's launch
+   and per-block overheads (the cost model's constants).
+14. The altune main path: ``launch.altune_margin.run`` on the card, every
+   candidate validated and timed at the production shapes, with every
+   kernel's launch count read around it; every worst-case tile must
+   validate. The timing table goes to ``chiprun_out/``.
+15. One JSON line describing each kernel; the card's name and power limit;
    the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -109,6 +125,23 @@ LM_BATCH, LM_PROMPT, LM_GEN = 4, 1024, 32
 LM_SMALL_BATCH, LM_SMALL_PROMPT, LM_SMALL_STEPS = 2, 40, 8
 LM_TOL = 1e-4
 LM_PROFILED_DECODE = 4
+
+#: Latency-matmul checks: (name, m, k, n, dtype); the first is timed.
+MM_CASES = (("production", 4096, 4096, 4096, "float32"),
+            ("ragged", 1000, 3000, 700, "float32"),
+            ("ragged bf16", 1000, 3000, 700, "bfloat16"))
+#: RG-LRU scan checks: (name, B, S, D, dtype); the first is timed.
+SCAN_CASES = (("production", 8, 4096, 4096, "float32"),
+              ("ragged", 3, 1001, 777, "float32"),
+              ("ragged bf16", 3, 1001, 777, "bfloat16"))
+#: Flash-decode checks: (name, B, L, H, Hk, dh, length, dtype); the first is timed.
+FD_CASES = (("production", 8, 32768, 64, 8, 128, 32768, "float32"),
+            ("length 1000", 8, 32768, 64, 8, 128, 1000, "float32"),
+            ("length 1", 8, 32768, 64, 8, 128, 1, "float32"),
+            ("bf16", 8, 32768, 64, 8, 128, 32768, "bfloat16"))
+#: Empty-kernel probe: launches timed back to back, and the blocks of the
+#: many-block launch (8,192 a SM).
+PROBE_LAUNCHES, PROBE_BLOCKS = 200, 132 * 8192
 
 #: Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 non-tensor FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -292,6 +325,251 @@ def lm_main_path_phase(torch, dev, zero_counts, read_counts):
     return {"launches": launches, "report": rep}
 
 
+def words(torch, t):
+    """A tensor's bits as integers, for bitwise comparison."""
+    return t.view({torch.float32: torch.int32, torch.bfloat16: torch.int16}.get(t.dtype, t.dtype))
+
+
+def latency_matmul_phase(torch, dev, gen):
+    """Phase 12a: the matmul kernel against its plain version on every case
+    and instantiated tile; timed at the production shape."""
+    from repro_torch.kernels.latency_matmul import kernel as mm_k
+
+    out = {"max_abs_err": 0.0}
+    for name, m, k, n, dt in MM_CASES:
+        dtype = getattr(torch, dt)
+        x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+        y = torch.randn((k, n), generator=gen, device=dev).to(dtype)
+        want = mm_k.matmul_plain(x, y)
+        tol = mm_k.tolerance(want)
+        errs = {}
+        for tile in mm_k.TILES:
+            got = mm_k.matmul_cuda(x, y, *tile)
+            torch.cuda.synchronize()
+            errs[tile] = float((got.float() - want.float()).abs().max())
+            if not (errs[tile] <= tol and bool(torch.isfinite(got).all())):
+                fail(f"latency-matmul kernel, tile {tile}, disagrees with its plain version "
+                     f"on {name}: {errs[tile]:.3e} > {tol:.3e}")
+        log(f"latency matmul, {name} ({m}, {k}) @ ({k}, {n}) {dt}: max|kernel - plain| by "
+            f"tile {[(t, f'{e:.3e}') for t, e in errs.items()]} (tolerance {tol:.3e})")
+        out["max_abs_err"] = max([out["max_abs_err"]] + list(errs.values()))
+        if name == "production":
+            by_tile = {t: cuda_ms(torch, lambda t=t: mm_k.matmul_cuda(x, y, *t), 10)
+                       for t in mm_k.TILES}
+            best = min(by_tile, key=by_tile.get)
+            plain_ms = cuda_ms(torch, lambda: mm_k.matmul_plain(x, y), 10)
+            lib_ms = cuda_ms(torch, lambda: torch.matmul(x, y), 10)
+            bound, by = bound_ms(x.element_size() * (m * k + k * n + m * n), 2 * m * k * n)
+            log(f"latency matmul at {m}³ {dt}: kernel by tile "
+                f"{[(t, round(v, 4)) for t, v in by_tile.items()]} ms, best {best} "
+                f"{by_tile[best]:.4f} ms ({2 * m * k * n / by_tile[best] / 1e9:.2f} TFLOP/s), "
+                f"plain {plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms, bound {bound:.4f} ms "
+                f"({by})")
+            out.update(ms=by_tile[best], tile=str(best),
+                       ms_by_tile={str(t): v for t, v in by_tile.items()}, plain_ms=plain_ms,
+                       bound_ms=bound, bound_by=by, library_ms=lib_ms)
+        del x, y, want, got
+    return out
+
+
+def rglru_scan_phase(torch, dev, gen):
+    """Phase 12b: the scan kernel against its plain version on every case and
+    instantiated tile, bitwise; timed at the production shape."""
+    from repro_torch.kernels.rglru_scan import kernel as sc_k
+
+    out = {"mismatches": 0, "max_abs_err": 0.0}
+    for name, b, s, d, dt in SCAN_CASES:
+        dtype = getattr(torch, dt)
+        a = (torch.rand((b, s, d), generator=gen, device=dev) * 0.9 + 0.05).to(dtype)
+        bb = torch.randn((b, s, d), generator=gen, device=dev).to(dtype)
+        h0 = torch.randn((b, d), generator=gen, device=dev).to(dtype)
+        want = sc_k.rglru_scan_plain(a, bb, h0)
+        mism = {}
+        for tile in sc_k.TILES:
+            got = sc_k.rglru_scan_cuda(a, bb, h0, *tile)
+            torch.cuda.synchronize()
+            mism[tile] = int((words(torch, got) != words(torch, want)).sum())
+            out["max_abs_err"] = max(out["max_abs_err"],
+                                     float((got.float() - want.float()).abs().max()))
+        log(f"rglru scan, {name} (B {b}, S {s}, D {d}) {dt}: mismatching words by tile "
+            f"{list(mism.items())}")
+        out["mismatches"] += sum(mism.values())
+        if any(mism.values()):
+            fail(f"rglru-scan kernel disagrees with its plain version on {name}: {mism}")
+        if name == "production":
+            by_tile = {t: cuda_ms(torch, lambda t=t: sc_k.rglru_scan_cuda(a, bb, h0, *t), 20)
+                       for t in sc_k.TILES}
+            best = min(by_tile, key=by_tile.get)
+            plain_ms = cuda_ms(torch, lambda: sc_k.rglru_scan_plain(a, bb, h0), 1)
+            bound, by = bound_ms(a.element_size() * (3 * b * s * d + b * d), 2 * b * s * d)
+            log(f"rglru scan at (8, 4096, 4096) {dt}: kernel by tile "
+                f"{[(t, round(v, 4)) for t, v in by_tile.items()]} ms, best {best} "
+                f"{by_tile[best]:.4f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by})")
+            out.update(ms=by_tile[best], tile=str(best),
+                       ms_by_tile={str(t): v for t, v in by_tile.items()}, plain_ms=plain_ms,
+                       bound_ms=bound, bound_by=by, library_ms=None)
+        del a, bb, h0, want, got
+    return out
+
+
+def flash_decode_phase(torch, dev, gen):
+    """Phase 12c: the decode kernel against its plain version on every case
+    and instantiated tile; timed at the production shape beside SDPA."""
+    from repro_torch.kernels.flash_decode import kernel as fd_k
+
+    out = {"max_abs_err": 0.0}
+    for name, b, n, h, hk, dh, length, dt in FD_CASES:
+        dtype = getattr(torch, dt)
+        q = torch.randn((b, h, dh), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((b, n, hk, dh), generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+        want = fd_k.flash_decode_plain(q, k, v, length)
+        tol = fd_k.tolerance(want)
+        errs = {}
+        for bk in fd_k.TILES:
+            got = fd_k.flash_decode_cuda(q, k, v, length, bk)
+            torch.cuda.synchronize()
+            errs[bk] = float((got.float() - want.float()).abs().max())
+            if not (errs[bk] <= tol and bool(torch.isfinite(got).all())):
+                fail(f"flash-decode kernel, bk {bk}, disagrees with its plain version on "
+                     f"{name}: {errs[bk]:.3e} > {tol:.3e}")
+        log(f"flash decode, {name} (B {b}, L {n}, H {h}, Hk {hk}, dh {dh}, length {length}) "
+            f"{dt}: max|kernel - plain| by bk {[(t, f'{e:.3e}') for t, e in errs.items()]} "
+            f"(tolerance {tol:.3e})")
+        out["max_abs_err"] = max([out["max_abs_err"]] + list(errs.values()))
+        if name == "production":
+            by_tile = {t: cuda_ms(torch, lambda t=t: fd_k.flash_decode_cuda(q, k, v, length, t),
+                                  20) for t in fd_k.TILES}
+            best = min(by_tile, key=by_tile.get)
+            plain_ms = cuda_ms(torch, lambda: fd_k.flash_decode_plain(q, k, v, length), 3)
+            qh, kh, vh = q[:, :, None], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+            sdpa_ms = cuda_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, enable_gqa=True), 20)
+            del kh, vh
+            bound, by = bound_ms(q.element_size() * (2 * b * length * hk * dh + 2 * b * h * dh),
+                                 ATTENTION_OPS_PER_PAIR_DIM * dh * b * h * length)
+            log(f"flash decode at the production shape: kernel by bk "
+                f"{[(t, round(v_, 4)) for t, v_ in by_tile.items()]} ms, best {best} "
+                f"{by_tile[best]:.4f} ms ({2 * b * length * hk * dh * q.element_size() / by_tile[best] / 1e9:.3f}"
+                f" TB/s of K and V), plain {plain_ms:.3f} ms, scaled_dot_product_attention "
+                f"{sdpa_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+            out.update(ms=by_tile[best], tile=str(best),
+                       ms_by_tile={str(t): v_ for t, v_ in by_tile.items()}, plain_ms=plain_ms,
+                       bound_ms=bound, bound_by=by, library_ms=sdpa_ms)
+        del q, k, v, want, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def gate_phase(torch):
+    """Phase 13a: the cost model's tile gate against cudaFuncGetAttributes
+    for every instantiated tile of the four altune kernels."""
+    from repro_torch.core.altune import costmodel as cm
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_decode import kernel as fd_k
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.latency_matmul import kernel as mm_k
+    from repro_torch.kernels.latency_matmul import ops as mm_ops
+    from repro_torch.kernels.rglru_scan import kernel as sc_k
+    from repro_torch.kernels.rglru_scan import ops as sc_ops
+
+    checks = []  # (label, config, model args, card attributes)
+    for dt in (torch.float32, torch.bfloat16):
+        checks += [(f"latency_matmul {dt}", c, (), mm_k.attributes((c.bm, c.bn, c.bk), dt))
+                   for c in mm_ops.CANDIDATES]
+        checks += [(f"rglru_scan {dt}", c, (), sc_k.attributes((c.bd, c.bs), dt))
+                   for c in sc_ops.CANDIDATES]
+        checks += [(f"flash_decode dh {dh} {dt}", c, (dh,), fd_k.attributes(c.bk, dh, dt))
+                   for c in fd_ops.CANDIDATES for dh in fd_k.HEAD_DIMS]
+    checks += [(f"flash_attention dh {dh}", c, (dh,), fa_k.attributes(dh))
+               for c in fa_ops.CANDIDATES for dh in fa_k.HEAD_DIMS]
+    table = []
+    for label, cfg, args, at in checks:
+        smem, threads, regs = cfg.smem_bytes(*args), cfg.threads(*args), cfg.registers(*args)
+        model_ok, note = cm.gate(smem, threads, regs)
+        card_ok = (at["registers"] <= cm.MAX_REGS_PER_THREAD
+                   and at["registers"] * at["threads"] <= cm.REGS_PER_BLOCK
+                   and at["threads"] <= at["max_threads"] and at["smem_bytes"] <= cm.SMEM_PER_BLOCK)
+        agree = model_ok == card_ok and at["smem_bytes"] == smem and at["threads"] == threads
+        table.append({"kernel": label, "config": str(cfg), "model_feasible": model_ok,
+                      "card_launchable": card_ok, "registers": at["registers"],
+                      "registers_lower_bound": regs, "smem_bytes": at["smem_bytes"],
+                      "model_smem_bytes": smem, "threads": at["threads"],
+                      "max_threads": at["max_threads"], "spill_bytes": at["local_bytes"]})
+        if not (agree and card_ok):
+            fail(f"tile gate disagrees with the card for {label} {cfg}: {table[-1]} {note}")
+    log(f"tile gate vs cudaFuncGetAttributes: {len(table)} instantiated tiles, all feasible by "
+        f"the cost model and launchable by the card, shared memory and threads equal")
+    for row in table:
+        log("  " + json.dumps(row))
+    refused = [(mm_ops.MMConfig(256, 256, 256), ()), (mm_ops.MMConfig(512, 512, 1024), ()),
+               (sc_ops.ScanConfig(256, 128), ()), (fa_ops.FAConfig(128, 128), (128,))]
+    log("  the reference's TPU tiles through the gate: " + json.dumps({
+        str(c): cm.gate(c.smem_bytes(*a), c.threads(*a), c.registers(*a))[1]
+        for c, a in refused}))
+
+
+def launch_overheads(torch, dev):
+    """Phase 13b: an empty kernel's launch overhead (one block a launch,
+    back to back) and extra time a block (one launch of PROBE_BLOCKS), as
+    the cost model's LAUNCH_OVERHEAD_S and STEP_OVERHEAD_S (per block on
+    its SM: the wall time a block times the SM count)."""
+    import ctypes
+
+    from repro_torch.core.altune import costmodel as cm
+    from repro_torch.kernels import _build
+
+    lib = _build.load("launch_probe")
+    lib.launch_probe.argtypes = [ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p]
+    lib.launch_probe.restype = ctypes.c_int
+    stream = _build.stream_ptr(dev)
+
+    def probe(blocks: int, launches: int) -> None:
+        _build.check(lib, lib.launch_probe(blocks, 128, launches, stream), "launch_probe")
+
+    launch_s = cuda_ms(torch, lambda: probe(1, PROBE_LAUNCHES), 5) / PROBE_LAUNCHES * 1e-3
+    many_s = cuda_ms(torch, lambda: probe(PROBE_BLOCKS, 1), 5) * 1e-3
+    block_s = (many_s - launch_s) / PROBE_BLOCKS * cm.N_SMS
+    log(f"empty kernel: {launch_s * 1e6:.4f} µs a launch (one block, {PROBE_LAUNCHES} back to "
+        f"back), {many_s * 1e3:.4f} ms for {PROBE_BLOCKS:,} blocks = {block_s * 1e9:.4f} ns a "
+        f"block on its SM; the cost model has LAUNCH_OVERHEAD_S {cm.LAUNCH_OVERHEAD_S:g}, "
+        f"STEP_OVERHEAD_S {cm.STEP_OVERHEAD_S:g}")
+
+
+def altune_main_path_phase(torch, dev, zero_counts, read_counts, out_dir):
+    """Phase 14: the altune main path on the card, every kernel's count read
+    around it; every worst-case tile must validate."""
+    from repro_torch.launch import altune_margin
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    rows, results = altune_margin.run(device=dev, return_results=True,
+                                      out=os.path.join(out_dir, "altune_timing_table.json"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    log(f"altune main path: run {wall:.3f} s, peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, launches {launches}")
+    log("  rows: " + json.dumps({name: [value, ref] for name, value, ref in rows}))
+    for res in results:
+        wc = [e for e in res.entries if e.config == res.worst_case]
+        if not wc or not (wc[0].feasible and wc[0].validated and wc[0].repeat_ok):
+            fail(f"altune: the worst-case tile of {res.kernel} did not validate on the card: "
+                 f"{wc}")
+        if not all(math.isfinite(e.t_seconds) and e.t_seconds > 0 for e in res.entries
+                   if e.feasible and e.validated):
+            fail(f"altune: {res.kernel} has a validated tile without a measured time")
+    for name in ("latency_matmul", "rglru_scan", "flash_decode", "flash_attention"):
+        if launches[name] < 1:
+            fail(f"the altune main path never launched the {name} kernel")
+    if launches["charge_sweep"] or launches["replay_chunk"] or launches["accumulate"]:
+        fail(f"the altune main path launched kernels of other paths: {launches}")
+    return launches
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -304,7 +582,10 @@ def main() -> None:
         from repro_torch.kernels.charge_sweep import kernel as sweep_k
         from repro_torch.kernels.charge_sweep import ops as sweep_ops
         from repro_torch.kernels.flash_attention import kernel as fa_k
+        from repro_torch.kernels.flash_decode import kernel as fd_k
+        from repro_torch.kernels.latency_matmul import kernel as mm_k
         from repro_torch.kernels.replay_step import kernel as replay_k
+        from repro_torch.kernels.rglru_scan import kernel as sc_k
         from repro_torch.kernels.replay_step import ops as replay_ops
         from repro_torch.launch import serve_fleet, trace_eval
     except ImportError as e:
@@ -314,7 +595,11 @@ def main() -> None:
     counters = {"charge_sweep": sweep_k.charge_sweep_cuda,
                 "replay_chunk": replay_k.replay_chunk_cuda,
                 "accumulate": replay_k.accumulate_cuda,
-                "flash_attention": fa_k.flash_attention_cuda}
+                "flash_attention": fa_k.flash_attention_cuda,
+                "latency_matmul": mm_k.matmul_cuda,
+                "rglru_scan": sc_k.rglru_scan_cuda,
+                "flash_decode": fd_k.flash_decode_cuda}
+    altune_kernels = ("latency_matmul", "rglru_scan", "flash_decode")
 
     def zero_counts() -> None:
         for fn in counters.values():
@@ -332,7 +617,8 @@ def main() -> None:
         fail("float32 matrix products must run in full float32 (TF32 off, precision "
              "'highest'): the LM checks hold the card to the CPU in float32")
     t0 = time.perf_counter()
-    logs = _build.build(["charge_sweep", "replay_step", "accumulate", "flash_attention"])
+    logs = _build.build(["charge_sweep", "replay_step", "accumulate", "flash_attention",
+                         "latency_matmul", "rglru_scan", "flash_decode", "launch_probe"])
     log(f"kernels built in {time.perf_counter() - t0:.2f} s (parallel nvcc)")
     for name, out in logs.items():
         regs = sorted({line.split("Used ")[1].split(",")[0]
@@ -541,7 +827,8 @@ def main() -> None:
         fail("the main path never launched the charge-sweep kernel")
     if launches["replay_chunk"] != report["n_chunks"]:
         fail(f"replay-chunk launches {launches['replay_chunk']} != chunks {report['n_chunks']}")
-    if launches["accumulate"] or launches["flash_attention"]:
+    if launches["accumulate"] or launches["flash_attention"] or any(
+            launches[k] for k in altune_kernels):
         fail(f"the serve main path launched kernels of other paths: {launches}")
     if not all(math.isfinite(v) for v in score.values()):
         fail("non-finite score figure")
@@ -689,8 +976,9 @@ def main() -> None:
             f"{sc['speedup_combined_intensive_mean']:.6f}, refresh_occupancy_mean "
             f"{sc['refresh_occupancy_mean']:.6f}, switches_total {sc['switches_total']:.0f}")
         log("  rows: " + json.dumps({name: value for name, value, _ in rep["rows"]}))
-        want_l = {"charge_sweep": 1, "replay_chunk": 2 * EVAL_STEPS + EVAL_LOOP_STEPS,
-                  "accumulate": 1, "flash_attention": 0}
+        want_l = {name: 0 for name in counters}
+        want_l.update(charge_sweep=1, replay_chunk=2 * EVAL_STEPS + EVAL_LOOP_STEPS,
+                      accumulate=1)
         if got_l != want_l:
             fail(f"trace-eval {scenario}: launches {got_l}, expected {want_l} (two "
                  f"replays of {EVAL_STEPS} steps and the {EVAL_LOOP_STEPS}-step sub-grid)")
@@ -730,10 +1018,21 @@ def main() -> None:
     if {m.split(".")[0] for m in sys.modules} & {"jax", "jaxlib", "repro"}:
         fail("the port imported JAX or the JAX package")
 
-    # ---- 12. summary -----------------------------------------------------------
+    # ---- 12-14. the altune kernels, the tile gate, the altune main path ----------
+    torch.cuda.empty_cache()
+    mm = latency_matmul_phase(torch, dev, gen)
+    sc = rglru_scan_phase(torch, dev, gen)
+    fd = flash_decode_phase(torch, dev, gen)
+    gate_phase(torch)
+    launch_overheads(torch, dev)
+    alt_launches = altune_main_path_phase(torch, dev, zero_counts, read_counts, out_dir)
+    if {m.split(".")[0] for m in sys.modules} & {"jax", "jaxlib", "repro"}:
+        fail("the port imported JAX or the JAX package")
+
+    # ---- 15. summary -----------------------------------------------------------
     by_path = {"serve": launches, "trace_eval": {
         k: sum(v[k] for v in eval_launches.values()) for k in counters},
-        "lm_serve": lm["launches"]}
+        "lm_serve": lm["launches"], "altune": alt_launches}
 
     def counted(name: str) -> dict:
         """Launches of one kernel on each main path, as read around it."""
@@ -764,6 +1063,18 @@ def main() -> None:
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/kernel.py:35",
          **counted("flash_attention"), **fa},
+        {"name": "latency_matmul", "route": "cuda",
+         "source": "src/repro_torch/csrc/latency_matmul.cu",
+         "replaces": "src/repro/kernels/latency_matmul/kernel.py:29",
+         **counted("latency_matmul"), **mm},
+        {"name": "rglru_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/rglru_scan.cu",
+         "replaces": "src/repro/kernels/rglru_scan/kernel.py:25",
+         **counted("rglru_scan"), **sc},
+        {"name": "flash_decode", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_decode.cu",
+         "replaces": "src/repro/kernels/flash_decode/kernel.py:28",
+         **counted("flash_decode"), **fd},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)

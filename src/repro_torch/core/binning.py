@@ -2,8 +2,8 @@
 
 Both embodiments of the paper's runtime mechanism select a pre-validated
 configuration by binning a scalar operating condition (DRAM temperature in
-:mod:`repro_torch.core.controller`, normalized load in the reference's
-altune runtime, not ported yet) with the same asymmetric discipline:
+:mod:`repro_torch.core.controller`, normalized load in
+:mod:`repro_torch.core.altune.runtime`) with the same asymmetric discipline:
 degrading to a more conservative bin is immediate, recovering to a more
 aggressive one requires a sustained streak of calm readings (the paper's
 hysteresis, justified by the <0.1 °C/s drift measurement). This module is

@@ -271,6 +271,19 @@ int launch(const float* q, const float* k, const float* v, float* out, int64_t b
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int DH>
+int attributes(int32_t* out) {
+  cudaFuncAttributes fa;
+  const cudaError_t err = cudaFuncGetAttributes(&fa, fa_kernel<DH>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int32_t>(fa.sharedSizeBytes + smem_bytes<DH>());
+  out[2] = fa.maxThreadsPerBlock;
+  out[3] = static_cast<int32_t>(fa.localSizeBytes);
+  out[4] = kThreads;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -300,6 +313,22 @@ int flash_attention_launch(const float* q, const float* k, const float* v, float
       return launch<64>(q, k, v, out, batch, a, stream);
     case 128:
       return launch<128>(q, k, v, out, batch, a, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// cudaFuncGetAttributes of the head_dim instantiation (its one 64 x 64 tile):
+// registers a thread, shared memory a block (static plus the dynamic amount
+// the launcher requests), max threads a block, local (spill) bytes, threads.
+int flash_attention_attributes(int32_t head_dim, int32_t* out) {
+  switch (head_dim) {
+    case 32:
+      return attributes<32>(out);
+    case 64:
+      return attributes<64>(out);
+    case 128:
+      return attributes<128>(out);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

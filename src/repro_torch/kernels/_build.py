@@ -110,3 +110,27 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None) -> None:
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+#: dtype codes of the kernels that take float32 or bfloat16 operands.
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def dtype_code(t: torch.Tensor, name: str) -> int:
+    if t.dtype not in DTYPE_CODES:
+        raise ValueError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+    return DTYPE_CODES[t.dtype]
+
+
+def attributes(lib: ctypes.CDLL, fn: str, *args: int) -> Dict[str, int]:
+    """``cudaFuncGetAttributes`` of one instantiation, through the library's
+    ``<fn>(args..., int32 out[5])``: registers a thread, shared memory a block
+    (static plus the dynamic amount its launcher requests), the most threads a
+    block may have, local (spill) bytes a thread, threads it launches with."""
+    out = (ctypes.c_int32 * 5)()
+    f = getattr(lib, fn)
+    f.argtypes = [ctypes.c_int32] * len(args) + [ctypes.POINTER(ctypes.c_int32)]
+    f.restype = ctypes.c_int
+    check(lib, f(*args, out), fn)
+    return dict(zip(("registers", "smem_bytes", "max_threads", "local_bytes", "threads"),
+                    list(out)))

@@ -15,13 +15,18 @@ import functools
 
 import torch
 
+from typing import Dict
+
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
-__all__ = ["HEAD_DIMS", "flash_attention_cuda", "flash_attention_plain", "tolerance"]
+__all__ = ["HEAD_DIMS", "TILES", "attributes", "flash_attention_cuda",
+           "flash_attention_plain", "tolerance"]
 
 #: Head widths the CUDA kernel is instantiated for.
 HEAD_DIMS = (32, 64, 128)
+#: The (bq, bk) query × key tiles it is instantiated for (``kBQ``, ``kBK``).
+TILES = ((64, 64),)
 
 
 @functools.lru_cache(maxsize=None)
@@ -82,3 +87,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention_cuda.launches = 0
+
+
+def attributes(dh: int) -> Dict[str, int]:
+    """``cudaFuncGetAttributes`` of the ``dh`` instantiation (see
+    ``_build.attributes``)."""
+    return _build.attributes(_lib(), "flash_attention_attributes", dh)

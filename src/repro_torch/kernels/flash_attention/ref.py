@@ -18,7 +18,7 @@ import torch
 NEG_INF = -1e30
 
 
-def _repeat_kv(x: torch.Tensor, g: int) -> torch.Tensor:
+def repeat_kv(x: torch.Tensor, g: int) -> torch.Tensor:
     """(B, S, Hk, dh) → (B, S, Hk·g, dh): query head h reads KV head h // g."""
     return x.repeat_interleave(g, dim=2) if g > 1 else x
 
@@ -44,7 +44,7 @@ def naive_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, sq, h, dh = q.shape
     skv, hk = k.shape[1], k.shape[2]
     g = h // hk
-    kf, vf = _repeat_kv(k, g).float(), _repeat_kv(v, g).float()
+    kf, vf = repeat_kv(k, g).float(), repeat_kv(v, g).float()
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * (dh ** -0.5)
     s = torch.where(_mask(sq, skv, causal, window, q.device, q_offset), s, NEG_INF)
     p = torch.exp(s - s.amax(-1, keepdim=True))
@@ -62,7 +62,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, sq, h, dh = q.shape
     skv, hk = k.shape[1], k.shape[2]
     g = h // hk
-    kf, vf = _repeat_kv(k, g).float(), _repeat_kv(v, g).float()
+    kf, vf = repeat_kv(k, g).float(), repeat_kv(v, g).float()
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf).mul_(dh ** -0.5)
     s.masked_fill_(~_mask(sq, skv, causal, window, q.device), NEG_INF)
     m = s.amax(-1, keepdim=True)

@@ -18,8 +18,15 @@ from repro_torch.kernels.charge_sweep import kernel as sweep_kernel
 from repro_torch.kernels.charge_sweep import ops as sweep_ops
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_decode import kernel as fd_kernel
+from repro_torch.kernels.flash_decode import ops as fd_ops
+from repro_torch.kernels.latency_matmul import kernel as mm_kernel
+from repro_torch.kernels.latency_matmul import ops as mm_ops
 from repro_torch.kernels.replay_step import kernel as replay_kernel
 from repro_torch.kernels.replay_step import ops as replay_ops
+from repro_torch.kernels.rglru_scan import kernel as sc_kernel
+from repro_torch.kernels.rglru_scan import ops as sc_ops
+from repro_torch.launch import altune_margin
 from repro_torch.launch import serve as lm_launch
 from repro_torch.launch import serve_fleet, trace_eval
 
@@ -252,3 +259,85 @@ def test_lm_serve_on_card_matches_cpu(cuda_device):
     assert r["logit_err"] <= tol and r["cache_err"] <= tol
     assert r["sure"] > 0 and r["agree"] == r["sure"]
     assert r["prefill_launches"] == r["n_layers"] and r["decode_launches"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_latency_matmul_kernel_matches_plain_on_every_tile(cuda_device, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    for m, k, n in ((300, 517, 129), (1, 1, 1), (64, 16, 64)):
+        x = torch.randn((m, k), generator=g, device=cuda_device).to(dtype)
+        y = torch.randn((k, n), generator=g, device=cuda_device).to(dtype)
+        want = mm_kernel.matmul_plain(x, y)
+        for cfg in mm_ops.CANDIDATES:
+            before = mm_kernel.matmul_cuda.launches
+            got = mm_ops.matmul(x, y, cfg)
+            assert mm_kernel.matmul_cuda.launches == before + 1
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and got.shape == (m, n)
+            assert float((got.float() - want.float()).abs().max()) <= mm_kernel.tolerance(want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_scan_kernel_bitwise_equals_plain_on_every_tile(cuda_device, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    words = torch.int32 if dtype == torch.float32 else torch.int16
+    for b, s, d in ((2, 301, 129), (1, 5, 3)):
+        a = (torch.rand((b, s, d), generator=g, device=cuda_device) * 0.9 + 0.05).to(dtype)
+        bb = torch.randn((b, s, d), generator=g, device=cuda_device).to(dtype)
+        h0 = torch.randn((b, d), generator=g, device=cuda_device).to(dtype)
+        want = sc_kernel.rglru_scan_plain(a, bb, h0)
+        for cfg in sc_ops.CANDIDATES:
+            got = sc_ops.rglru_scan(a, bb, h0, cfg)
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(words), want.view(words))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group,dh", [(1, 64), (3, 128), (8, 128)])
+def test_flash_decode_kernel_matches_plain_on_every_tile(cuda_device, dtype, group, dh):
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    b, n, hk = 2, 1100, 2
+    q = torch.randn((b, hk * group, dh), generator=g, device=cuda_device).to(dtype)
+    k, v = (torch.randn((b, n, hk, dh), generator=g, device=cuda_device).to(dtype)
+            for _ in range(2))
+    for length in (0, 1, n - 1, n):
+        want = fd_kernel.flash_decode_plain(q, k, v, length)
+        for cfg in fd_ops.CANDIDATES:
+            got = fd_ops.flash_decode(q, k, v, length, cfg)
+            torch.cuda.synchronize()
+            assert float((got.float() - want.float()).abs().max()) <= fd_kernel.tolerance(want)
+        if length == 0:
+            assert float(got.abs().max()) == 0.0
+
+
+def test_uninstantiated_configs_raise_on_the_card(cuda_device):
+    x = torch.randn((64, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="not instantiated"):
+        mm_ops.matmul(x, x, mm_ops.MMConfig(256, 256, 256))
+    a = torch.rand((1, 8, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="not instantiated"):
+        sc_ops.rglru_scan(a, a, a[:, 0], sc_ops.ScanConfig(256, 128))
+    q, kv = torch.randn((1, 2, 64), device=cuda_device), torch.randn((1, 8, 1, 64),
+                                                                      device=cuda_device)
+    with pytest.raises(ValueError, match="not instantiated"):
+        fd_ops.flash_decode(q, kv, kv, 8, fd_ops.FDConfig(7))
+    qa = torch.randn((1, 64, 1, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="not instantiated"):
+        fa_ops.flash_attention(qa, qa, qa, config=fa_ops.FAConfig(128, 128))
+
+
+def test_altune_margin_small_on_the_card(cuda_device, tmp_path):
+    """The margin harvest on the card at the reference's small validation
+    shapes: every tile validates and has a measured time; the table saves."""
+    before = {f: f.launches for f in (mm_kernel.matmul_cuda, sc_kernel.rglru_scan_cuda,
+                                      fd_kernel.flash_decode_cuda,
+                                      fa_kernel.flash_attention_cuda)}
+    rows, results = altune_margin.run(device=cuda_device, out=str(tmp_path / "t.json"),
+                                      shapes=altune_margin.CPU_SHAPES, return_results=True)
+    assert all(f.launches > n for f, n in before.items())
+    for res in results:
+        assert all(e.feasible and e.validated and e.repeat_ok and 0 < e.t_seconds < 1
+                   for e in res.entries)
+    assert [r[0] for r in rows][::2] == [f"altune/{r.kernel}/margin" for r in results]
+    assert (tmp_path / "t.json").exists()
+
