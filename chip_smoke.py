@@ -46,12 +46,16 @@ Phases, each of which exits non-zero on failure:
    refresh ddr3, no errors, each with every kernel's launch count read
    around it; then a 200-step window of such a replay under
    ``torch.profiler`` for the device's busy share per step.
-9. Flash attention, kernel vs plain on six cases — the LM serve shape
-   (B 4, H 24, Hk 8, S 1,024, dh 128, causal), a long causal 8,192, a
-   ragged 1,000, a 512-token window, SmolLM's heads (H 9, Hk 3, dh 64) and
-   a non-causal ragged cross shape: ``max|kernel - plain| <= 1e-5 *
-   max|plain| + 1e-6``. Timed at the serve shape against its bound, beside
-   its plain version and ``scaled_dot_product_attention`` (the yardstick).
+9. Flash attention, kernel vs plain on every instantiated tile and six
+   cases — the LM serve shape (B 4, H 24, Hk 8, S 1,024, dh 128, causal), a
+   long causal 8,192, a ragged 1,000, a 512-token window, SmolLM's heads
+   (H 9, Hk 3, dh 64) and a non-causal ragged cross shape:
+   ``max|kernel - plain| <= 1e-5 * max|plain| + 1e-6``. Every tile timed at
+   the serve shape and at altune's (B 8, S 4,096, H 32, Hk 8, dh 128,
+   causal), each against its bound and beside
+   ``scaled_dot_product_attention`` on KV heads repeated to H (the
+   yardstick); the plain version at
+   the serve shape.
 10. LM serve, card vs CPU: reduced Llama-3.2-3B with the same weights and
    prompts, prefill and 8 teacher-forced decode steps: logits within 1e-4,
    greedy ids equal wherever the CPU's top-2 gap exceeds 2e-4.
@@ -63,14 +67,16 @@ Phases, each of which exits non-zero on failure:
    ``torch.profiler`` for the device's busy share and where the time goes.
 12. The altune kernels against their plain versions on every instantiated
    tile: the latency matmul at 4096³ float32 (timed beside ``torch.matmul``)
-   and ragged (1000, 3000, 700) in float32 and bfloat16, within
+   and ragged (1000, 3000, 700) in float32 and bfloat16 (1,400-byte rows,
+   the kernel's register path), within
    ``kernel.tolerance``; the RG-LRU scan at (8, 4096, 4096) float32 (timed)
    and ragged S and D in float32 and bfloat16, 0 mismatching words; flash
    decode at B 8, L 32,768, H 64, Hk 8, dh 128 with lengths 32,768 (timed
    beside ``scaled_dot_product_attention``), 1,000 and 1, and in bfloat16,
    within ``kernel.tolerance``.
 13. The tile gate against the card: for every instantiated tile of the four
-   altune kernels, the cost model's verdict and its shared memory and
+   altune kernels (the float32 matmul's cp.async and register-path builds
+   both), the cost model's verdict and its shared memory and
    threads against ``cudaFuncGetAttributes``; then an empty kernel's launch
    and per-block overheads (the cost model's constants).
 14. The altune main path: ``launch.altune_margin.run`` on the card, every
@@ -120,6 +126,10 @@ FA_CASES = (
     ("smollm heads", 4, 1024, 1024, 9, 3, 64, True, 0),
     ("non-causal", 2, 1000, 777, 24, 8, 128, False, 0),
 )
+#: Flash-attention timing shapes (B, S, H, Hk, dh), causal: the LM serve
+#: path's prefill and altune's production shape.
+FA_SERVE_SHAPE = (4, 1024, 24, 8, 128)
+FA_ALTUNE_SHAPE = (8, 4096, 32, 8, 128)
 LM_ARCH = "llama3.2-3b"
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 1024, 32
 LM_SMALL_BATCH, LM_SMALL_PROMPT, LM_SMALL_STEPS = 2, 40, 8
@@ -198,43 +208,73 @@ def bound_ms(n_bytes: float, n_ops: float):
 
 
 def flash_attention_phase(torch, dev, gen, fa_k):
-    """Phase 9: the kernel against its plain version on every case, then
-    timed at the serve shape. Returns the kernel's figures."""
+    """Phase 9: the kernel against its plain version on every case and
+    instantiated tile, then every tile timed at the serve shape and at
+    altune's. Returns the kernel's figures (the serve shape's at the top
+    level, altune's under ``"altune"``)."""
     max_err = 0.0
     for name, b, sq, skv, h, hk, dh, causal, window in FA_CASES:
         q = torch.randn((b, sq, h, dh), generator=gen, device=dev)
         k, v = (torch.randn((b, skv, hk, dh), generator=gen, device=dev) for _ in range(2))
-        got = fa_k.flash_attention_cuda(q, k, v, causal=causal, window=window)
         want = fa_k.flash_attention_plain(q, k, v, causal=causal, window=window)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
         tol = fa_k.tolerance(want)
+        errs = {}
+        for tile in fa_k.TILES:
+            got = fa_k.flash_attention_cuda(q, k, v, causal=causal, window=window, tile=tile)
+            torch.cuda.synchronize()
+            errs[tile] = float((got - want).abs().max())
+            if not (errs[tile] <= tol and bool(torch.isfinite(got).all())):
+                fail(f"flash-attention kernel, tile {tile}, disagrees with its plain version "
+                     f"on {name}: {errs[tile]:.3e} > {tol:.3e}")
+            del got
         log(f"flash attention, {name}: B {b}, Sq {sq}, Skv {skv}, H {h}, Hk {hk}, dh {dh}, "
-            f"causal {causal}, window {window}: max|kernel - plain| {err:.3e} (tolerance "
-            f"{tol:.3e})")
-        if not (err <= tol and bool(torch.isfinite(got).all())):
-            fail(f"flash-attention kernel disagrees with its plain version on {name}")
-        max_err = max(max_err, err)
-        del q, k, v, got, want
+            f"causal {causal}, window {window}: max|kernel - plain| by tile "
+            f"{[(t, f'{e:.3e}') for t, e in errs.items()]} (tolerance {tol:.3e})")
+        max_err = max([max_err] + list(errs.values()))
+        del q, k, v, want
     torch.cuda.empty_cache()
 
-    _, b, s, _, h, hk, dh, _, _ = FA_CASES[0]
-    q = torch.randn((b, s, h, dh), generator=gen, device=dev)
-    k, v = (torch.randn((b, s, hk, dh), generator=gen, device=dev) for _ in range(2))
-    fa_ms = cuda_ms(torch, lambda: fa_k.flash_attention_cuda(q, k, v, causal=True), 20)
-    plain_ms = cuda_ms(torch, lambda: fa_k.flash_attention_plain(q, k, v, causal=True), 3)
-    # The library yardstick on head-major copies (its preferred layout).
-    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    sdpa_ms = cuda_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-        qh, kh, vh, is_causal=True, enable_gqa=True), 20)
-    pairs = b * h * s * (s + 1) // 2
-    bound, by = bound_ms(4 * (2 * b * s * h * dh + 2 * b * s * hk * dh),
-                         ATTENTION_OPS_PER_PAIR_DIM * dh * pairs)
-    log(f"flash attention at the serve shape: kernel {fa_ms:.4f} ms, plain {plain_ms:.3f} ms, "
-        f"scaled_dot_product_attention {sdpa_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
-        f"{ATTENTION_OPS_PER_PAIR_DIM * dh * pairs / fa_ms / 1e9:.2f} TFLOP/s")
-    return {"max_abs_err": max_err, "ms": fa_ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": by, "library_ms": sdpa_ms}
+    out = {"max_abs_err": max_err}
+    for label, (b, s, h, hk, dh), reps in (("serve", FA_SERVE_SHAPE, 20),
+                                           ("altune", FA_ALTUNE_SHAPE, 3)):
+        q = torch.randn((b, s, h, dh), generator=gen, device=dev)
+        k, v = (torch.randn((b, s, hk, dh), generator=gen, device=dev) for _ in range(2))
+        by_tile = {t: cuda_ms(torch, lambda t=t: fa_k.flash_attention_cuda(
+            q, k, v, causal=True, tile=t), reps) for t in fa_k.TILES}
+        best = min(by_tile, key=by_tile.get)
+        # The library yardstick on head-major copies (its preferred layout)
+        # with the KV heads repeated to H: its float32 GQA path
+        # (enable_gqa) is the math one, which materializes the scores.
+        qh = q.transpose(1, 2).contiguous()
+        kh, vh = (x.transpose(1, 2).repeat_interleave(h // hk, dim=1).contiguous()
+                  for x in (k, v))
+        sdpa_ms = cuda_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True), reps)
+        del qh, kh, vh
+        pairs = b * h * s * (s + 1) // 2
+        bound, by = bound_ms(4 * (2 * b * s * h * dh + 2 * b * s * hk * dh),
+                             ATTENTION_OPS_PER_PAIR_DIM * dh * pairs)
+        fig = {"ms": by_tile[best], "tile": str(best),
+               "ms_by_tile": {str(t): v_ for t, v_ in by_tile.items()},
+               "bound_ms": bound, "bound_by": by, "library_ms": sdpa_ms}
+        plain = ""
+        if label == "serve":
+            fig["plain_ms"] = cuda_ms(torch, lambda: fa_k.flash_attention_plain(
+                q, k, v, causal=True), 3)
+            plain = f"plain {fig['plain_ms']:.3f} ms, "
+        log(f"flash attention at the {label} shape (B {b}, S {s}, H {h}, Hk {hk}, dh {dh}, "
+            f"causal): kernel by tile {[(t, round(v_, 4)) for t, v_ in by_tile.items()]} ms, "
+            f"best {best} {by_tile[best]:.4f} ms "
+            f"({ATTENTION_OPS_PER_PAIR_DIM * dh * pairs / by_tile[best] / 1e9:.2f} TFLOP/s, "
+            f"{bound / by_tile[best] * 100:.1f} % of its bound), {plain}"
+            f"scaled_dot_product_attention {sdpa_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+        if label == "serve":
+            out.update(fig)
+        else:
+            out["altune"] = fig
+        del q, k, v
+        torch.cuda.empty_cache()
+    return out
 
 
 def lm_card_vs_cpu_phase(dev):
@@ -475,14 +515,20 @@ def gate_phase(torch):
     from repro_torch.kernels.rglru_scan import ops as sc_ops
 
     checks = []  # (label, config, model args, card attributes)
-    for dt in (torch.float32, torch.bfloat16):
-        checks += [(f"latency_matmul {dt}", c, (), mm_k.attributes((c.bm, c.bn, c.bk), dt))
+    # The float32 matmul has two builds a tile: cp.async for 16-byte aligned
+    # rows, the register path for others; bfloat16 takes the register path.
+    for dt, aligned, path in ((torch.float32, True, "cp.async"),
+                              (torch.float32, False, "register path"),
+                              (torch.bfloat16, False, "register path")):
+        checks += [(f"latency_matmul {dt} {path}", c, (),
+                    mm_k.attributes((c.bm, c.bn, c.bk), dt, aligned))
                    for c in mm_ops.CANDIDATES]
+    for dt in (torch.float32, torch.bfloat16):
         checks += [(f"rglru_scan {dt}", c, (), sc_k.attributes((c.bd, c.bs), dt))
                    for c in sc_ops.CANDIDATES]
         checks += [(f"flash_decode dh {dh} {dt}", c, (dh,), fd_k.attributes(c.bk, dh, dt))
                    for c in fd_ops.CANDIDATES for dh in fd_k.HEAD_DIMS]
-    checks += [(f"flash_attention dh {dh}", c, (dh,), fa_k.attributes(dh))
+    checks += [(f"flash_attention dh {dh}", c, (dh,), fa_k.attributes(dh, (c.bq, c.bk)))
                for c in fa_ops.CANDIDATES for dh in fa_k.HEAD_DIMS]
     table = []
     for label, cfg, args, at in checks:

@@ -13,30 +13,50 @@
 // float32 outside the tensor cores. Tensor cores are not used: TF32 would
 // change the numbers against the float32 plain version.
 //
-// Design. One block of 256 threads per (batch * head, 64-query tile); the
-// block walks the 64-key tiles its queries can see (the causal diagonal and
-// the window bound its range: a fully masked tile leaves m, l and acc as
-// they were, so skipping it changes no result). The Q tile, the K and V
-// tiles and the P tile live in shared memory (112 KB at dh 128, so two
-// blocks share an SM); each thread owns 4 query rows (ty + 16 i) and, of
-// each tile, 4 key columns (tx + 16 j) of S and dh / 16 output columns of
-// the accumulator, so a row's max and sum reduce over the 16 lanes that
-// hold it with shuffles (at dh 32 the output has 8 float4 slots: lanes
-// tx >= 8 mirror lanes tx - 8 and do not write). Q and K rows are
-// XOR-swizzled by float4 slot (slot ^ (row & 7)) and P by row parity, so
-// the inner loops' shared loads are free of bank conflicts without padding.
+// Design. The (BQ, BK) query x key tile is the kernel's timing parameter
+// set, as on the TPU: the kernel is a template over (BQ, BK, dh), one
+// instantiation for each member of kernels/flash_attention/ops.CANDIDATES
+// (FA_TILES below) and each head width. One block per (batch * head,
+// BQ-query tile) walks the BK-key tiles its queries can see (the causal
+// diagonal and the window bound its range: a fully masked tile leaves m, l
+// and acc as they were, so skipping it changes no result).
+// - A block has BQ * BK / 32 threads, 16 lanes tx across keys and output
+//   columns and TY = threads / 16 rows ty. Each thread owns 32 scores of a
+//   tile, rows ty + TY i and keys tx + 16 j (8 x 4; 4 x 8 at BK 128), and
+//   dh / 16 output columns of those rows, so a row's max and sum reduce over
+//   the 16 lanes that hold it with shuffles (at dh 32 the output has 8
+//   float4 slots: lanes tx >= 8 mirror lanes tx - 8 and do not write).
+//   At 8 x 4 a thread, Q K^T does 128 FMAs for 12 LDS.128 and P V 256 for
+//   16 (64 for 8 and 128 for 12 at 4 x 4).
+// - The Q tile, one K tile, one V tile and the P tile live in shared
+//   memory, (BQ + 2 BK) dh + BQ BK floats and a float4 of padding a K row:
+//   113 KB at (64, 64) and dh 128, so two 128-thread blocks share an SM;
+//   161 and 194 KB at (128, 64) and (64, 128), one 256-thread block an SM.
+//   K rows are padded by one float4, and Q's and P's float4 slots swizzled
+//   by row parity, so the inner loops' shared loads are free of bank
+//   conflicts and address their operands from a few base registers with
+//   compile-time offsets.
+//
+// Loads overlap the products: Q, K and V are copied by cp.async (16 bytes,
+// zero-filled past the end; each thread copies one float4 column of every
+// (threads / (dh / 4))-th row from one base address) in a staggered order
+// with single buffers and two barriers a tile. V(t) is in flight while the
+// block computes S = Q K(t)^T and the softmax; K(t + 1) is in flight while
+// it computes P V(t). Key tiles that lie wholly inside every mask skip the
+// mask arithmetic.
+//
 // The kernel reads the public (B, S, H, dh) layout through strides (last
-// dim contiguous, 16-byte aligned), masks ragged lengths itself (rows and
-// keys past the end load as zeros and are masked) and writes a contiguous
-// (B, Sq, H, dh) output. The heaviest causal query tiles launch first.
-// Offsets are 64-bit.
+// dim contiguous, 16-byte aligned) and writes a contiguous (B, Sq, H, dh)
+// output. The heaviest causal query tiles launch first. Row offsets are
+// 64-bit.
 //
 // Numerics against the plain version (ref.flash_attention_plain): the same
 // masks and the same float32 scale, precise expf, explicit fmaf for the
-// dot products (the build passes -fmad=false, which only stops the compiler
-// contracting separate multiplies and adds), IEEE division at the end.
-// Sums run in another order than a float32 matrix product, so results agree
-// within a tolerance, not bitwise.
+// dot products in dh order and for P V in key order (the build passes
+// -fmad=false, which only stops the compiler contracting separate
+// multiplies and adds), IEEE division at the end. Sums run in another order
+// than a float32 matrix product, so results agree within a tolerance, not
+// bitwise.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,14 +64,14 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kBQ = 64;        // queries per block
-constexpr int kBK = 64;        // keys per tile
-constexpr int kThreads = 256;  // 16 x 16: ty picks query rows, tx key / output columns
-constexpr int kRows = kBQ / 16;
-constexpr int kCols = kBK / 16;
+constexpr int kScores = 32;  // scores of a tile a thread owns (ops.SCORES_PER_THREAD)
+
+// 16 lanes tx across key / output columns, threads / 16 rows ty.
+template <int BQ, int BK>
+__host__ __device__ constexpr int threads_of() { return BQ * BK / kScores; }
 
 struct Args {
-  int64_t sq, skv;
+  int sq, skv;
   int64_t q_sb, q_ss, q_sh;
   int64_t k_sb, k_ss, k_sh;
   int64_t v_sb, v_ss, v_sh;
@@ -59,65 +79,105 @@ struct Args {
   float scale;
 };
 
-template <int DH>
-constexpr size_t smem_bytes() {
-  return (kBQ + 2 * kBK) * (DH / 4) * sizeof(float4) + kBQ * kBK * sizeof(float);
+// Q, K (rows padded by one float4), V and P tiles.
+template <int BQ, int BK, int DH>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return ((BQ + 2 * BK) * DH + BQ * BK) * sizeof(float) + BK * sizeof(float4);
 }
 
-__device__ __forceinline__ int swz(int row, int slot) { return slot ^ (row & 7); }
-
-// Float offset of P[r][c] in the P tile: float4 slots swizzled by row parity.
-__device__ __forceinline__ int p_at(int r, int c) {
-  return r * kBK + ((((c >> 2) ^ ((r & 1) << 2))) << 2) + (c & 3);
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
+// Two blocks an SM where the 64 x 64 tile's shared memory allows it.
+template <int BQ, int BK>
+__host__ __device__ constexpr int min_blocks() { return BQ * BK <= 64 * 64 ? 2 : 1; }
 
 __device__ __forceinline__ float comp(const float4& a, int e) {
   return e == 0 ? a.x : e == 1 ? a.y : e == 2 ? a.z : a.w;
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads, 2)
+__device__ __forceinline__ void cp_async16(void* dst, const float* src, int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+template <int BQ, int BK, int DH>
+__global__ void __launch_bounds__(threads_of<BQ, BK>(), min_blocks<BQ, BK>())
 fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ out, const Args a) {
   constexpr int D4 = DH / 4;                  // float4 slots per row
   constexpr int OG = DH >= 64 ? DH / 64 : 1;  // output float4 slots per thread: tx + 16 g
+  constexpr int NT = threads_of<BQ, BK>(), TY = NT / 16;
+  static_assert(NT % D4 == 0 && BQ % (NT / D4) == 0 && BK % (NT / D4) == 0 &&
+                (NT / D4) % 2 == 0, "whole rows of one parity a copy pass");
+  constexpr int RQ = BQ / TY, RK = BK / 16;   // S rows and keys per thread
+  constexpr int P4 = BK / 4;                  // float4 slots per row of P
+  constexpr int KS = D4 + 1;                  // row stride of K, float4
   extern __shared__ float4 smem[];
-  float4* s_q = smem;                 // [kBQ][D4], swizzled
-  float4* s_k = s_q + kBQ * D4;       // [kBK][D4], swizzled
-  float4* s_v = s_k + kBK * D4;       // [kBK][D4]
-  float* s_p = reinterpret_cast<float*>(s_v + kBK * D4);  // [kBQ][kBK], p_at
+  float4* s_q = smem;                 // [BQ][D4], slot ^ 1 on odd rows
+  float4* s_k = s_q + BQ * D4;        // [BK][KS]
+  float4* s_v = s_k + BK * KS;        // [BK][D4]
+  float* s_p = reinterpret_cast<float*>(s_v + BK * D4);  // [BQ][BK], slot ^ 4 on odd rows
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int bh = blockIdx.x;
   const int b = bh / a.heads, h = bh - b * a.heads;
   const int kvh = h / a.group;
-  const int64_t q0 = static_cast<int64_t>(gridDim.y - 1 - blockIdx.y) * kBQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
 
   const float* qb = q + b * a.q_sb + h * a.q_sh;
   const float* kb = k + b * a.k_sb + kvh * a.k_sh;
   const float* vb = v + b * a.v_sb + kvh * a.v_sh;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  for (int idx = tid; idx < kBQ * D4; idx += kThreads) {
-    const int r = idx / D4, d4 = idx - r * D4;
-    const int64_t qp = q0 + r;
-    s_q[r * D4 + swz(r, d4)] = qp < a.sq ? ld4(qb + qp * a.q_ss + 4 * d4) : zero;
-  }
+  // Thread tid copies float4 slot tid % D4 of rows tid / D4 + ROWS i (ROWS
+  // is even, so those rows share a parity).
+  constexpr int ROWS = NT / D4;
+  const int c0 = tid / D4, d4 = tid % D4;
+  auto load_q = [&]() {
+    const float* src = qb + (q0 + c0) * a.q_ss + 4 * d4;
+    float4* d = s_q + c0 * D4 + (d4 ^ (c0 & 1));
+#pragma unroll
+    for (int i = 0; i < BQ / ROWS; ++i) {
+      const bool in = q0 + c0 + ROWS * i < a.sq;
+      cp_async16(d + ROWS * i * D4, in ? src + ROWS * i * a.q_ss : q, in ? 16 : 0);
+    }
+  };
+  auto load_kv = [&](float4* dst, int row_stride, const float* base, int64_t stride, int k0) {
+    const float* src = base + (k0 + c0) * stride + 4 * d4;
+    float4* d = dst + c0 * row_stride + d4;
+    const bool full = k0 + BK <= a.skv;
+#pragma unroll
+    for (int i = 0; i < BK / ROWS; ++i) {
+      const bool in = full || k0 + c0 + ROWS * i < a.skv;
+      cp_async16(d + ROWS * i * row_stride, in ? src + ROWS * i * stride : base, in ? 16 : 0);
+    }
+  };
+  // Shared-memory bases of this thread's fragments; every offset added to
+  // them below is a compile-time constant. Q's slot d4 of row r is at
+  // d4 ^ (r & 1): d4 + 1 on odd rows for even d4, d4 - 1 for odd d4 (rows
+  // ty + TY i share ty's parity). P's slot c4 likewise at c4 ^ 4 on odd rows.
+  const int par = ty & 1;
+  const float4* q_even = s_q + ty * D4 + par;
+  const float4* q_odd = s_q + ty * D4 - par;
+  const float4* k_row = s_k + tx * KS;
+  const float4* v_col = s_v + (tx & (D4 - 1));
+  float* p_st_even = s_p + ty * BK + tx + 16 * par;  // P[r][tx + 16 j] at j ^ par
+  float* p_st_odd = s_p + ty * BK + tx - 16 * par;
+  const float4* p_lo = reinterpret_cast<const float4*>(s_p) + ty * P4 + 4 * par;
+  const float4* p_hi = reinterpret_cast<const float4*>(s_p) + ty * P4 - 4 * par;
 
   // Key tiles this query tile can see.
-  const int64_t q_last = (q0 + kBQ < a.sq ? q0 + kBQ : a.sq) - 1;
-  int64_t kv_lo = 0, kv_hi = a.skv;
+  const int q_last = min(q0 + BQ, a.sq) - 1;
+  int kv_lo = 0, kv_hi = a.skv;
   if (a.causal && q_last + 1 < kv_hi) kv_hi = q_last + 1;
   if (a.window > 0 && q0 - a.window + 1 > 0) kv_lo = q0 - a.window + 1;
-  const int64_t t_lo = kv_lo / kBK, t_hi = (kv_hi + kBK - 1) / kBK;
+  const int t_lo = kv_lo / BK, t_hi = (kv_hi + BK - 1) / BK;
 
-  float m[kRows], l[kRows], acc[kRows][OG][4];
+  float m[RQ], l[RQ], acc[RQ][OG][4];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
+  for (int i = 0; i < RQ; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
@@ -126,75 +186,88 @@ fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int e = 0; e < 4; ++e) acc[i][g][e] = 0.f;
   }
 
-  for (int64_t t = t_lo; t < t_hi; ++t) {
-    const int64_t k0 = t * kBK;
-    __syncthreads();  // the previous tile's readers are done with s_k, s_v, s_p
-    for (int idx = tid; idx < kBK * D4; idx += kThreads) {
-      const int c = idx / D4, d4 = idx - c * D4;
-      const int64_t kp = k0 + c;
-      const bool in = kp < a.skv;
-      s_k[c * D4 + swz(c, d4)] = in ? ld4(kb + kp * a.k_ss + 4 * d4) : zero;
-      s_v[c * D4 + d4] = in ? ld4(vb + kp * a.v_ss + 4 * d4) : zero;
-    }
-    __syncthreads();
+  load_q();
+  if (t_lo < t_hi) load_kv(s_k, KS, kb, a.k_ss, t_lo * BK);
+  cp_async_commit();
 
-    // S = Q K^T over this tile: rows ty + 16 i, columns tx + 16 j.
-    float s[kRows][kCols];
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int k0 = t * BK;
+    cp_async_wait_all();  // this thread's Q and K(t) copies have landed
+    __syncthreads();      // everyone's have; everyone is done with P and V(t - 1)
+    load_kv(s_v, D4, vb, a.v_ss, k0);  // V(t): in flight during S and the softmax
+    cp_async_commit();
+
+    // S = Q K^T over this tile: rows ty + TY i, columns tx + 16 j.
+    float s[RQ][RK];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i)
+    for (int i = 0; i < RQ; ++i)
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < RK; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int d4 = 0; d4 < D4; ++d4) {
-      float4 qa[kRows], ka[kCols];
+    for (int d0 = 0; d0 < D4; d0 += 2) {
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int r = ty + 16 * i;
-        qa[i] = s_q[r * D4 + swz(r, d4)];
+      for (int dd = 0; dd < 2; ++dd) {
+        const int d4 = d0 + dd;
+        float4 qa[RQ], ka[RK];
+#pragma unroll
+        for (int i = 0; i < RQ; ++i) qa[i] = ((dd & 1) ? q_odd : q_even)[TY * i * D4 + d4];
+#pragma unroll
+        for (int j = 0; j < RK; ++j) ka[j] = k_row[16 * j * KS + d4];
+#pragma unroll
+        for (int i = 0; i < RQ; ++i)
+#pragma unroll
+          for (int j = 0; j < RK; ++j) {
+            float x = s[i][j];
+            x = fmaf(qa[i].x, ka[j].x, x);
+            x = fmaf(qa[i].y, ka[j].y, x);
+            x = fmaf(qa[i].z, ka[j].z, x);
+            x = fmaf(qa[i].w, ka[j].w, x);
+            s[i][j] = x;
+          }
       }
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int c = tx + 16 * j;
-        ka[j] = s_k[c * D4 + swz(c, d4)];
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          float x = s[i][j];
-          x = fmaf(qa[i].x, ka[j].x, x);
-          x = fmaf(qa[i].y, ka[j].y, x);
-          x = fmaf(qa[i].z, ka[j].z, x);
-          x = fmaf(qa[i].w, ka[j].w, x);
-          s[i][j] = x;
-        }
     }
 
-    // Mask, online softmax, P into shared memory.
+    // Mask (unless every pair of the tile is visible), online softmax, P
+    // into shared memory: every row's steps side by side, so the shuffle
+    // chains and the exponentials of the RQ rows overlap.
+    const bool visible = k0 + BK <= a.skv && q0 + BQ <= a.sq &&
+                         (!a.causal || k0 + BK - 1 <= q0) &&
+                         (a.window <= 0 || q0 + BQ - 1 - k0 < a.window);
+    float mx[RQ];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = ty + 16 * i;
-      const int64_t qp = q0 + r;
-      float mx = kNegInf;
+    for (int i = 0; i < RQ; ++i) {
+      const int qp = q0 + ty + TY * i;
+      mx[i] = kNegInf;
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int64_t kp = k0 + tx + 16 * j;
-        bool ok = qp < a.sq && kp < a.skv;
-        if (a.causal) ok = ok && qp >= kp;
-        if (a.window > 0) ok = ok && qp - kp < a.window;
+      for (int j = 0; j < RK; ++j) {
+        const int kp = k0 + tx + 16 * j;
+        bool ok = true;
+        if (!visible) {
+          ok = qp < a.sq && kp < a.skv;
+          if (a.causal) ok = ok && qp >= kp;
+          if (a.window > 0) ok = ok && qp - kp < a.window;
+        }
         s[i][j] = ok ? s[i][j] * a.scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
+        mx[i] = fmaxf(mx[i], s[i][j]);
       }
+    }
 #pragma unroll
-      for (int off = 1; off < 16; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
+    for (int off = 1; off < 16; off <<= 1)
+#pragma unroll
+      for (int i = 0; i < RQ; ++i) mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], off));
+#pragma unroll
+    for (int i = 0; i < RQ; ++i) {
+      const float m_new = fmaxf(m[i], mx[i]);
       const float corr = expf(m[i] - m_new);
       float ps = 0.f;
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float p = s[i][j] > 0.5f * kNegInf ? expf(s[i][j] - m_new) : 0.f;
+      for (int j = 0; j < RK; ++j) {
+        // expf(s - m_new) is 0 for a masked s unless the whole row is masked
+        // so far (m_new is the mask value too): the factor keeps p at 0 there
+        // without a branch around expf.
+        const float p = expf(s[i][j] - m_new) * (s[i][j] > 0.5f * kNegInf ? 1.f : 0.f);
         ps += p;
-        s_p[p_at(r, tx + 16 * j)] = p;
+        ((j & 1) ? p_st_odd : p_st_even)[TY * i * BK + 16 * j] = p;
       }
       l[i] = l[i] * corr + ps;
       m[i] = m_new;
@@ -203,26 +276,28 @@ fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][g][e] *= corr;
     }
-    __syncthreads();
+    cp_async_wait_all();  // this thread's V(t) copies have landed
+    __syncthreads();      // everyone's have, P is written, everyone is done with K(t)
+    if (t + 1 < t_hi) {
+      load_kv(s_k, KS, kb, a.k_ss, k0 + BK);  // K(t + 1): in flight during P V
+      cp_async_commit();
+    }
 
-    // acc += P V: rows ty + 16 i, output float4 slots tx + 16 g.
-    const float4* p4 = reinterpret_cast<const float4*>(s_p);
-#pragma unroll 2
-    for (int c4 = 0; c4 < kBK / 4; ++c4) {
-      float4 pa[kRows];
+    // acc += P V: rows ty + TY i, output float4 slots tx + 16 g.
+#pragma unroll 4
+    for (int c4 = 0; c4 < P4; ++c4) {
+      const float4* p_c = (c4 & 4) ? p_hi : p_lo;
+      float4 pa[RQ];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int r = ty + 16 * i;
-        pa[i] = p4[r * (kBK / 4) + (c4 ^ ((r & 1) << 2))];
-      }
+      for (int i = 0; i < RQ; ++i) pa[i] = p_c[TY * i * P4 + c4];
 #pragma unroll
       for (int cc = 0; cc < 4; ++cc) {
         const int c = 4 * c4 + cc;
         float4 va[OG];
 #pragma unroll
-        for (int g = 0; g < OG; ++g) va[g] = s_v[c * D4 + ((tx + 16 * g) & (D4 - 1))];
+        for (int g = 0; g < OG; ++g) va[g] = v_col[c * D4 + 16 * g];
 #pragma unroll
-        for (int i = 0; i < kRows; ++i) {
+        for (int i = 0; i < RQ; ++i) {
           const float p = comp(pa[i], cc);
 #pragma unroll
           for (int g = 0; g < OG; ++g) {
@@ -235,15 +310,16 @@ fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
     }
   }
+  cp_async_wait_all();  // a block that saw no key tile still has Q in flight
 
   // out = acc / max(l, 1e-30): l is the sum of the 16 lanes' partial sums.
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
+  for (int i = 0; i < RQ; ++i) {
     float lt = l[i];
 #pragma unroll
     for (int off = 1; off < 16; off <<= 1) lt += __shfl_xor_sync(0xffffffffu, lt, off);
     const float den = fmaxf(lt, 1e-30f);
-    const int64_t qp = q0 + ty + 16 * i;
+    const int qp = q0 + ty + TY * i;
     if (qp < a.sq && tx < D4) {
       float* o = out + ((static_cast<int64_t>(b) * a.sq + qp) * a.heads + h) * DH;
 #pragma unroll
@@ -256,33 +332,44 @@ fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int DH>
+template <int BQ, int BK, int DH>
 int launch(const float* q, const float* k, const float* v, float* out, int64_t batch,
            const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes<DH>();
+  constexpr size_t smem = smem_bytes<BQ, BK, DH>();
   cudaError_t err = cudaFuncSetAttribute(
-      fa_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      fa_kernel<BQ, BK, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(fa_kernel<BQ, BK, DH>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t n_q_tiles = (a.sq + kBQ - 1) / kBQ;
+  const int64_t n_q_tiles = (a.sq + BQ - 1) / BQ;
   const int64_t n_heads = batch * a.heads;
   if (n_q_tiles > 65535 || n_heads > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned int>(n_heads), static_cast<unsigned int>(n_q_tiles));
-  fa_kernel<DH><<<grid, kThreads, smem, stream>>>(q, k, v, out, a);
+  fa_kernel<BQ, BK, DH><<<grid, threads_of<BQ, BK>(), smem, stream>>>(q, k, v, out, a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int DH>
+template <int BQ, int BK, int DH>
 int attributes(int32_t* out) {
   cudaFuncAttributes fa;
-  const cudaError_t err = cudaFuncGetAttributes(&fa, fa_kernel<DH>);
+  const cudaError_t err = cudaFuncGetAttributes(&fa, fa_kernel<BQ, BK, DH>);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = fa.numRegs;
-  out[1] = static_cast<int32_t>(fa.sharedSizeBytes + smem_bytes<DH>());
+  out[1] = static_cast<int32_t>(fa.sharedSizeBytes + smem_bytes<BQ, BK, DH>());
   out[2] = fa.maxThreadsPerBlock;
   out[3] = static_cast<int32_t>(fa.localSizeBytes);
-  out[4] = kThreads;
+  out[4] = threads_of<BQ, BK>();
   return 0;
 }
+
+// The instantiated (bq, bk) tiles: kernels/flash_attention/kernel.TILES, in
+// order; each for head widths 32, 64 and 128.
+#define FA_TILES(X) \
+  X(64, 64)         \
+  X(128, 64)        \
+  X(64, 128)
 
 }  // namespace
 
@@ -295,43 +382,57 @@ const char* error_string(int code) {
 // q: (B, Sq, H, dh), k and v: (B, Skv, Hk, dh) float32 device tensors given
 // by their element strides over (batch, position, head), the head dim
 // contiguous and every row 16-byte aligned (the wrapper checks); out is a
-// contiguous (B, Sq, H, dh) float32 tensor. head_dim must be 32, 64 or 128.
-int flash_attention_launch(const float* q, const float* k, const float* v, float* out,
-                           int64_t batch, int64_t sq, int64_t skv, int32_t heads,
-                           int32_t kv_heads, int32_t head_dim, int64_t q_sb, int64_t q_ss,
-                           int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
-                           int64_t v_sb, int64_t v_ss, int64_t v_sh, int32_t causal,
-                           int32_t window, float scale, cudaStream_t stream) {
+// contiguous (B, Sq, H, dh) float32 tensor. head_dim must be 32, 64 or 128,
+// (bq, bk) an instantiated tile, Sq and Skv < 2^31.
+int flash_attention_launch(int32_t bq, int32_t bk, const float* q, const float* k,
+                           const float* v, float* out, int64_t batch, int64_t sq, int64_t skv,
+                           int32_t heads, int32_t kv_heads, int32_t head_dim, int64_t q_sb,
+                           int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
+                           int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
+                           int32_t causal, int32_t window, float scale, cudaStream_t stream) {
   if (kv_heads <= 0 || heads % kv_heads != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (sq > INT32_MAX - 256 || skv > INT32_MAX - 256) return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0 || sq == 0 || heads == 0) return static_cast<int>(cudaGetLastError());
-  const Args a{sq, skv, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-               heads, heads / kv_heads, causal, window, scale};
-  switch (head_dim) {
-    case 32:
-      return launch<32>(q, k, v, out, batch, a, stream);
-    case 64:
-      return launch<64>(q, k, v, out, batch, a, stream);
-    case 128:
-      return launch<128>(q, k, v, out, batch, a, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{static_cast<int>(sq), static_cast<int>(skv), q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+               v_sb, v_ss, v_sh, heads, heads / kv_heads, causal, window, scale};
+#define FA_LAUNCH(BQ, BK)                                               \
+  if (bq == BQ && bk == BK) {                                           \
+    switch (head_dim) {                                                 \
+      case 32:                                                          \
+        return launch<BQ, BK, 32>(q, k, v, out, batch, a, stream);      \
+      case 64:                                                          \
+        return launch<BQ, BK, 64>(q, k, v, out, batch, a, stream);      \
+      case 128:                                                         \
+        return launch<BQ, BK, 128>(q, k, v, out, batch, a, stream);     \
+      default:                                                          \
+        return static_cast<int>(cudaErrorInvalidValue);                 \
+    }                                                                   \
   }
+  FA_TILES(FA_LAUNCH)
+#undef FA_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// cudaFuncGetAttributes of the head_dim instantiation (its one 64 x 64 tile):
-// registers a thread, shared memory a block (static plus the dynamic amount
-// the launcher requests), max threads a block, local (spill) bytes, threads.
-int flash_attention_attributes(int32_t head_dim, int32_t* out) {
-  switch (head_dim) {
-    case 32:
-      return attributes<32>(out);
-    case 64:
-      return attributes<64>(out);
-    case 128:
-      return attributes<128>(out);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+// cudaFuncGetAttributes of the (bq, bk, head_dim) instantiation: registers a
+// thread, shared memory a block (static plus the dynamic amount the launcher
+// requests), max threads a block, local (spill) bytes, threads.
+int flash_attention_attributes(int32_t bq, int32_t bk, int32_t head_dim, int32_t* out) {
+#define FA_ATTR(BQ, BK)                                   \
+  if (bq == BQ && bk == BK) {                             \
+    switch (head_dim) {                                   \
+      case 32:                                            \
+        return attributes<BQ, BK, 32>(out);               \
+      case 64:                                            \
+        return attributes<BQ, BK, 64>(out);               \
+      case 128:                                           \
+        return attributes<BQ, BK, 128>(out);              \
+      default:                                            \
+        return static_cast<int>(cudaErrorInvalidValue);   \
+    }                                                     \
   }
+  FA_TILES(FA_ATTR)
+#undef FA_ATTR
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -13,9 +13,9 @@ from __future__ import annotations
 import ctypes
 import functools
 
-import torch
+from typing import Dict, Tuple
 
-from typing import Dict
+import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
@@ -25,17 +25,18 @@ __all__ = ["HEAD_DIMS", "TILES", "attributes", "flash_attention_cuda",
 
 #: Head widths the CUDA kernel is instantiated for.
 HEAD_DIMS = (32, 64, 128)
-#: The (bq, bk) query × key tiles it is instantiated for (``kBQ``, ``kBK``).
-TILES = ((64, 64),)
+#: The (bq, bk) query × key tiles it is instantiated for (``FA_TILES`` in the
+#: source), in the order of ``ops.CANDIDATES``; the first is the smallest.
+TILES = ((64, 64), (128, 64), (64, 128))
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     lib.flash_attention_launch.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3 + [ctypes.c_int32] * 3
-        + [ctypes.c_int64] * 9 + [ctypes.c_int32, ctypes.c_int32, ctypes.c_float,
-                                  ctypes.c_void_p]
+        [ctypes.c_int32] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3
+        + [ctypes.c_int32] * 3 + [ctypes.c_int64] * 9
+        + [ctypes.c_int32, ctypes.c_int32, ctypes.c_float, ctypes.c_void_p]
     )
     lib.flash_attention_launch.restype = ctypes.c_int
     return lib
@@ -60,9 +61,13 @@ def _check(t: torch.Tensor, name: str, device: torch.device) -> None:
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Launch ``csrc/flash_attention.cu`` on PyTorch's current stream.
-    Counts its launches in ``flash_attention_cuda.launches``."""
+                         causal: bool = True, window: int = 0,
+                         tile: Tuple[int, int] = TILES[0]) -> torch.Tensor:
+    """Launch ``csrc/flash_attention.cu``'s ``tile = (bq, bk)`` instantiation
+    on PyTorch's current stream. Counts its launches in
+    ``flash_attention_cuda.launches``."""
+    if tuple(tile) not in TILES:
+        raise ValueError(f"tile {tuple(tile)} is not instantiated; the kernel has {TILES}")
     b, sq, h, dh = q.shape
     skv, hk = k.shape[1], k.shape[2]
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -77,7 +82,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((b, sq, h, dh), dtype=torch.float32, device=q.device)
     lib = _lib()
     rc = lib.flash_attention_launch(
-        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
+        *tile, _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
         b, sq, skv, h, hk, dh, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         int(causal), int(window), dh ** -0.5, _build.stream_ptr(q.device),
     )
@@ -89,7 +94,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention_cuda.launches = 0
 
 
-def attributes(dh: int) -> Dict[str, int]:
-    """``cudaFuncGetAttributes`` of the ``dh`` instantiation (see
+def attributes(dh: int, tile: Tuple[int, int] = TILES[0]) -> Dict[str, int]:
+    """``cudaFuncGetAttributes`` of the ``(tile, dh)`` instantiation (see
     ``_build.attributes``)."""
-    return _build.attributes(_lib(), "flash_attention_attributes", dh)
+    return _build.attributes(_lib(), "flash_attention_attributes", *tile, dh)

@@ -6,10 +6,11 @@ and ``k``/``v (B, Skv, Hk, dh)``: a CPU tensor runs the plain version
 (:func:`.kernel.flash_attention_cuda`), which raises if it cannot launch.
 
 ``FAConfig(bq, bk)`` keeps the reference's name and fields. On a CUDA
-tensor it names the query × key tile the CUDA kernel is instantiated for;
-the kernel has one, 64 × 64 (:data:`CANDIDATES`, ``kernel.TILES``), which is
-also :data:`WORST_CASE`, and any other config raises ``ValueError``. The
-kernel reads ragged lengths in place. On a CPU tensor the plain version
+tensor it names the query × key tile the CUDA kernel is instantiated for:
+:data:`CANDIDATES` (``kernel.TILES``) are 64 × 64, 128 × 64 and 64 × 128,
+:data:`WORST_CASE` the smallest, 64 × 64, the JEDEC analogue that fits any
+``sm_90a`` launch; any other config raises ``ValueError``. The kernel reads
+ragged lengths in place. On a CPU tensor the plain version
 runs and, as in the reference, padding never changes the result, so any
 positive config is accepted.
 """
@@ -23,7 +24,8 @@ import torch
 from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
-THREADS = 256
+#: Scores of a tile each thread owns (``csrc/flash_attention.cu``).
+SCORES_PER_THREAD = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,21 +34,23 @@ class FAConfig:
     bk: int = 64
 
     def threads(self, dh: int) -> int:
-        return THREADS
+        return self.bq * self.bk // SCORES_PER_THREAD
 
     def smem_bytes(self, dh: int) -> int:
-        """Shared memory the kernel allocates for this tile: the Q, K and V
-        tiles and the P tile, in float32."""
-        return 4 * ((self.bq + 2 * self.bk) * dh + self.bq * self.bk)
+        """Shared memory the kernel allocates for this tile, all of it
+        dynamic: the Q tile, one K and one V tile (single buffers, their
+        copies staggered; a K row padded by 16 bytes) and the P tile, in
+        float32."""
+        return 4 * ((self.bq + 2 * self.bk) * dh + self.bq * self.bk) + 16 * self.bk
 
     def registers(self, dh: int) -> int:
         """A thread's registers for the tile's data, a lower bound: its
         share of the output accumulator and of the score tile."""
-        return (self.bq * dh + self.bq * self.bk) // THREADS
+        return (self.bq * dh + self.bq * self.bk) // self.threads(dh)
 
 
 #: The card's candidate tiles, one CUDA instantiation each (``kernel.TILES``);
-#: the JEDEC analogue is the one there is.
+#: the JEDEC analogue is the smallest, the first.
 CANDIDATES = tuple(FAConfig(*t) for t in kernel.TILES)
 WORST_CASE = CANDIDATES[0]
 
@@ -59,7 +63,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"block sizes must be positive, got {config}")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
-    if (config.bq, config.bk) not in kernel.TILES:
-        raise ValueError(f"tile {(config.bq, config.bk)} is not instantiated; the kernel "
-                         f"has {kernel.TILES}")
-    return kernel.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    return kernel.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                       tile=(config.bq, config.bk))

@@ -2,8 +2,10 @@
 
 :func:`matmul_cuda` launches ``csrc/latency_matmul.cu`` for one of the
 instantiated tiles (:data:`TILES`) on float32 or bfloat16 operands with
-contiguous rows, ragged shapes masked in place; :func:`matmul_plain`
-(:mod:`.ref`) is the same function in torch ops.
+contiguous rows, ragged shapes masked in place (rows that are not 16-byte
+aligned, and bfloat16, take the kernel's register path instead of
+cp.async); :func:`matmul_plain` (:mod:`.ref`) is the same function in
+torch ops.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ __all__ = ["TILES", "attributes", "matmul_cuda", "matmul_plain", "tolerance"]
 #: The (bm, bn, bk) tiles the CUDA kernel is instantiated for (``MM_TILES``
 #: in the source), in the order of ``ops.CANDIDATES``.
 TILES: Tuple[Tuple[int, int, int], ...] = (
-    (64, 64, 16), (128, 64, 16), (64, 128, 16), (128, 128, 8), (128, 128, 16))
+    (64, 64, 16), (128, 64, 16), (64, 128, 16), (128, 128, 8), (128, 128, 16),
+    (128, 128, 32), (128, 256, 16))
 
 
 @functools.lru_cache(maxsize=None)
@@ -82,7 +85,11 @@ def matmul_cuda(x: torch.Tensor, y: torch.Tensor, bm: int, bn: int, bk: int) -> 
 matmul_cuda.launches = 0
 
 
-def attributes(tile: Tuple[int, int, int], dtype: torch.dtype) -> Dict[str, int]:
-    """``cudaFuncGetAttributes`` of one instantiation (see ``_build.attributes``)."""
+def attributes(tile: Tuple[int, int, int], dtype: torch.dtype,
+               aligned: bool = True) -> Dict[str, int]:
+    """``cudaFuncGetAttributes`` of one instantiation (see ``_build.attributes``):
+    for float32, the cp.async build that operands with 16-byte aligned rows
+    take, or with ``aligned=False`` the register-path build that other rows
+    take (bfloat16 always takes the register path)."""
     return _build.attributes(_lib(), "latency_matmul_attributes", *tile,
-                             _build.DTYPE_CODES[dtype])
+                             _build.DTYPE_CODES[dtype], int(aligned))

@@ -108,7 +108,7 @@ def test_card_gate_refuses_tpu_tiles_and_admits_instantiated_ones():
                 + [cm.flash_estimate(8, PROD, PROD, 32, 8, dh, c)
                    for c in fa_ops.CANDIDATES for dh in (32, 64, 128)])
     assert all(e.feasible and 0 < e.t_seconds < math.inf for e in admitted)
-    assert fa_ops.WORST_CASE.smem_bytes(128) == 114688  # the .cu's smem_bytes<128>()
+    assert fa_ops.WORST_CASE.smem_bytes(128) == 115712  # the .cu's smem_bytes<64, 64, 128>()
 
 
 def _entries(mod, rows):
@@ -214,7 +214,8 @@ def test_margin_cli_on_the_cpu_end_to_end_without_jax(tmp_path):
     assert res.returncode == 0, res.stderr
     rows = dict(line.split(",", 1) for line in res.stdout.splitlines()
                 if line.startswith("altune/"))
-    n_cands = {"latency_matmul": len(mm_ops.CANDIDATES), "flash_attention": 1,
+    n_cands = {"latency_matmul": len(mm_ops.CANDIDATES),
+               "flash_attention": len(fa_ops.CANDIDATES),
                "rglru_scan": len(sc_ops.CANDIDATES), "flash_decode": len(fd_ops.CANDIDATES)}
     assert list(rows) == [f"altune/{k}/{r}" for k in n_cands
                           for r in ("margin", "validated_configs")]
@@ -224,7 +225,9 @@ def test_margin_cli_on_the_cpu_end_to_end_without_jax(tmp_path):
     table = altune.TimingTable.load(out)
     assert {k[0] for k in table.entries} == set(n_cands)
     assert {k[2] for k in table.entries} == {"h100"}
-    assert table.get("flash_attention", "65536", "h100")["config"] == {"bq": 64, "bk": 64}
+    fastest = min(fa_ops.CANDIDATES, key=lambda c: cm.flash_estimate(
+        8, PROD, PROD, 32, 8, 128, c, in_bytes=4).t_seconds)  # the CPU scheme's latencies
+    assert table.get("flash_attention", "65536", "h100")["config"] == dataclasses.asdict(fastest)
 
 
 def test_entry_points_default_to_the_card():

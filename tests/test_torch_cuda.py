@@ -224,26 +224,28 @@ def test_flash_attention_kernel_matches_plain(cuda_device, case):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     q = torch.randn((b, sq, h, dh), generator=g, device=cuda_device)
     k, v = (torch.randn((b, skv, hk, dh), generator=g, device=cuda_device) for _ in range(2))
-    before = fa_kernel.flash_attention_cuda.launches
-    got = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
-    assert fa_kernel.flash_attention_cuda.launches == before + 1
     want = fa_kernel.flash_attention_plain(q, k, v, causal=causal, window=window)
-    torch.cuda.synchronize()
-    assert got.shape == want.shape == (b, sq, h, dh)
-    assert float((got - want).abs().max()) <= fa_kernel.tolerance(want)
+    for cfg in fa_ops.CANDIDATES:
+        before = fa_kernel.flash_attention_cuda.launches
+        got = fa_ops.flash_attention(q, k, v, causal=causal, window=window, config=cfg)
+        assert fa_kernel.flash_attention_cuda.launches == before + 1
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == (b, sq, h, dh)
+        assert float((got - want).abs().max()) <= fa_kernel.tolerance(want), cfg
 
 
 def test_flash_attention_kernel_reads_strided_views(cuda_device):
-    """q, k, v as slices of one fused projection, read in place."""
+    """q, k, v as slices of one fused projection, read in place, on every tile."""
     b, s, h, hk, dh = 2, 150, 8, 2, 64
     g = torch.Generator(device=cuda_device).manual_seed(1)
     qkv = torch.randn((b, s, h + 2 * hk, dh), generator=g, device=cuda_device)
     q, k, v = qkv[:, :, :h], qkv[:, :, h:h + hk], qkv[:, :, h + hk:]
-    got = fa_kernel.flash_attention_cuda(q, k, v, causal=True)
     want = fa_kernel.flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(),
                                            causal=True)
-    torch.cuda.synchronize()
-    assert float((got - want).abs().max()) <= fa_kernel.tolerance(want)
+    for tile in fa_kernel.TILES:
+        got = fa_kernel.flash_attention_cuda(q, k, v, causal=True, tile=tile)
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= fa_kernel.tolerance(want), tile
 
 
 def test_lm_serve_on_card_matches_cpu(cuda_device):
@@ -263,9 +265,14 @@ def test_lm_serve_on_card_matches_cpu(cuda_device):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_latency_matmul_kernel_matches_plain_on_every_tile(cuda_device, dtype):
+    """Ragged shapes: rows that are not 16-byte aligned (517 and 129 columns;
+    700 bfloat16 are 1,400 bytes) take the register path, 16-byte aligned
+    views (rows of 520 with 517 used, float32) the cp.async path with partial
+    chunks at the k and n edges."""
     g = torch.Generator(device=cuda_device).manual_seed(2)
-    for m, k, n in ((300, 517, 129), (1, 1, 1), (64, 16, 64)):
-        x = torch.randn((m, k), generator=g, device=cuda_device).to(dtype)
+    for m, k, n, ld in ((300, 517, 129, None), (1, 1, 1, None), (64, 16, 64, None),
+                        (100, 300, 700, None), (257, 517, 300, 520)):
+        x = torch.randn((m, ld or k), generator=g, device=cuda_device).to(dtype)[:, :k]
         y = torch.randn((k, n), generator=g, device=cuda_device).to(dtype)
         want = mm_kernel.matmul_plain(x, y)
         for cfg in mm_ops.CANDIDATES:

@@ -78,11 +78,17 @@ def test_cpu_dispatch_runs_plain_and_cuda_wrapper_refuses_cpu_tensors():
     q, k, v = (torch.tensor(a) for a in _inputs(1, 33, 33, 4, 2, 64, seed=2))
     before = fa_kernel.flash_attention_cuda.launches
     outs = [ops.flash_attention(q, k, v, causal=True, config=c)
-            for c in (ops.WORST_CASE, ops.FAConfig(16, 64))]
-    assert torch.equal(outs[0], outs[1])                 # padding never changes results
+            for c in ops.CANDIDATES + (ops.FAConfig(16, 64),)]
+    for out in outs[1:]:
+        assert torch.equal(outs[0], out)                 # padding never changes results
     assert torch.equal(outs[0], ref.flash_attention_plain(q, k, v, causal=True))
     assert fa_kernel.flash_attention_cuda.launches == before
     with pytest.raises(ValueError, match="CUDA tensor"):
         fa_kernel.flash_attention_cuda(q, k, v, causal=True)
+    with pytest.raises(ValueError, match="not instantiated"):
+        fa_kernel.flash_attention_cuda(q, k, v, causal=True, tile=(128, 128))
     with pytest.raises(ValueError, match="positive"):
         ops.flash_attention(q, k, v, config=ops.FAConfig(0, 128))
+    assert ops.WORST_CASE == ops.CANDIDATES[0] == ops.FAConfig()
+    assert [(c.bq, c.bk) for c in ops.CANDIDATES] == list(fa_kernel.TILES)
+    assert min(ops.CANDIDATES, key=lambda c: c.bq * c.bk) == ops.WORST_CASE
