@@ -16,11 +16,14 @@ Phases, each of which exits non-zero on failure:
 3. Replay chunk, kernel vs plain, on 65,536 DIMMs at chunkings 1, 37, 256
    with error injections and a ladder of boundary temperatures, and at the
    main path's shapes: a full-width chunk (1,048,576 DIMMs × 256 steps)
-   followed by the ragged 160-step chunk that ends a day. State, occupancy,
-   switches and timing sums must be bitwise equal. The full-width chunk is
-   timed, and so are its ingest steps and two ways of streaming chunks from
-   pageable host memory: the engine's pinned double buffer and a plain
-   ``tensor.to(device)``.
+   followed by the ragged 160-step chunk that ends a day, then the same on
+   1,048,573 DIMMs (rows a 16-byte copy cannot take: the kernel's narrow
+   copy path). State, occupancy, switches and timing sums must be bitwise
+   equal. The full-width chunk is timed, and trace-eval's launch (chunk 1
+   × 65,536 DIMMs) as device time from ``torch.profiler``, each beside its
+   bound; so are the full-width chunk's ingest steps and two ways of
+   streaming chunks from pageable host memory: the engine's pinned double
+   buffer and a plain ``tensor.to(device)``.
 4. Serve: the fleet-controller service on a small fleet, card vs CPU (the
    plain versions) on the same table and trace; then the main path,
    ``serve_fleet.serve`` at 1,048,576 DIMMs × 1,440 steps (one day at one
@@ -76,8 +79,9 @@ Phases, each of which exits non-zero on failure:
    within ``kernel.tolerance``.
 13. The tile gate against the card: for every instantiated tile of the four
    altune kernels (the float32 matmul's cp.async and register-path builds
-   both), the cost model's verdict and its shared memory and
-   threads against ``cudaFuncGetAttributes``; then an empty kernel's launch
+   both), the cost model's verdict and its shared memory (static plus the
+   dynamic amount the launcher requests; decode's in its operands' dtype)
+   and threads against ``cudaFuncGetAttributes``; then an empty kernel's launch
    and per-block overheads (the cost model's constants).
 14. The altune main path: ``launch.altune_margin.run`` on the card, every
    candidate validated and timed at the production shapes, with every
@@ -101,6 +105,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 FULL_DIMMS = 1 << 20
+#: DIMMs taken off the full fleet for the replay check on rows that a
+#: 16-byte copy cannot take.
+UNALIGNED_CUT = 3
 BOOT_BINS = (45.0, 55.0, 70.0, 85.0)
 REPLAY_DIMMS = 65536
 CHUNKINGS = (1, 37, 256)
@@ -148,7 +155,8 @@ SCAN_CASES = (("production", 8, 4096, 4096, "float32"),
 FD_CASES = (("production", 8, 32768, 64, 8, 128, 32768, "float32"),
             ("length 1000", 8, 32768, 64, 8, 128, 1000, "float32"),
             ("length 1", 8, 32768, 64, 8, 128, 1, "float32"),
-            ("bf16", 8, 32768, 64, 8, 128, 32768, "bfloat16"))
+            ("bf16", 8, 32768, 64, 8, 128, 32768, "bfloat16"),
+            ("bf16 rows on 8-byte boundaries", 8, 32768, 64, 8, 128, 30001, "bfloat16"))
 #: Empty-kernel probe: launches timed back to back, and the blocks of the
 #: many-block launch (8,192 a SM).
 PROBE_LAUNCHES, PROBE_BLOCKS = 200, 132 * 8192
@@ -164,6 +172,8 @@ SWEEP_OPS_PER_CANDIDATE = 39
 #: Float operations per (DIMM, step) of the replay chunk: the guard-band add,
 #: four edge compares, the hysteresis subtract and compare, eight sum adds.
 REPLAY_OPS_PER_STEP = 15
+#: Profiled launches of the replay chunk at chunk 1.
+REPLAY_STEP_LAUNCHES = 200
 #: Float operations per (step, DIMM) of the accumulation: eight sum adds.
 ACCUMULATE_OPS_PER_STEP = 8
 #: Float operations per unmasked (query, key) pair and head dim of attention:
@@ -200,6 +210,38 @@ def cuda_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int, kernel: str) -> float:
+    """Mean device time a call of the kernels whose name holds ``kernel``,
+    over ``reps`` back-to-back calls of ``fn`` (after one warm-up call), from
+    ``torch.profiler``'s kernel records: for launches shorter than the
+    wrapper's host time, where CUDA events would time the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA and kernel in e.name]
+    # The profiler may drop a few records of a long run of short kernels.
+    if not reps // 2 <= len(spans) <= reps:
+        fail(f"the profiler saw {len(spans)} launches of {kernel} in {reps} calls")
+    return sum(spans) / len(spans) * 1e-3
+
+
+def replay_bytes(state, out, steps: int, n: int) -> int:
+    """Bytes a replay chunk must move: its telemetry (4 + 1 bytes a step), the
+    table rows of the bins each DIMM's steps realized (the JEDEC row is a
+    constant), and its state and partials read and written. ``state`` and
+    ``out`` are the chunk's (state3, occ, sw, sums) before and after."""
+    visited = int(((out[1][:-1] - state[1][:-1]) > 0).sum())
+    per_dimm_state = sum(t.element_size() * t.numel() for t in state) // n
+    return n * steps * (4 + 1) + visited * 8 * 4 + 2 * n * per_dimm_state
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -461,8 +503,13 @@ def flash_decode_phase(torch, dev, gen):
     for name, b, n, h, hk, dh, length, dt in FD_CASES:
         dtype = getattr(torch, dt)
         q = torch.randn((b, h, dh), generator=gen, device=dev).to(dtype)
-        k, v = (torch.randn((b, n, hk, dh), generator=gen, device=dev).to(dtype)
-                for _ in range(2))
+        if "8-byte" in name:  # views whose rows start 4 elements past a 16-byte boundary
+            kv = torch.randn((b, n, hk, dh + 4), generator=gen, device=dev).to(dtype)
+            k, v = kv[..., 4:], kv[..., :dh]
+            del kv
+        else:
+            k, v = (torch.randn((b, n, hk, dh), generator=gen, device=dev).to(dtype)
+                    for _ in range(2))
         want = fd_k.flash_decode_plain(q, k, v, length)
         tol = fd_k.tolerance(want)
         errs = {}
@@ -496,6 +543,15 @@ def flash_decode_phase(torch, dev, gen):
             out.update(ms=by_tile[best], tile=str(best),
                        ms_by_tile={str(t): v_ for t, v_ in by_tile.items()}, plain_ms=plain_ms,
                        bound_ms=bound, bound_by=by, library_ms=sdpa_ms)
+        if name == "bf16":
+            by_tile = {t: cuda_ms(torch, lambda t=t: fd_k.flash_decode_cuda(q, k, v, length, t),
+                                  20) for t in fd_k.TILES}
+            bound, _ = bound_ms(q.element_size() * (2 * b * length * hk * dh + 2 * b * h * dh),
+                                ATTENTION_OPS_PER_PAIR_DIM * dh * b * h * length)
+            log(f"flash decode at the production shape in bfloat16: kernel by bk "
+                f"{[(t, round(v_, 4)) for t, v_ in by_tile.items()]} ms, bound {bound:.4f} ms")
+            out.update(bf16_ms_by_tile={str(t): v_ for t, v_ in by_tile.items()},
+                       bf16_bound_ms=bound)
         del q, k, v, want, got
         torch.cuda.empty_cache()
     return out
@@ -514,7 +570,7 @@ def gate_phase(torch):
     from repro_torch.kernels.rglru_scan import kernel as sc_k
     from repro_torch.kernels.rglru_scan import ops as sc_ops
 
-    checks = []  # (label, config, model args, card attributes)
+    checks = []  # (label, config, model args, card attributes[, model shared memory])
     # The float32 matmul has two builds a tile: cp.async for 16-byte aligned
     # rows, the register path for others; bfloat16 takes the register path.
     for dt, aligned, path in ((torch.float32, True, "cp.async"),
@@ -526,13 +582,17 @@ def gate_phase(torch):
     for dt in (torch.float32, torch.bfloat16):
         checks += [(f"rglru_scan {dt}", c, (), sc_k.attributes((c.bd, c.bs), dt))
                    for c in sc_ops.CANDIDATES]
-        checks += [(f"flash_decode dh {dh} {dt}", c, (dh,), fd_k.attributes(c.bk, dh, dt))
+        # Decode stages K and V in their dtype: its shared memory follows it.
+        itemsize = torch.empty((), dtype=dt).element_size()
+        checks += [(f"flash_decode dh {dh} {dt}", c, (dh,), fd_k.attributes(c.bk, dh, dt),
+                    c.smem_bytes(dh, itemsize))
                    for c in fd_ops.CANDIDATES for dh in fd_k.HEAD_DIMS]
     checks += [(f"flash_attention dh {dh}", c, (dh,), fa_k.attributes(dh, (c.bq, c.bk)))
                for c in fa_ops.CANDIDATES for dh in fa_k.HEAD_DIMS]
     table = []
-    for label, cfg, args, at in checks:
-        smem, threads, regs = cfg.smem_bytes(*args), cfg.threads(*args), cfg.registers(*args)
+    for label, cfg, args, at, *smem in checks:
+        smem = smem[0] if smem else cfg.smem_bytes(*args)
+        threads, regs = cfg.threads(*args), cfg.registers(*args)
         model_ok, note = cm.gate(smem, threads, regs)
         card_ok = (at["registers"] <= cm.MAX_REGS_PER_THREAD
                    and at["registers"] * at["threads"] <= cm.REGS_PER_BLOCK
@@ -762,30 +822,53 @@ def main() -> None:
     rag_errs = (torch.rand(rag_temps.shape, generator=gen, device=dev)
                 < ERROR_RATE).to(torch.uint8)
     full_mism = {}
-    x, y = big_state, big_state
-    for label, tc, ec in ((f"{CHUNK}-step", big_temps, big_errs),
-                          (f"ragged {RAGGED}-step", rag_temps, rag_errs)):
-        x = replay_k.replay_chunk_cuda(*x, big_stack_t, tc, ec, big_scal)
-        y = replay_k.replay_chunk_plain(*y, big_stack_t, tc, ec, big_scal)
-        torch.cuda.synchronize()
-        full_mism[label] = sum(int((bits(a) != bits(b)).sum()) for a, b in zip(x, y))
-        replay_err = max([replay_err] + [float((a.double() - b.double()).abs().max())
-                                         for a, b in zip(x, y)])
-        log(f"replay chunk at full width, {label} chunk × {FULL_DIMMS:,} DIMMs: "
-            f"{full_mism[label]} mismatching words, switches {int(x[2].sum()):,}, "
-            f"fused {int(x[0][2].sum()):,}")
+    # The serve path's fleet (16-byte copies), then one of 2^20 - 3 DIMMs
+    # (views of the same data; the kernel's narrow copy path).
+    for n_full in (FULL_DIMMS, FULL_DIMMS - UNALIGNED_CUT):
+        x = y = fresh(n_full)
+        stack_n = big_stack_t[:, :n_full].contiguous()
+        for label, tc, ec in ((f"{CHUNK}-step", big_temps, big_errs),
+                              (f"ragged {RAGGED}-step", rag_temps, rag_errs)):
+            tc, ec = tc[:, :n_full].contiguous(), ec[:, :n_full].contiguous()
+            x = replay_k.replay_chunk_cuda(*x, stack_n, tc, ec, big_scal)
+            y = replay_k.replay_chunk_plain(*y, stack_n, tc, ec, big_scal)
+            torch.cuda.synchronize()
+            key = f"{label} × {n_full:,}"
+            full_mism[key] = sum(int((bits(a) != bits(b)).sum()) for a, b in zip(x, y))
+            replay_err = max([replay_err] + [float((a.double() - b.double()).abs().max())
+                                             for a, b in zip(x, y)])
+            log(f"replay chunk at full width, {label} chunk × {n_full:,} DIMMs: "
+                f"{full_mism[key]} mismatching words, switches {int(x[2].sum()):,}, "
+                f"fused {int(x[0][2].sum()):,}")
+        del x, y, stack_n, tc, ec
     replay_mism += sum(full_mism.values())
     if any(full_mism.values()):
         fail(f"replay-chunk kernel disagrees with its plain version at full width: {full_mism}")
-    del x, y, rag_temps, rag_errs
+    del rag_temps, rag_errs
+    torch.cuda.empty_cache()
     replay_ms = cuda_ms(torch, lambda: replay_k.replay_chunk_cuda(
         *big_state, big_stack_t, big_temps, big_errs, big_scal), 10)
     replay_plain_ms = cuda_ms(torch, lambda: replay_k.replay_chunk_plain(
         *big_state, big_stack_t, big_temps, big_errs, big_scal), 1)
-    per_dimm = (CHUNK * (4 + 1) + big_stack_t.shape[0] * 4
-                + 2 * (3 * 4 + (big_table.n_bins + 1) * 4 + 4 + replay_k.ROW_SLOTS * 4))
-    replay_bound, replay_by = bound_ms(FULL_DIMMS * per_dimm,
-                                       FULL_DIMMS * CHUNK * REPLAY_OPS_PER_STEP)
+    big_out = replay_k.replay_chunk_cuda(*big_state, big_stack_t, big_temps, big_errs, big_scal)
+    replay_bound, replay_by = bound_ms(
+        replay_bytes(big_state, big_out, CHUNK, FULL_DIMMS),
+        FULL_DIMMS * CHUNK * REPLAY_OPS_PER_STEP)
+    del big_out
+
+    # Trace-eval's launch: chunk 1 × 65,536 DIMMs, device time per launch.
+    step_state = fresh(REPLAY_DIMMS)
+    st1, ste1 = temps[:1].contiguous(), errs[:1].contiguous()
+    replay_step_ms = device_ms(torch, lambda: replay_k.replay_chunk_cuda(
+        *step_state, stack_t, st1, ste1, rscal), REPLAY_STEP_LAUNCHES, "replay_")
+    step_out = replay_k.replay_chunk_cuda(*step_state, stack_t, st1, ste1, rscal)
+    replay_step_bound, replay_step_by = bound_ms(
+        replay_bytes(step_state, step_out, 1, REPLAY_DIMMS), REPLAY_DIMMS * REPLAY_OPS_PER_STEP)
+    log(f"replay chunk at 1 step × {REPLAY_DIMMS:,} DIMMs (trace-eval's launch): "
+        f"{replay_step_ms:.5f} ms of device time a launch (torch.profiler, "
+        f"{REPLAY_STEP_LAUNCHES} launches), bound {replay_step_bound:.5f} ms ({replay_step_by}; "
+        f"its operands stay in L2 between launches)")
+    del step_state, step_out
     host = torch.empty((CHUNK, FULL_DIMMS), dtype=torch.float32, pin_memory=True)
     h2d_ms = cuda_ms(torch, lambda: big_temps.copy_(host, non_blocking=True), 5)
     pageable = torch.full((CHUNK, FULL_DIMMS), 30.0)
@@ -1097,7 +1180,8 @@ def main() -> None:
          "replaces": "src/repro/kernels/replay_step/kernel.py:92",
          **counted("replay_chunk"), "mismatches": replay_mism + sum(step_mism.values()),
          "max_abs_err": replay_err, "ms": replay_ms, "plain_ms": replay_plain_ms,
-         "bound_ms": replay_bound, "bound_by": replay_by, "library_ms": None},
+         "bound_ms": replay_bound, "bound_by": replay_by, "library_ms": None,
+         "chunk1_ms": replay_step_ms, "chunk1_bound_ms": replay_step_bound},
         {"name": "accumulate", "route": "cuda",
          "source": "src/repro_torch/csrc/accumulate.cu",
          "replaces": "src/repro/kernels/replay_step/kernel.py:240",

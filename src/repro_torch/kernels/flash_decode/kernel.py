@@ -3,8 +3,9 @@
 :func:`flash_decode_cuda` launches ``csrc/flash_decode.cu`` (a split-K pass
 and a combine pass, one call) for one of the instantiated tiles
 (:data:`TILES`) on float32 or bfloat16 operands, reading the (B, L, Hk, dh)
-cache through its strides; :func:`flash_decode_plain` (:mod:`.ref`) is the
-same function in torch ops.
+cache through its strides (rows on 4-element boundaries: 16-byte copies
+where every row is 16-byte aligned, 8-byte copies for other bfloat16 rows);
+:func:`flash_decode_plain` (:mod:`.ref`) is the same function in torch ops.
 """
 
 from __future__ import annotations
@@ -27,8 +28,10 @@ TILES: Tuple[int, ...] = (256, 512, 1024, 2048, 4096)
 #: Head widths the kernel is built for, and the most query heads a KV head.
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 8
-#: KV rows of a sub-tile, and of the shared-memory layout (``kT``).
-SUB_TILE = 32
+#: The split pass's block (``kWarps`` warps, each its own pipeline), the
+#: cache rows a warp step (``kRows``) and a warp's ring depth (``kStages``),
+#: as in the source.
+WARPS, THREADS, ROWS, STAGES = 4, 128, 4, 4
 
 
 @functools.lru_cache(maxsize=None)

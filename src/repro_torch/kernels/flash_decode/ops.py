@@ -32,19 +32,24 @@ class FDConfig:
         return 1
 
     def threads(self, dh: int) -> int:
-        return dh
+        return kernel.THREADS
 
-    def smem_bytes(self, dh: int) -> int:
-        """Shared memory of the split pass: a 32-row K sub-tile (rows padded
-        by 4 floats) and V sub-tile, the group's queries, scores and softmax
-        state, in float32, whatever ``bk``."""
-        t, g = kernel.SUB_TILE, kernel.MAX_GROUP
-        return 4 * (t * (dh + 4) + t * dh + g * dh + g * t + 3 * g)
+    def smem_bytes(self, dh: int, itemsize: int = 4) -> int:
+        """Shared memory of the split pass, whatever ``bk``: each warp's ring
+        of ``STAGES`` steps of ``ROWS`` K and V rows in the operands' dtype
+        (``itemsize`` bytes), reused at the end for the warps' float32
+        accumulators of every head; each warp's p and rescale; the warps'
+        (m, l)."""
+        w, g, r = kernel.WARPS, kernel.MAX_GROUP, kernel.ROWS
+        ring = w * kernel.STAGES * 2 * r * dh * itemsize
+        return max(ring, w * g * dh * 4) + 4 * w * (r * g + g) + 4 * w * 2 * g
 
     def registers(self, dh: int) -> int:
-        """A thread's registers for its data, a lower bound: one output
-        column of every head of the group, and a float4 of q and of k."""
-        return kernel.MAX_GROUP + 8
+        """A thread's registers for its data, a lower bound: its 4 columns
+        of every head's query and accumulator, its partial scores (``ROWS``
+        rows a warp, 128 / dh of them a lane's), and a float4 of K."""
+        g = kernel.MAX_GROUP
+        return 2 * g * 4 + kernel.ROWS * g * dh // 128 + 4
 
 
 #: The card's candidate tiles, one CUDA instantiation each (``kernel.TILES``).

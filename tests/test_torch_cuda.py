@@ -59,10 +59,11 @@ def test_charge_sweep_kernel_matches_plain(cuda_device):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("chunk", [1, 37, 256])
-def test_replay_kernel_matches_plain(cuda_device, chunk):
+@pytest.mark.parametrize("n", [4099, 4112])   # the narrow and the 16-byte copy path
+@pytest.mark.parametrize("chunk", [1, 37, 160, 256])
+def test_replay_kernel_matches_plain(cuda_device, chunk, n):
     g = torch.Generator(device=cuda_device).manual_seed(1)
-    table = serve_fleet.bootstrap_table(g, 4099, device=cuda_device)
+    table = serve_fleet.bootstrap_table(g, n, device=cuda_device)
     n = table.n_dimms
     p = controller.ControllerParams()
     ladder = []
@@ -81,6 +82,7 @@ def test_replay_kernel_matches_plain(cuda_device, chunk):
              torch.zeros(n, dtype=torch.int32, device=cuda_device),
              torch.zeros((8, n), device=cuda_device))
     for s in range(0, temps.shape[0], chunk):
+        # Row slices of the step-major trace: views at any byte offset.
         tc, ec = temps[s:s + chunk].contiguous(), errs[s:s + chunk].contiguous()
         x = replay_kernel.replay_chunk_cuda(*x, stack_t, tc, ec, scal)
         y = replay_kernel.replay_chunk_plain(*y, stack_t, tc, ec, scal)
@@ -307,7 +309,11 @@ def test_flash_decode_kernel_matches_plain_on_every_tile(cuda_device, dtype, gro
     q = torch.randn((b, hk * group, dh), generator=g, device=cuda_device).to(dtype)
     k, v = (torch.randn((b, n, hk, dh), generator=g, device=cuda_device).to(dtype)
             for _ in range(2))
-    for length in (0, 1, n - 1, n):
+    # Lengths at the edges of a warp step (4 rows), of a block's round of
+    # steps (16), of the ring (4 steps a warp) and of every split (bk).
+    edges = {0, 1, 3, 4, 5, 15, 16, 17, 63, 64, 65, n - 1, n}
+    edges |= {bk + d for bk in fd_kernel.TILES for d in (-1, 0, 1) if bk + d <= n}
+    for length in sorted(edges):
         want = fd_kernel.flash_decode_plain(q, k, v, length)
         for cfg in fd_ops.CANDIDATES:
             got = fd_ops.flash_decode(q, k, v, length, cfg)
@@ -315,6 +321,24 @@ def test_flash_decode_kernel_matches_plain_on_every_tile(cuda_device, dtype, gro
             assert float((got.float() - want.float()).abs().max()) <= fd_kernel.tolerance(want)
         if length == 0:
             assert float(got.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_kernel_reads_rows_on_4_element_boundaries(cuda_device, dtype):
+    """K and V as views whose rows start 4 elements past a 16-byte boundary:
+    16-byte copies for float32, the kernel's 8-byte copies for bfloat16."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    b, n, hk, group, dh = 2, 700, 2, 4, 128
+    q = torch.randn((b, hk * group, dh), generator=g, device=cuda_device).to(dtype)
+    kv = torch.randn((b, n, 2 * hk, dh + 4), generator=g, device=cuda_device).to(dtype)
+    k, v = kv[:, :, :hk, 4:], kv[:, :, hk:, :dh]
+    assert (k.data_ptr() // k.element_size()) % 8 == 4 and k.stride(2) % 8 == 4
+    for length in (1, 17, 300, n):
+        want = fd_kernel.flash_decode_plain(q, k, v, length)
+        for cfg in fd_ops.CANDIDATES:
+            got = fd_ops.flash_decode(q, k, v, length, cfg)
+            torch.cuda.synchronize()
+            assert float((got.float() - want.float()).abs().max()) <= fd_kernel.tolerance(want)
 
 
 def test_uninstantiated_configs_raise_on_the_card(cuda_device):

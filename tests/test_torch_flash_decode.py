@@ -12,6 +12,9 @@ bfloat16), as the reference's own kernel tests state them. An empty cache
 oracle spreads it evenly instead.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -94,3 +97,28 @@ def test_every_card_candidate_on_the_cpu_and_dispatch():
         fd_kernel.flash_decode_cuda(q, k, v, 20, ops.WORST_CASE.bk)
     assert ops.WORST_CASE == ops.CANDIDATES[0] == ops.FDConfig()
     assert fd_kernel.n_splits(0, 33, 256) == 1 and fd_kernel.n_splits(32768, 32768, 256) == 128
+
+
+def _source_constant(name):
+    src = (Path(fd_kernel.__file__).parents[2] / "csrc" / "flash_decode.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def test_cost_model_tile_follows_the_source():
+    """FDConfig's shared memory, threads and registers describe the split
+    pass of csrc/flash_decode.cu: the constants mirror the source, and the
+    shared memory is its smem_bytes<DH, T>(): max(ring, merge) + p and
+    rescale + (m, l), with ring = kWarps * kStages * 2 * kRows * DH *
+    sizeof(T) and merge = kWarps * kMaxG * DH * 4."""
+    for name, value in (("kWarps", fd_kernel.WARPS), ("kRows", fd_kernel.ROWS),
+                        ("kStages", fd_kernel.STAGES), ("kMaxG", fd_kernel.MAX_GROUP)):
+        assert _source_constant(name) == value, name
+    assert fd_kernel.THREADS == 32 * fd_kernel.WARPS
+    cfg = ops.WORST_CASE
+    assert cfg.smem_bytes(128) == 66432          # smem_bytes<128, float>()
+    assert cfg.smem_bytes(64) == 33664           # smem_bytes<64, float>()
+    assert cfg.smem_bytes(128, 2) == 33664       # smem_bytes<128, __nv_bfloat16>()
+    assert cfg.smem_bytes(64, 2) == 17280        # smem_bytes<64, __nv_bfloat16>(): merge > ring
+    assert all(c.smem_bytes(128) == cfg.smem_bytes(128) for c in ops.CANDIDATES)
+    assert cfg.threads(64) == cfg.threads(128) == 128
+    assert cfg.registers(128) == 100 and cfg.registers(64) == 84

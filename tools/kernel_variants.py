@@ -1,18 +1,25 @@
 #!/usr/bin/env python3
-"""Time the latency-matmul and flash-attention CUDA kernels by tile on one
-card, for this tree or an older one, and for design alternatives of their
-sources.
+"""Time four of the port's CUDA kernels by tile on one card, for this tree or
+an older one, and for design alternatives of their sources.
 
-    python3 tools/kernel_variants.py [--src DIR] [--variants] [--clocks] [--sass] [--out FILE]
+    python3 tools/kernel_variants.py [--kernels K,...] [--src DIR] [--variants]
+                                     [--clocks] [--sass] [--out FILE]
 
-Builds ``csrc/latency_matmul.cu`` and ``csrc/flash_attention.cu`` of the
-tree whose ``src`` directory is ``--src`` (default: this checkout's), so an
-unpacked older tree can be timed in the same call. Every tile is checked
-against its plain version on small ragged cases, then timed with
-``chip_smoke.cuda_ms``: the matmul at 4096³ float32 (the best tile also on
-rows that are not 16-byte aligned, the kernel's register path), attention
-at ``chip_smoke``'s serve and altune shapes. The library calls and bounds
-at those shapes are ``chip_smoke.py``'s.
+``--kernels`` picks among ``latency_matmul``, ``flash_attention``,
+``flash_decode`` and ``replay_step`` (default: all four). Builds their
+``csrc/<name>.cu`` of the tree whose ``src`` directory is ``--src``
+(default: this checkout's), so an unpacked older tree can be timed in the
+same call. Every kernel is first checked against its plain version on small
+ragged cases (the replay chunk bitwise, at 4,099 and 4,112 DIMMs and chunks
+1, 37, 160 and 256; decode at lengths on its step and split edges and on
+bfloat16 rows on 8-byte boundaries), then timed with ``chip_smoke.cuda_ms``:
+the matmul at 4096³ float32 (the best tile also on rows that are not
+16-byte aligned, the kernel's register path), attention at ``chip_smoke``'s
+serve and altune shapes, decode at altune's production shape (every tile in
+float32, the best in bfloat16), the replay chunk at the serve shape
+(1,048,576 DIMMs × 256 steps, and 1,048,573 DIMMs for the unaligned copy
+path) and at trace-eval's chunk 1 × 65,536 DIMMs, there as device time per
+launch from ``torch.profiler`` (``chip_smoke.device_ms``).
 
 ``--variants`` also builds each source with one design alternative edited
 in (``VARIANTS``: text replacements applied to a copy of the source under
@@ -20,8 +27,9 @@ in (``VARIANTS``: text replacements applied to a copy of the source under
 unedited build again. ``--clocks`` samples the SM clock and power draw
 (``nvidia-smi -lms 100``) while the best matmul tile, ``torch.matmul`` and
 the best attention tile at altune's shape each run for about two seconds.
-``--sass`` adds each kernel's opcode counts (``cuobjdump -sass``). Prints
-one JSON line (also to ``--out``).
+``--sass`` adds each kernel's opcode counts (``cuobjdump -sass``; with
+``--variants``, the variants' too). Prints one JSON line (also to
+``--out``).
 """
 
 from __future__ import annotations
@@ -39,9 +47,23 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402  (stdlib imports only at module level)
 
 MM = 4096
+#: Decode's production shape (altune's): B, L, H, Hk, dh.
+FD_SHAPE = (8, 32768, 64, 8, 128)
+#: The replay chunk's timing shapes: the serve path's (DIMMs, steps, bins),
+#: the same on a fleet whose rows a 16-byte copy cannot take, and
+#: trace-eval's chunk 1 (timed as device time over REPLAY_STEP1_LAUNCHES).
+REPLAY_SERVE = (1 << 20, 256, 4)
+REPLAY_UNALIGNED = ((1 << 20) - 3, 256, 4)
+REPLAY_STEP1 = (65536, 1, 5)
+REPLAY_STEP1_LAUNCHES = 200
 _MM_K_LOOP = ("for (int kk = 0; kk < BK; kk += 2) {", "float a[8][2];",
               "const float2 v = *reinterpret_cast<const float2*>",
               "a[i][0] = v.x, a[i][1] = v.y;", "for (int j = 0; j < 2; ++j) {")
+_FD_K_ONCE = ("      const float4 kk = ld4(ks + (sub * RL + r) * DH + c4);\n#pragma unroll\n"
+              "      for (int g = 0; g < kMaxG; ++g) {\n")
+_REPLAY_STEP = "step(tt[r * kThreads], te[r * kErrRow + off] != 0);"
+_REPLAY_SUMS = ("#pragma unroll\n"
+                "    for (int j = 0; j < kSlots; ++j) sums[j] = sums[j] + rp[j * kRowStride];\n")
 #: label -> [(text of the source, its replacement), ...]; every text must
 #: occur in the source (all occurrences are replaced).
 VARIANTS = {
@@ -71,18 +93,57 @@ VARIANTS = {
         "unroll 1": [("#pragma unroll 4\n", "#pragma unroll 1\n")],
         "unroll 8": [("#pragma unroll 4\n", "#pragma unroll 8\n")],
     },
+    "flash_decode": {
+        "ring of 2 stages": [("kStages = 4;", "kStages = 2;")],
+        "ring of 3 stages": [("kStages = 4;", "kStages = 3;")],
+        "ring of 6 stages": [("kStages = 4;", "kStages = 6;"), ("kMinBlocks = 3;", "kMinBlocks = 2;")],
+        "wait on every copy": [("cp_async_wait<kStages - 2>();", "cp_async_wait<0>();")],
+        # A K row reloaded from shared memory for every head of the group: the
+        # offset g * (group >> 8) is 0 at run time, unknown to the compiler.
+        "K read once per head": [(_FD_K_ONCE, (
+            "#pragma unroll\n      for (int g = 0; g < kMaxG; ++g) {\n"
+            "        const float4 kk = ld4(ks + (sub * RL + r) * DH + c4 + g * (a.group >> 8));\n"))],
+        "8 warps a block": [("kWarps = 4;", "kWarps = 8;"), ("kMinBlocks = 3;", "kMinBlocks = 1;")],
+    },
+    "replay_step": {
+        "ring of 3 stages": [("kStages = 2;", "kStages = 3;")],
+        "ring of 4 stages": [("kStages = 2;", "kStages = 4;")],
+        "tiles of 4 steps, ring of 4": [("kSteps = 8;", "kSteps = 4;"), ("kStages = 2;", "kStages = 4;")],
+        "direct loads": [("if (s < n_tiles) {", "if (false) {"), (_REPLAY_STEP, (
+            "step(temps[static_cast<int64_t>(k0 + r) * n + i], "
+            "errs[static_cast<int64_t>(k0 + r) * n + i] != 0);"))],
+        "narrow copies at every n": [("return n % 16 == 0 &&", "return false &&")],
+        "staged kernel at chunk 1": [("if (chunk < kSteps) {", "if (false) {")],
+        "row cached until the bin changes": [
+            ("  int32_t bin = 0, streak = 0, sw = 0;\n",
+             "  int32_t bin = 0, streak = 0, sw = 0, cur = -1;\n  float row[kSlots] = {};\n"),
+            (_REPLAY_SUMS, "    if (eff_bin != cur) {\n" + _REPLAY_SUMS.replace(
+                "sums[j] = sums[j] + rp[j * kRowStride];", "row[j] = rp[j * kRowStride];")
+             + "      cur = eff_bin;\n    }\n" + _REPLAY_SUMS.replace("rp[j * kRowStride]", "row[j]"))],
+        "select chain every step": [(_REPLAY_SUMS, (
+            "    for (int j = 0; j < kSlots; ++j) {\n"
+            "      float row = s_rows[j * kRowStride + NB * kThreads + tid];\n"
+            "#pragma unroll\n"
+            "      for (int b = NB - 1; b >= 0; --b)\n"
+            "        row = eff_bin == b ? s_rows[j * kRowStride + b * kThreads + tid] : row;\n"
+            "      sums[j] = sums[j] + row;\n"
+            "    }\n"))],
+    },
 }
+#: The C launchers whose ctypes signatures a variant's library copies.
+LAUNCHERS = ("latency_matmul_launch", "flash_attention_launch", "flash_decode_launch",
+             "replay_chunk_launch", "replay_max_bins")
 
 
-def build_variants(_build) -> dict:
-    """Every variant of ``VARIANTS`` built, one ``nvcc`` each, all started
-    together: (name, label) -> loaded library."""
+def build_variants(_build, names) -> dict:
+    """Every variant of ``VARIANTS`` of the named sources built, one ``nvcc``
+    each, all started together: (name, label) -> (loaded library, path)."""
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, variants in VARIANTS.items():
+    for name in names:
         base = (_build.CSRC_DIR / f"{name}.cu").read_text()
-        for i, (label, edits) in enumerate(variants.items()):
+        for i, (label, edits) in enumerate(VARIANTS[name].items()):
             src = base
             for old, new in edits:
                 if old not in src:
@@ -99,27 +160,32 @@ def build_variants(_build) -> dict:
         log = proc.communicate()[0]
         if proc.returncode:
             sys.exit(f"kernel_variants: nvcc failed for {key}:\n{log}")
-        libs[key] = ctypes.CDLL(str(target))
-        libs[key].error_string.argtypes = [ctypes.c_int]
-        libs[key].error_string.restype = ctypes.c_char_p
+        lib = ctypes.CDLL(str(target))
+        lib.error_string.argtypes = [ctypes.c_int]
+        lib.error_string.restype = ctypes.c_char_p
+        libs[key] = (lib, target)
     return libs
 
 
 def use_lib(module, lib) -> None:
     """Point ``module``'s wrapper at ``lib`` (argtypes copied from its own)."""
     own = module._lib()
-    for fn in ("latency_matmul_launch", "flash_attention_launch"):
+    for fn in LAUNCHERS:
         if hasattr(own, fn):
             getattr(lib, fn).argtypes = getattr(own, fn).argtypes
             getattr(lib, fn).restype = getattr(own, fn).restype
     module._lib = lambda: lib
 
 
-def sass_mix(_build, name: str) -> dict:
-    """The 12 commonest opcodes, and the total, of every kernel in
-    ``csrc/<name>.cu``'s build."""
+#: Opcodes always reported by ``--sass``, beside the commonest.
+SASS_KEYS = ("FFMA", "FADD", "LDS", "LDG", "LDGSTS", "SHFL", "SEL", "FSEL", "ISETP", "FSETP")
+
+
+def sass_mix(_build, lib_path) -> dict:
+    """The 12 commonest opcodes, ``SASS_KEYS`` and the total, of every kernel
+    in the library at ``lib_path``."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    text = subprocess.run([cuobjdump, "-sass", str(_build.library_path(name))],
+    text = subprocess.run([cuobjdump, "-sass", str(lib_path)],
                           capture_output=True, text=True, check=True).stdout
     mix, fn = {}, None
     for ln in text.splitlines():
@@ -132,7 +198,8 @@ def sass_mix(_build, name: str) -> dict:
                 op = body.split()[1] if body.startswith("@") else body.split()[0]
                 op = op.split(".")[0].rstrip(";")
                 mix[fn][op] = mix[fn].get(op, 0) + 1
-    return {f: dict(sorted(c.items(), key=lambda kv: -kv[1])[:12]) | {"total": sum(c.values())}
+    return {f: dict(sorted(c.items(), key=lambda kv: -kv[1])[:12])
+            | {k: c.get(k, 0) for k in SASS_KEYS} | {"total": sum(c.values())}
             for f, c in mix.items()}
 
 
@@ -153,109 +220,256 @@ def under_load(torch, fn, seconds: float = 2.0) -> dict:
     return {"sm_mhz": med(0), "power_w": med(1), "samples": len(rows)}
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--src", default=os.path.join(ROOT, "src"))
-    ap.add_argument("--variants", action="store_true")
-    ap.add_argument("--clocks", action="store_true")
-    ap.add_argument("--sass", action="store_true")
-    ap.add_argument("--out")
-    args = ap.parse_args()
-    sys.path.insert(0, os.path.abspath(args.src))
-    import torch
+# One suite a kernel: ``check(label)`` holds every tile against the plain
+# version on small cases (exits on a miss; returns the largest error),
+# ``timed()`` returns ms at the production shapes, and ``module`` is the
+# wrapper module whose ``_lib`` a variant replaces.
+class MatmulSuite:
+    def __init__(self, torch, rand):
+        from repro_torch.kernels.latency_matmul import kernel as mm_k
+        self.torch, self.module = torch, mm_k
+        self.cases = [(rand(1000, 3000), rand(3000, 700)),
+                      (rand(1000, 3000, dtype=torch.bfloat16),
+                       rand(3000, 700, dtype=torch.bfloat16)),
+                      (rand(257, 520)[:, :517], rand(517, 300))]
+        self.x, self.y = rand(MM, MM), rand(MM, MM)
+        self.xu, self.yu = rand(MM, MM + 1)[:, :MM], rand(MM, MM + 1)[:, :MM]
 
-    if not torch.cuda.is_available():
-        sys.exit("kernel_variants: needs an NVIDIA GPU")
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention import kernel as fa_k
-    from repro_torch.kernels.latency_matmul import kernel as mm_k
-
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    _build.build(["latency_matmul", "flash_attention"])
-    # A tree from before attention had several tiles has one and no ``tile``.
-    fa_tiles = getattr(fa_k, "TILES", ((64, 64),))
-    has_tile = "tile" in inspect.signature(fa_k.flash_attention_cuda).parameters
-
-    def fa(q, k, v, tile, causal=True, window=0):
-        kw = {"tile": tile} if has_tile else {}
-        return fa_k.flash_attention_cuda(q, k, v, causal=causal, window=window, **kw)
-
-    def rand(*shape, dtype=torch.float32):
-        return torch.randn(shape, generator=gen, device=dev).to(dtype)
-
-    mm_cases = [(rand(1000, 3000), rand(3000, 700)),
-                (rand(1000, 3000, dtype=torch.bfloat16), rand(3000, 700, dtype=torch.bfloat16)),
-                (rand(257, 520)[:, :517], rand(517, 300))]
-    fa_cases = []
-    for b, sq, skv, h, hk, dh, causal, window in (
-            (2, 200, 200, 24, 8, 128, True, 0), (1, 300, 300, 8, 4, 64, True, 100),
-            (2, 130, 77, 9, 3, 64, False, 0), (2, 97, 97, 4, 4, 32, True, 0)):
-        qkv = rand(b, max(sq, skv), h + 2 * hk, dh)  # strided views of one tensor
-        fa_cases.append((qkv[:, :sq, :h], qkv[:, :skv, h:h + hk], qkv[:, :skv, h + hk:],
-                         causal, window))
-
-    def check(label: str) -> float:
-        worst = 0.0
-        for x, y in mm_cases:
+    def check(self, label):
+        mm_k, worst = self.module, 0.0
+        for x, y in self.cases:
             want = mm_k.matmul_plain(x, y)
             for t in mm_k.TILES:
                 err = float((mm_k.matmul_cuda(x, y, *t).float() - want.float()).abs().max())
                 if not err <= mm_k.tolerance(want):
                     sys.exit(f"{label}: latency matmul {t} wrong on {tuple(x.shape)}: {err}")
                 worst = max(worst, err)
-        for q, k, v, causal, window in fa_cases:
+        return worst
+
+    def timed(self):
+        mm_k, out = self.module, {}
+        for t in mm_k.TILES:
+            out[f"matmul {t}"] = chip_smoke.cuda_ms(
+                self.torch, lambda t=t: mm_k.matmul_cuda(self.x, self.y, *t), 10)
+        best = min(mm_k.TILES, key=lambda t: out[f"matmul {t}"])
+        out[f"matmul {best} unaligned rows"] = chip_smoke.cuda_ms(
+            self.torch, lambda: mm_k.matmul_cuda(self.xu, self.yu, *best), 3)
+        return out
+
+
+class AttentionSuite:
+    def __init__(self, torch, rand):
+        from repro_torch.kernels.flash_attention import kernel as fa_k
+        self.torch, self.module = torch, fa_k
+        # A tree from before attention had several tiles has one and no ``tile``.
+        self.tiles = getattr(fa_k, "TILES", ((64, 64),))
+        self.has_tile = "tile" in inspect.signature(fa_k.flash_attention_cuda).parameters
+        self.cases = []
+        for b, sq, skv, h, hk, dh, causal, window in (
+                (2, 200, 200, 24, 8, 128, True, 0), (1, 300, 300, 8, 4, 64, True, 100),
+                (2, 130, 77, 9, 3, 64, False, 0), (2, 97, 97, 4, 4, 32, True, 0)):
+            qkv = rand(b, max(sq, skv), h + 2 * hk, dh)  # strided views of one tensor
+            self.cases.append((qkv[:, :sq, :h], qkv[:, :skv, h:h + hk],
+                               qkv[:, :skv, h + hk:], causal, window))
+        self.shapes = {}
+        for label, (b, s, h, hk, dh) in (("serve", chip_smoke.FA_SERVE_SHAPE),
+                                         ("altune", chip_smoke.FA_ALTUNE_SHAPE)):
+            self.shapes[label] = (rand(b, s, h, dh), rand(b, s, hk, dh), rand(b, s, hk, dh))
+
+    def run(self, q, k, v, tile, causal=True, window=0):
+        kw = {"tile": tile} if self.has_tile else {}
+        return self.module.flash_attention_cuda(q, k, v, causal=causal, window=window, **kw)
+
+    def check(self, label):
+        fa_k, worst = self.module, 0.0
+        for q, k, v, causal, window in self.cases:
             want = fa_k.flash_attention_plain(q, k, v, causal=causal, window=window)
-            for t in fa_tiles:
-                err = float((fa(q, k, v, t, causal, window) - want).abs().max())
+            for t in self.tiles:
+                err = float((self.run(q, k, v, t, causal, window) - want).abs().max())
                 if not err <= fa_k.tolerance(want):
                     sys.exit(f"{label}: flash attention {t} wrong on {tuple(q.shape)}: {err}")
                 worst = max(worst, err)
         return worst
 
-    x, y = rand(MM, MM), rand(MM, MM)
-    xu, yu = rand(MM, MM + 1)[:, :MM], rand(MM, MM + 1)[:, :MM]
-    shapes = {}
-    for label, (b, s, h, hk, dh) in (("serve", chip_smoke.FA_SERVE_SHAPE),
-                                     ("altune", chip_smoke.FA_ALTUNE_SHAPE)):
-        shapes[label] = (rand(b, s, h, dh), rand(b, s, hk, dh), rand(b, s, hk, dh))
-
-    def timed(label: str) -> dict:
-        """Every tile's ms at the production shapes, after the checks."""
-        out = {"max_abs_err": check(label)}
-        for t in mm_k.TILES:
-            out[f"matmul {t}"] = chip_smoke.cuda_ms(torch, lambda t=t: mm_k.matmul_cuda(x, y, *t), 10)
-        best = min(mm_k.TILES, key=lambda t: out[f"matmul {t}"])
-        out[f"matmul {best} unaligned rows"] = chip_smoke.cuda_ms(
-            torch, lambda: mm_k.matmul_cuda(xu, yu, *best), 3)
-        for shape, (q, k, v) in shapes.items():
-            for t in fa_tiles:
+    def timed(self):
+        out = {}
+        for shape, (q, k, v) in self.shapes.items():
+            for t in self.tiles:
                 out[f"attention {shape} {t}"] = chip_smoke.cuda_ms(
-                    torch, lambda t=t: fa(q, k, v, t), 20 if shape == "serve" else 3)
+                    self.torch, lambda t=t: self.run(q, k, v, t), 20 if shape == "serve" else 3)
+        return out
+
+
+class DecodeSuite:
+    LENGTHS = (0, 1, 3, 4, 5, 15, 16, 17, 255, 256, 257, 511, 512, 513, 1099, 1100)
+
+    def __init__(self, torch, rand):
+        from repro_torch.kernels.flash_decode import kernel as fd_k
+        self.torch, self.module = torch, fd_k
+        self.cases = []
+        for dtype in (torch.float32, torch.bfloat16):
+            for group, dh in ((1, 64), (8, 128)):
+                q = rand(2, 2 * group, dh, dtype=dtype)
+                kv = rand(2, 1100, 2, dh + 4, dtype=dtype)  # rows on 4-element boundaries
+                self.cases.append((q, rand(2, 1100, 2, dh, dtype=dtype),
+                                   rand(2, 1100, 2, dh, dtype=dtype)))
+                self.cases.append((q, kv[..., :dh], kv[..., 4:]))
+        b, n, h, hk, dh = FD_SHAPE
+        self.prod = {dt: (rand(b, h, dh, dtype=dt), rand(b, n, hk, dh, dtype=dt),
+                          rand(b, n, hk, dh, dtype=dt))
+                     for dt in (torch.float32, torch.bfloat16)}
+
+    def check(self, label):
+        fd_k, worst = self.module, 0.0
+        for q, k, v in self.cases:
+            for length in self.LENGTHS:
+                want = fd_k.flash_decode_plain(q, k, v, length)
+                for bk in fd_k.TILES:
+                    got = fd_k.flash_decode_cuda(q, k, v, length, bk)
+                    err = float((got.float() - want.float()).abs().max())
+                    if not (err <= fd_k.tolerance(want) and bool(self.torch.isfinite(got).all())):
+                        sys.exit(f"{label}: flash decode bk {bk} wrong on {tuple(k.shape)} "
+                                 f"{q.dtype} length {length}: {err}")
+                    worst = max(worst, err)
+        return worst
+
+    def timed(self):
+        fd_k, out = self.module, {}
+        length = FD_SHAPE[1]
+        q, k, v = self.prod[self.torch.float32]
+        for bk in fd_k.TILES:
+            out[f"decode float32 bk {bk}"] = chip_smoke.cuda_ms(
+                self.torch, lambda bk=bk: fd_k.flash_decode_cuda(q, k, v, length, bk), 20)
+        best = min(fd_k.TILES, key=lambda t: out[f"decode float32 bk {t}"])
+        q, k, v = self.prod[self.torch.bfloat16]
+        out[f"decode bfloat16 bk {best}"] = chip_smoke.cuda_ms(
+            self.torch, lambda: fd_k.flash_decode_cuda(q, k, v, length, best), 20)
+        return out
+
+
+class ReplaySuite:
+    def __init__(self, torch, rand, dev, gen):
+        from repro_torch.core import controller
+        from repro_torch.kernels.replay_step import kernel as rk
+        from repro_torch.kernels.replay_step import ops as rops
+        self.torch, self.module = torch, rk
+        params = controller.ControllerParams()
+
+        def operands(n, steps, bins, hot):
+            """A table of cycle-quantized rows over ``bins`` edges, the boot
+            state, and ``steps`` readings of uniform temperatures."""
+            edges = controller.DEFAULT_TEMP_BINS[:bins] if bins == 5 else chip_smoke.BOOT_BINS
+            stack = torch.randint(8, 29, (n, bins, 2, 4), generator=gen, device=dev,
+                                  dtype=torch.int32).to(torch.float32) * 1.25
+            st = (rops.to_state3(controller.init_state(n, bins, dev)),
+                  torch.zeros((bins + 1, n), dtype=torch.int32, device=dev),
+                  torch.zeros(n, dtype=torch.int32, device=dev),
+                  torch.zeros((8, n), dtype=torch.float32, device=dev))
+            temps = torch.rand((steps, n), generator=gen, device=dev) * hot[0] + hot[1]
+            errs = (torch.rand((steps, n), generator=gen, device=dev) < hot[2]).to(torch.uint8)
+            return st, rops.to_stack_t(stack), temps, errs, rops.replay_scalars(edges, params)
+
+        self.small = [operands(n, 300, 5, (75.0, 20.0, 1e-3)) for n in (4099, 4112)]
+        # The serve shapes as chip_smoke times them (25-45 degC, no errors).
+        self.shapes = {f"replay {n:,} x {steps}": operands(n, steps, bins, (20.0, 25.0, 0.0))
+                       for n, steps, bins in (REPLAY_SERVE, REPLAY_UNALIGNED)}
+        n, steps, bins = REPLAY_STEP1
+        self.step1 = operands(n, steps, bins, (75.0, 20.0, 1e-3))
+
+    def check(self, label):
+        rk = self.module
+        words = lambda t: t.view(self.torch.int32) if t.dtype == self.torch.float32 else t  # noqa: E731
+        for st, stack_t, temps, errs, scal in self.small:
+            for chunk in (1, 37, 160, 256):
+                x = y = st
+                for s in range(0, temps.shape[0], chunk):
+                    tc, ec = temps[s:s + chunk], errs[s:s + chunk]
+                    x = rk.replay_chunk_cuda(*x, stack_t, tc, ec, scal)
+                    y = rk.replay_chunk_plain(*y, stack_t, tc, ec, scal)
+                mism = sum(int((words(a) != words(b)).sum()) for a, b in zip(x, y))
+                if mism:
+                    sys.exit(f"{label}: replay chunk {chunk} at {temps.shape[1]} DIMMs: "
+                             f"{mism} mismatching words")
+        return 0.0
+
+    def timed(self):
+        rk, out = self.module, {}
+        for key, (st, stack_t, temps, errs, scal) in self.shapes.items():
+            out[key] = chip_smoke.cuda_ms(
+                self.torch, lambda: rk.replay_chunk_cuda(*st, stack_t, temps, errs, scal), 10)
+        st, stack_t, temps, errs, scal = self.step1
+        out["replay 65,536 x 1 (device)"] = chip_smoke.device_ms(
+            self.torch, lambda: rk.replay_chunk_cuda(*st, stack_t, temps, errs, scal),
+            REPLAY_STEP1_LAUNCHES, "replay_")
+        return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernels", default=",".join(VARIANTS))
+    ap.add_argument("--src", default=os.path.join(ROOT, "src"))
+    ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--clocks", action="store_true")
+    ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--out")
+    args = ap.parse_args()
+    names = [k for k in args.kernels.split(",") if k]
+    if not set(names) <= set(VARIANTS):
+        sys.exit(f"kernel_variants: --kernels takes {list(VARIANTS)}, got {names}")
+    sys.path.insert(0, os.path.abspath(args.src))
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("kernel_variants: needs an NVIDIA GPU")
+    from repro_torch.kernels import _build
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    _build.build(names)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    make = {"latency_matmul": lambda: MatmulSuite(torch, rand),
+            "flash_attention": lambda: AttentionSuite(torch, rand),
+            "flash_decode": lambda: DecodeSuite(torch, rand),
+            "replay_step": lambda: ReplaySuite(torch, rand, dev, gen)}
+    suites = {name: make[name]() for name in names}
+
+    def timed(label: str, which=names) -> dict:
+        """The named kernels' checks, then their ms at the production shapes."""
+        out = {"max_abs_err": max(suites[n].check(label) for n in which)}
+        for n in which:
+            out.update(suites[n].timed())
         return out
 
     res = {"card": chip_smoke.nvidia_smi(), "src": os.path.abspath(args.src),
            "ms": timed("default build")}
     if args.sass:
-        res["sass"] = {name: sass_mix(_build, name) for name in VARIANTS}
+        res["sass"] = {name: sass_mix(_build, _build.library_path(name)) for name in names}
     if args.variants:
-        libs = build_variants(_build)
+        libs = build_variants(_build, names)
         res["variants_ms"] = {}
-        for (name, label), lib in libs.items():
-            module = mm_k if name == "latency_matmul" else fa_k
+        for (name, label), (lib, path) in libs.items():
+            module = suites[name].module
             own = module._lib
             use_lib(module, lib)
-            res["variants_ms"][f"{name}: {label}"] = timed(f"{name} variant {label!r}")
+            res["variants_ms"][f"{name}: {label}"] = timed(f"{name} variant {label!r}", [name])
             module._lib = own
+            if args.sass:
+                res["sass"][f"{name}: {label}"] = {
+                    f: {k: c[k] for k in ("total",) + SASS_KEYS}
+                    for f, c in sass_mix(_build, path).items()}
         res["default_again_ms"] = timed("default build again")
-    if args.clocks:
-        best_mm = min(mm_k.TILES, key=lambda t: res["ms"][f"matmul {t}"])
-        best_fa = min(fa_tiles, key=lambda t: res["ms"][f"attention altune {t}"])
-        q, k, v = shapes["altune"]
+    if args.clocks and {"latency_matmul", "flash_attention"} <= set(names):
+        mm, fa = suites["latency_matmul"], suites["flash_attention"]
+        best_mm = min(mm.module.TILES, key=lambda t: res["ms"][f"matmul {t}"])
+        best_fa = min(fa.tiles, key=lambda t: res["ms"][f"attention altune {t}"])
+        q, k, v = fa.shapes["altune"]
         res["clocks"] = {
-            f"matmul {best_mm}": under_load(torch, lambda: mm_k.matmul_cuda(x, y, *best_mm)),
-            "torch.matmul": under_load(torch, lambda: torch.matmul(x, y)),
-            f"attention altune {best_fa}": under_load(torch, lambda: fa(q, k, v, best_fa))}
+            f"matmul {best_mm}": under_load(torch, lambda: mm.module.matmul_cuda(mm.x, mm.y, *best_mm)),
+            "torch.matmul": under_load(torch, lambda: torch.matmul(mm.x, mm.y)),
+            f"attention altune {best_fa}": under_load(torch, lambda: fa.run(q, k, v, best_fa))}
     line = json.dumps(res)
     print(line, flush=True)
     if args.out:
