@@ -11,8 +11,13 @@ Phases, each of which exits non-zero on failure:
    full float32 (no TF32), and the build of the seven CUDA kernels and the
    empty launch probe (one ``nvcc`` per source, started together).
 2. Charge sweep, kernel vs plain PyTorch version, on the full boot sweep
-   (1,048,576 DIMMs × 4 bins) plus the JEDEC-corner cell and a 95 °C
-   above-grid column: indices must be equal. Timed at the boot shape.
+   (1,048,576 DIMMs × 4 bins), the JEDEC-corner cell, a 95 °C above-grid
+   column, the worst-case stack (the boot stack with thresholds no
+   candidate passes) and 100,003 mixed lanes (45 and 95 °C, worst-case and
+   masked cells side by side): indices must be equal. Timed at the boot
+   shape and on the worst-case stack beside their bounds, with the
+   candidate evaluations the plain indices imply, warp by warp, and the
+   invariant precompute's time.
 3. Replay chunk, kernel vs plain, on 65,536 DIMMs at chunkings 1, 37, 256
    with error injections and a ladder of boundary temperatures, and at the
    main path's shapes: a full-width chunk (1,048,576 DIMMs × 256 steps)
@@ -27,7 +32,8 @@ Phases, each of which exits non-zero on failure:
 4. Serve: the fleet-controller service on a small fleet, card vs CPU (the
    plain versions) on the same table and trace; then the main path,
    ``serve_fleet.serve`` at 1,048,576 DIMMs × 1,440 steps (one day at one
-   reading a minute), with every kernel's launch count read around it; then
+   reading a minute), with every kernel's launch count read around it; its
+   boot again, split into synthesis, invariants, kernel and table; then
    the same run under ``torch.profiler`` (trace in ``chiprun_out/``) for the
    device's busy share and where the loop's time goes.
 5. Accumulate kernel vs plain at the trace-eval path's full width (65,536
@@ -165,10 +171,24 @@ PROBE_LAUNCHES, PROBE_BLOCKS = 200, 132 * 8192
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 
-#: Float operations per (cell, candidate) of the charge sweep, counted in
-#: csrc/charge_sweep.cu with expf and a division as one each: candidate 1,
-#: r_trcd 5, r_tras 9, r_trp 6, w_trcd/w_trp 2, w_tras 9, w_twr 7.
-SWEEP_OPS_PER_CANDIDATE = 39
+#: Float operations per candidate a search of the charge sweep evaluates,
+#: counted in csrc/charge_sweep.cu with expf and a division as one each, the
+#: candidate's product included (SEARCH_NAMES order); a tRAS candidate where
+#: the restore has not started costs SWEEP_OPS_LATCHED (product, two
+#: subtractions, compare).
+SWEEP_OPS_PER_EVALUATION = (6, 10, 7, 2, 10, 8, 2)
+SWEEP_OPS_LATCHED = 4
+#: The searches with an expf and a division, and of them the two tRAS
+#: searches with a latched shortcut: (search, its sense-latch row).
+SWEEP_CHARGE_SEARCHES = (0, 1, 2, 4, 5)
+SWEEP_TRAS_SEARCHES = ((1, "t_sense_r"), (4, "t_sense_w"))
+#: The charge sweep's worst-case stack: these invariant rows of the boot
+#: stack overwritten so that every search walks its whole grid and none passes.
+SWEEP_WORST_CASE = {"dv0_r": 0.0, "thr_rest": 2.0, "thr_trp": -1.0,
+                    "thr_trcd_w": 1e9, "thr_trp_w": 1e9}
+#: Cells of the charge sweep's mixed-lanes check (45 and 95 °C, worst-case and
+#: masked lanes side by side; the last warp partial).
+MIXED_CELLS = 100_003
 #: Float operations per (DIMM, step) of the replay chunk: the guard-band add,
 #: four edge compares, the hysteresis subtract and compare, eight sum adds.
 REPLAY_OPS_PER_STEP = 15
@@ -247,6 +267,125 @@ def replay_bytes(state, out, steps: int, n: int) -> int:
 def bound_ms(n_bytes: float, n_ops: float):
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sweep_worst_case(inv, lanes=slice(None)):
+    """The charge sweep's worst-case stack: ``inv`` with the rows of
+    ``SWEEP_WORST_CASE`` overwritten in the cells ``lanes`` (all by default)."""
+    from repro_torch.kernels.charge_sweep.kernel import INVARIANT_NAMES
+
+    out = inv.clone()
+    for name, value in SWEEP_WORST_CASE.items():
+        out[INVARIANT_NAMES.index(name), lanes] = value
+    return out
+
+
+def sweep_masks_off(inv):
+    """``inv`` with one search masked off in every fifth cell: cell 5 m has
+    search m % 7's JEDEC mask at 0."""
+    from repro_torch.kernels.charge_sweep.kernel import N_SEARCHES
+
+    out = inv.clone()
+    for j in range(N_SEARCHES):
+        out[11 + j, 5 * j::5 * N_SEARCHES] = 0.0
+    return out
+
+
+def sweep_mixed_lanes(cold, hot, worst, n: int):
+    """``n`` charge-sweep cells whose neighbouring lanes end their searches at
+    very different candidates: cells of the ``cold`` and ``hot`` stacks
+    alternating lane by lane, every third lane a ``worst`` cell, and every
+    fifth lane with one search (in turn) masked off (``sweep_masks_off``)."""
+    out = cold[:, :n].clone()
+    out[:, 1::2] = hot[:, 1:n:2]
+    out[:, ::3] = worst[:, :n:3]
+    return sweep_masks_off(out)
+
+
+def sweep_evaluations(torch, inv, idx, scal, n_grid, warp: int = 32) -> dict:
+    """The candidates the charge sweep evaluates on ``inv``, implied by its
+    indices ``idx`` (a search stops at its first pass, never starts where its
+    mask is 0, ends before its grid's last candidate): ``ops``, the float
+    operations the cells need, one by one; ``charge`` and
+    ``charge_latched``, the expf-and-division evaluations a cell of the five
+    charge searches costs warp by warp (a warp of ``warp`` neighbouring cells
+    runs a search until its slowest lane is done), without and with the tRAS
+    searches' latched shortcut (no expf where the restore has not started,
+    unless another live lane of the warp needs it); ``charge_full``, the
+    same for a walk of every charge search over the longest grid, as a
+    search that never stops costs; ``steps_by_search``, each search's mean
+    candidates a cell."""
+    from repro_torch.kernels.charge_sweep.kernel import INVARIANT_NAMES
+
+    n = inv.shape[1]
+    pad = -n % warp
+    masks = inv[11:] > 0.5
+    last = torch.tensor(n_grid, device=idx.device)[:, None] - 1
+    steps = torch.where(masks, torch.minimum(idx + 1, last), 0).to(torch.int64)  # (7, n)
+    lanes = torch.nn.functional.pad(steps, (0, pad)).view(len(n_grid), -1, warp)
+    warp_steps = lanes.amax(dim=2).to(torch.float64)               # (7, warps)
+    charge = float(warp_steps[list(SWEEP_CHARGE_SEARCHES)].sum(0).mean())
+    ops = sum(float(steps[j].sum()) * SWEEP_OPS_PER_EVALUATION[j] for j in range(len(n_grid)))
+    latched_saved = 0.0
+    for j, row in SWEEP_TRAS_SEARCHES:
+        t_sense = inv[INVARIANT_NAMES.index(row)]
+        for k in range(n_grid[j]):
+            t = torch.full_like(t_sense, k + 1) * scal.tck
+            latched = (t - scal.ovh_ras - t_sense) <= 0.0
+            live = steps[j] > k
+            ops -= float((live & latched).sum()) * (
+                SWEEP_OPS_PER_EVALUATION[j] - SWEEP_OPS_LATCHED)
+            # The warp skips the expf at k if no live lane of it needs one.
+            need = torch.nn.functional.pad(live & ~latched, (0, pad)).view(-1, warp).any(1)
+            latched_saved += float(((warp_steps[j] > k) & ~need).sum())
+    warps = warp_steps.shape[1]
+    return {"ops": ops, "charge": charge, "charge_latched": charge - latched_saved / warps,
+            "charge_full": float(len(SWEEP_CHARGE_SEARCHES) * max(n_grid)),
+            "steps_by_search": [round(float(s), 3) for s in
+                                steps.to(torch.float64).mean(1)]}
+
+
+def boot_split(torch, dev, serve_fleet, fleet, sweep_ops) -> dict:
+    """Seconds of the serve path's boot by part: ``serve_fleet.bootstrap_table``
+    at ``FULL_DIMMS`` from seed 0, with the device synchronized around the
+    population's synthesis (``fleet.synthesize``), the invariant precompute
+    (``stacked_invariants``) and the search kernel (``search_indices``);
+    ``table`` is the rest of the same run (pattern, indices to ns, the
+    controller's table). Fails if a part was never called, as it would be if
+    the boot path stopped reaching it through the hooked module attribute."""
+    parts = {"synthesis": 0.0, "invariants": 0.0, "kernel": 0.0}
+    calls = dict.fromkeys(parts, 0)
+    hooks = ((fleet, "synthesize", "synthesis"),
+             (sweep_ops, "stacked_invariants", "invariants"),
+             (sweep_ops, "search_indices", "kernel"))
+
+    def timed(fn, part):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            parts[part] += time.perf_counter() - t0
+            calls[part] += 1
+            return out
+        return run
+
+    originals = [(mod, name, getattr(mod, name)) for mod, name, _ in hooks]
+    for mod, name, part in hooks:
+        setattr(mod, name, timed(getattr(mod, name), part))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve_fleet.bootstrap_table(torch.Generator(device=dev).manual_seed(0), FULL_DIMMS,
+                                    device=dev)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+    if not all(calls.values()):
+        fail(f"boot split: a part of bootstrap_table was never reached: {calls}")
+    return {**parts, "table": total - sum(parts.values()), "total": total}
 
 
 def flash_attention_phase(torch, dev, gen, fa_k):
@@ -743,28 +882,50 @@ def main() -> None:
     inv_corner, _ = sweep_ops.stacked_invariants(
         corner, torch.tensor([45.0, 85.0, 95.0], device=dev)[:, None, None])
     inv_hot, _ = sweep_ops.stacked_invariants(cells, torch.tensor(95.0, device=dev))
-    inv_all = torch.cat([inv_boot, inv_corner, inv_hot], dim=1).contiguous()
-    scal = sweep_ops.kernel_scalars()
-    got = sweep_k.charge_sweep_cuda(inv_all, scal)
-    want = sweep_k.charge_sweep_plain(inv_all, scal)
-    torch.cuda.synchronize()
-    sweep_mism = int((got != want).sum())
-    sweep_err = float((got - want).abs().max())
-    corner_idx = got[:, inv_boot.shape[1]:inv_boot.shape[1] + 3].t().tolist()
-    log(f"charge sweep: {inv_all.shape[1]:,} cells, {sweep_mism} index mismatches "
-        f"(corner cell at 45/85/95 °C: {corner_idx})")
-    if sweep_mism:
-        fail(f"charge-sweep kernel disagrees with its plain version on {sweep_mism} indices")
+    inv_worst = sweep_worst_case(inv_boot)
     n_boot = inv_boot.shape[1]
+    stacks = {"boot": inv_boot, "JEDEC corner": inv_corner, "95 °C": inv_hot,
+              "worst case": inv_worst,
+              "mixed lanes": sweep_mixed_lanes(inv_boot, inv_hot, inv_worst, MIXED_CELLS)}
+    scal = sweep_ops.kernel_scalars()
+    n_grid = sweep_ops.ref.SEARCH_GRID_SIZES
+    sweep_mism, sweep_err, plain_idx = {}, 0.0, {}
+    for label, inv in stacks.items():
+        got = sweep_k.charge_sweep_cuda(inv, scal)
+        want = plain_idx[label] = sweep_k.charge_sweep_plain(inv, scal)
+        torch.cuda.synchronize()
+        sweep_mism[label] = int((got != want).sum())
+        sweep_err = max(sweep_err, float((got - want).abs().max()))
+    pinned = torch.tensor(n_grid, device=dev)[:, None] - 1
+    log(f"charge sweep, kernel vs plain: index mismatches {sweep_mism} (corner cell at "
+        f"45/85/95 °C: {plain_idx['JEDEC corner'].t().tolist()}; worst case pinned to "
+        f"JEDEC everywhere: {bool((plain_idx['worst case'] == pinned).all())})")
+    if any(sweep_mism.values()):
+        fail(f"charge-sweep kernel disagrees with its plain version: {sweep_mism}")
     sweep_ms = cuda_ms(torch, lambda: sweep_k.charge_sweep_cuda(inv_boot, scal), 20)
+    sweep_worst_ms = cuda_ms(torch, lambda: sweep_k.charge_sweep_cuda(inv_worst, scal), 20)
     sweep_plain_ms = cuda_ms(torch, lambda: sweep_k.charge_sweep_plain(inv_boot, scal), 3)
+    invariants_ms = cuda_ms(torch, lambda: sweep_ops.stacked_invariants(cells, boot_t), 3)
+    evals = {label: sweep_evaluations(torch, stacks[label], plain_idx[label], scal, n_grid)
+             for label in ("boot", "worst case")}
     sweep_bound, sweep_by = bound_ms(
-        n_boot * (inv_boot.shape[0] + sweep_k.N_SEARCHES) * 4,
-        n_boot * max(sweep_ops.ref.SEARCH_GRID_SIZES) * SWEEP_OPS_PER_CANDIDATE,
-    )
+        n_boot * (inv_boot.shape[0] + sweep_k.N_SEARCHES) * 4, evals["boot"]["ops"])
+    worst_bound, _ = bound_ms(
+        n_boot * (inv_boot.shape[0] + sweep_k.N_SEARCHES) * 4, evals["worst case"]["ops"])
     log(f"charge sweep at {n_boot:,} cells: kernel {sweep_ms:.4f} ms, plain "
-        f"{sweep_plain_ms:.3f} ms, bound {sweep_bound:.4f} ms ({sweep_by})")
-    del inv_all, inv_hot, got, want
+        f"{sweep_plain_ms:.3f} ms, bound {sweep_bound:.4f} ms ({sweep_by}); worst-case "
+        f"stack {sweep_worst_ms:.4f} ms (bound {worst_bound:.4f} ms, its operations "
+        f"implied by the plain indices); the invariants "
+        f"(stacked_invariants) {invariants_ms:.4f} ms")
+    # A model, not a count taken on the kernel: what the plain indices imply
+    # if each search's loop is a branch and a warp runs to its slowest lane.
+    for label, ev in evals.items():
+        log(f"  {label} stack, implied by the plain indices (not counted on the kernel): "
+            f"candidates a cell by search {ev['steps_by_search']}; "
+            f"expf-and-division evaluations a cell, warp by warp: {ev['charge']:.2f} "
+            f"stopping at the first pass, {ev['charge_latched']:.2f} with the tRAS "
+            f"shortcut, {ev['charge_full']:.0f} walking the longest grid")
+    del stacks, inv_worst, inv_hot, inv_corner, got, want, plain_idx
 
     # ---- 3. replay chunk: kernel vs plain ------------------------------------
     table = serve_fleet.bootstrap_table(gen, REPLAY_DIMMS, device=dev)
@@ -963,6 +1124,10 @@ def main() -> None:
         fail("non-finite score figure")
     if {m.split(".")[0] for m in sys.modules} & {"jax", "jaxlib", "repro"}:
         fail("the port imported JAX or the JAX package")
+    boot = boot_split(torch, dev, serve_fleet, fleet, sweep_ops)
+    log(f"serve boot split (bootstrap_table again, synchronized between parts): "
+        + ", ".join(f"{k} {v:.4f} s" for k, v in boot.items())
+        + f"; the main path's boot_s {report['boot_s']:.4f} s")
 
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
@@ -1172,9 +1337,10 @@ def main() -> None:
         {"name": "charge_sweep", "route": "cuda",
          "source": "src/repro_torch/csrc/charge_sweep.cu",
          "replaces": "src/repro/kernels/charge_sweep/kernel.py:96",
-         **counted("charge_sweep"), "mismatches": sweep_mism,
+         **counted("charge_sweep"), "mismatches": sum(sweep_mism.values()),
          "max_abs_err": sweep_err, "ms": sweep_ms, "plain_ms": sweep_plain_ms,
-         "bound_ms": sweep_bound, "bound_by": sweep_by, "library_ms": None},
+         "bound_ms": sweep_bound, "bound_by": sweep_by, "library_ms": None,
+         "worst_case_ms": sweep_worst_ms, "invariants_ms": invariants_ms},
         {"name": "replay_chunk", "route": "cuda",
          "source": "src/repro_torch/csrc/replay_step.cu",
          "replaces": "src/repro/kernels/replay_step/kernel.py:92",

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from repro.core import charge as jcharge
 from repro.core import controller as jcontroller
 from repro.core import dimm as jdimm
@@ -182,3 +183,100 @@ def test_table_refuses_untested_entries():
     stack[1, 2, 1, 1] = -1.0
     with pytest.raises(ValueError, match="untested"):
         DimmTimingTable(jcontroller.DEFAULT_TEMP_BINS, stack)
+
+
+def _all_invariants():
+    cells, temps, _ = _flat_all()
+    inv, _ = ops.stacked_invariants(*_torch_inputs(cells, temps))
+    return inv, ops.kernel_scalars()
+
+
+def _latched(scal):
+    """The restore value of the read and the write tRAS search at the sense
+    latch, as the CUDA kernel forms it: one float32 subtraction each."""
+    return (float(np.float32(1.0) - np.float32(scal.one_minus_vrs)),
+            float(np.float32(scal.v_over) - np.float32(scal.v_over_minus_vrs)))
+
+
+def test_tras_latched_shortcut_is_bitwise():
+    """Wherever a tRAS candidate's restore has not started (ta <= 0), the
+    plain version's float32 restore value equals the constant the CUDA kernel
+    compares there instead, bit for bit (``restored`` in
+    csrc/charge_sweep.cu)."""
+    inv, scal = _all_invariants()
+    row = dict(zip(sweep_kernel.INVARIANT_NAMES, inv))
+    latched_r, latched_w = _latched(scal)
+    hits = 0
+    for k in range(max(ref.SEARCH_GRID_SIZES)):
+        t = torch.full_like(row["rts"], k + 1) * scal.tck
+        # The plain version's expressions (kernel.charge_sweep_plain).
+        ta_r = t - scal.ovh_ras - row["t_sense_r"]
+        v_reached = 1.0 - scal.one_minus_vrs * torch.exp(
+            -torch.clamp(ta_r, min=0.0) / row["rtr"])
+        ta_w = t - scal.ovh_ras - row["t_sense_w"]
+        v_row = scal.v_over - scal.v_over_minus_vrs * torch.exp(
+            -torch.clamp(ta_w, min=0.0) / row["tau_wr"])
+        for ta, v, latched in ((ta_r, v_reached, latched_r), (ta_w, v_row, latched_w)):
+            at = ta <= 0.0
+            hits += int(at.sum())
+            want = torch.full((int(at.sum()),), latched, dtype=torch.float32)
+            assert torch.equal(v[at].view(torch.int32), want.view(torch.int32)), k
+    assert hits > 0
+
+
+def _first_pass_walk(inv, scal, n_grid):
+    """The CUDA kernel's control flow on the CPU: each search evaluates only
+    the cells still searching, stops a cell at its first pass, never starts
+    one whose mask is 0, ends before its own grid's last candidate, and
+    compares the latched constant in the tRAS searches where ta <= 0."""
+    row = dict(zip(sweep_kernel.INVARIANT_NAMES, inv))
+    latched_r, latched_w = _latched(scal)
+
+    def restored(ta, tau, v_top, v_span, latched, thr):
+        full = v_top - v_span * torch.exp(-torch.clamp(ta, min=0.0) / tau) >= thr
+        return torch.where(ta <= 0.0, latched >= thr, full)
+
+    preds = (
+        lambda c, t: row["dv0_r"][c] * torch.exp((t - scal.ovh_rcd) / row["rts"][c])
+        >= scal.thr_sense,
+        lambda c, t: restored(t - scal.ovh_ras - row["t_sense_r"][c], row["rtr"][c], 1.0,
+                              scal.one_minus_vrs, latched_r, row["thr_rest"][c]),
+        lambda c, t: scal.v_half * torch.exp(-(t - scal.ovh_rp) / row["rtb"][c])
+        <= row["thr_trp"][c],
+        lambda c, t: t >= row["thr_trcd_w"][c],
+        lambda c, t: restored(t - scal.ovh_ras - row["t_sense_w"][c], row["tau_wr"][c],
+                              scal.v_over, scal.v_over_minus_vrs, latched_w,
+                              row["thr_rest"][c]),
+        lambda c, t: scal.v_over * (1.0 - torch.exp(-(t - scal.ovh_wr) / row["tau_wr"][c]))
+        >= row["thr_rest"][c],
+        lambda c, t: t >= row["thr_trp_w"][c],
+    )
+    idx = torch.empty((len(preds), inv.shape[1]), dtype=torch.int32)
+    for j, pred in enumerate(preds):
+        idx[j] = n_grid[j] - 1
+        live = torch.nonzero(inv[11 + j] > 0.5).flatten()
+        for k in range(n_grid[j] - 1):  # the last candidate's index is the pin
+            if live.numel() == 0:
+                break
+            ok = pred(live, torch.full((live.numel(),), k + 1, dtype=torch.float32) * scal.tck)
+            idx[j, live[ok]] = k
+            live = live[~ok]
+    return idx
+
+
+def test_first_pass_walk_matches_plain():
+    """Stopping each search at its first pass, never starting a masked one
+    and ending before its own grid's last candidate (the CUDA kernel's skip
+    rule) gives the plain full walk's indices on every case, on the
+    worst-case stack (no search passes) and with masks at 0 on every fifth
+    cell."""
+    inv, scal = _all_invariants()
+    worst = chip_smoke.sweep_worst_case(inv)
+    masked = chip_smoke.sweep_masks_off(inv)
+    n_grid = ref.SEARCH_GRID_SIZES
+    for stack in (inv, worst, masked):
+        want = sweep_kernel.charge_sweep_plain(stack, scal, n_grid)
+        assert torch.equal(_first_pass_walk(stack, scal, n_grid), want)
+    pinned = torch.tensor(n_grid, dtype=torch.int32)[:, None] - 1
+    assert torch.equal(sweep_kernel.charge_sweep_plain(worst, scal, n_grid),
+                       pinned.expand(-1, worst.shape[1]))

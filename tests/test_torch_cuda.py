@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from repro_torch.core import charge, controller, fleet, perfmodel
 from repro_torch.kernels.charge_sweep import kernel as sweep_kernel
 from repro_torch.kernels.charge_sweep import ops as sweep_ops
@@ -44,12 +45,35 @@ def _bits(t):
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
-def test_charge_sweep_kernel_matches_plain(cuda_device):
-    g = torch.Generator(device=cuda_device).manual_seed(0)
-    fl = fleet.synthesize(g, 50_001, device=cuda_device)   # no multiple of a block
-    cells = charge.CellParams(*(a[None, :] for a in fl.cells))
-    temps = torch.tensor([45.0, 55.0, 85.0, 95.0], device=cuda_device)[:, None]
-    inv, _ = sweep_ops.stacked_invariants(cells, temps)
+def _sweep_stack(case, dev):
+    """Charge-sweep invariants of a seed-0 fleet of 50,001 DIMMs (so no cell
+    count is a multiple of a warp: the last warp is partial). "fleet": at
+    45/55/85/95 °C. "mixed lanes": one cell a DIMM, neighbouring lanes ending
+    their searches at very different candidates — 45 and 95 °C alternating
+    lane by lane, JEDEC-corner cells, worst-case cells (no search passes) and
+    masks at 0."""
+    n = 50_001
+    g = torch.Generator(device=dev).manual_seed(0)
+    fl = fleet.synthesize(g, n, device=dev)
+    if case == "fleet":
+        cells = charge.CellParams(*(a[None, :] for a in fl.cells))
+        temps = torch.tensor([45.0, 55.0, 85.0, 95.0], device=dev)[:, None]
+        return sweep_ops.stacked_invariants(cells, temps)[0]
+    lane = torch.arange(n, device=dev)
+    inv, _ = sweep_ops.stacked_invariants(fl.cells, torch.where(lane % 2 == 0, 45.0, 95.0))
+    c = charge.DEFAULT_CONSTANTS
+    corner = charge.CellParams(*(torch.full((3,), v, device=dev)
+                                 for v in (c.r_max, c.c_min, 1.0)))
+    inv_corner, _ = sweep_ops.stacked_invariants(
+        corner, torch.tensor([45.0, 85.0, 95.0], device=dev))
+    lanes = lane[7::97]
+    inv[:, lanes] = inv_corner[:, lanes % 3]
+    return chip_smoke.sweep_masks_off(chip_smoke.sweep_worst_case(inv, slice(3, None, 11)))
+
+
+@pytest.mark.parametrize("case", ["fleet", "mixed lanes"])
+def test_charge_sweep_kernel_matches_plain(cuda_device, case):
+    inv = _sweep_stack(case, cuda_device)
     scal = sweep_ops.kernel_scalars()
     before = sweep_kernel.charge_sweep_cuda.launches
     got = sweep_kernel.charge_sweep_cuda(inv, scal)

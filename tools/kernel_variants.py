@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""Time four of the port's CUDA kernels by tile on one card, for this tree or
+"""Time five of the port's CUDA kernels by tile on one card, for this tree or
 an older one, and for design alternatives of their sources.
 
     python3 tools/kernel_variants.py [--kernels K,...] [--src DIR] [--variants]
                                      [--clocks] [--sass] [--out FILE]
 
 ``--kernels`` picks among ``latency_matmul``, ``flash_attention``,
-``flash_decode`` and ``replay_step`` (default: all four). Builds their
-``csrc/<name>.cu`` of the tree whose ``src`` directory is ``--src``
+``flash_decode``, ``replay_step`` and ``charge_sweep`` (default: all five).
+Builds their ``csrc/<name>.cu`` of the tree whose ``src`` directory is ``--src``
 (default: this checkout's), so an unpacked older tree can be timed in the
 same call. Every kernel is first checked against its plain version on small
 ragged cases (the replay chunk bitwise, at 4,099 and 4,112 DIMMs and chunks
@@ -19,7 +19,11 @@ serve and altune shapes, decode at altune's production shape (every tile in
 float32, the best in bfloat16), the replay chunk at the serve shape
 (1,048,576 DIMMs × 256 steps, and 1,048,573 DIMMs for the unaligned copy
 path) and at trace-eval's chunk 1 × 65,536 DIMMs, there as device time per
-launch from ``torch.profiler`` (``chip_smoke.device_ms``).
+launch from ``torch.profiler`` (``chip_smoke.device_ms``); the charge sweep,
+checked bitwise on every stack, at the boot shape (a seed-0 fleet of
+1,048,576 DIMMs × 4 boot bins) and on its worst-case stack, where every
+search walks its whole grid (``chip_smoke.sweep_worst_case``), and checked on
+100,003 mixed lanes (``chip_smoke.sweep_mixed_lanes``).
 
 ``--variants`` also builds each source with one design alternative edited
 in (``VARIANTS``: text replacements applied to a copy of the source under
@@ -64,6 +68,146 @@ _FD_K_ONCE = ("      const float4 kk = ld4(ks + (sub * RL + r) * DH + c4);\n#pra
 _REPLAY_STEP = "step(tt[r * kThreads], te[r * kErrRow + off] != 0);"
 _REPLAY_SUMS = ("#pragma unroll\n"
                 "    for (int j = 0; j < kSlots; ++j) sums[j] = sums[j] + rp[j * kRowStride];\n")
+_SWEEP_FIRST_PASS = ("  if (mask) {\n"
+                     "    float kf = 1.0f;\n"
+                     "    for (int32_t k = 0; k < n_grid - 1; ++k, kf += 1.0f) {\n"
+                     "      if (pass(kf * tck)) return k;\n"
+                     "    }\n"
+                     "  }\n"
+                     "  return n_grid - 1;\n")
+#: The 28-candidate walk of every search (the longest grid), no early exit.
+_SWEEP_NO_GUARDS = ("  int32_t idx = n_grid - 1;\n"
+                    "  bool found = false;\n"
+                    "  for (int32_t k = 0; k < 28; ++k) {\n"
+                    "    const bool ok =\n"
+                    "        pass(static_cast<float>(k + 1) * tck) & mask & (k < n_grid);\n"
+                    "    if (ok && !found) idx = k;\n"
+                    "    found = found || ok;\n"
+                    "  }\n"
+                    "  return idx;\n")
+_SWEEP_SHORTCUT = "  if (ta <= 0.0f) return latched >= thr;\n"
+_SWEEP_OUT = "  int32_t* out = idx_out + c;\n"
+#: Design (i): one candidate loop over all seven searches, each guarded by its
+#: own done flag; the warp leaves once every lane is done. Lanes past n stay
+#: in the loop as done (a full-mask vote), reading a live cell, storing nothing.
+_SWEEP_ONE_LOOP = """\
+  int32_t idx[kSearches];
+  bool done[kSearches];
+  bool all_done = true;
+#pragma unroll
+  for (int j = 0; j < kSearches; ++j) {
+    idx[j] = p.n_grid[j] - 1;
+    done[j] = !(live && mask[j]);
+    all_done = all_done && done[j];
+  }
+  float kf = 1.0f;
+  for (int32_t k = 0; !__all_sync(0xffffffffu, all_done); ++k, kf += 1.0f) {
+    const float t = kf * p.tck;
+    bool pass[kSearches] = {false, false, false, false, false, false, false};
+    if (!done[0]) pass[0] = dv0_r * expf((t - p.ovh_rcd) / rts) >= p.thr_sense;
+    if (!done[1])
+      pass[1] = restored(t - p.ovh_ras - t_sense_r, rtr, 1.0f, p.one_minus_vrs, latched_r,
+                         thr_rest);
+    if (!done[2]) pass[2] = p.v_half * expf(-(t - p.ovh_rp) / rtb) <= thr_trp;
+    pass[3] = t >= thr_trcd_w;
+    if (!done[4])
+      pass[4] = restored(t - p.ovh_ras - t_sense_w, tau_wr, p.v_over, p.v_over_minus_vrs,
+                         latched_w, thr_rest);
+    if (!done[5]) pass[5] = p.v_over * (1.0f - expf(-(t - p.ovh_wr) / tau_wr)) >= thr_rest;
+    pass[6] = t >= thr_trp_w;
+    all_done = true;
+#pragma unroll
+    for (int j = 0; j < kSearches; ++j) {
+      if (!done[j] && pass[j]) idx[j] = k;
+      done[j] = done[j] || pass[j] || k + 2 >= p.n_grid[j];
+      all_done = all_done && done[j];
+    }
+  }
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < kSearches; ++j) idx_out[j * n + c] = idx[j];
+  }
+  return;
+"""
+#: Two cells a thread, c and c + kThreads of a block of 2 * kThreads cells:
+#: each search's loop evaluates both cells' candidates side by side (their
+#: expf and division independent, for instruction-level parallelism) until
+#: both are done.
+_SWEEP_TWO_CELLS = """\
+template <class Pass>
+__device__ __forceinline__ void first_pass2(const bool* mask, int32_t n_grid, float tck,
+                                            int32_t* idx, Pass pass) {
+  bool left0 = mask[0], left1 = mask[1];
+  idx[0] = idx[1] = n_grid - 1;
+  float kf = 1.0f;
+  for (int32_t k = 0; k < n_grid - 1 && (left0 || left1); ++k, kf += 1.0f) {
+    const float t = kf * tck;
+    const bool p0 = pass(0, t), p1 = pass(1, t);
+    if (left0 && p0) idx[0] = k, left0 = false;
+    if (left1 && p1) idx[1] = k, left1 = false;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+charge_sweep_kernel2(const float* __restrict__ inv, int32_t* __restrict__ idx_out,
+                     int64_t n, SweepParams p) {
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * 2 * kThreads + threadIdx.x;
+  float dv0_r[2], rts[2], t_sense_r[2], thr_rest[2], rtr[2], rtb[2], thr_trp[2], tau_wr[2],
+      t_sense_w[2], thr_trcd_w[2], thr_trp_w[2];
+  bool mask[kSearches][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool live = c0 + i * kThreads < n;
+    const int64_t c = live ? c0 + i * kThreads : n - 1;  // a lane past n reads a live cell
+    dv0_r[i] = inv[0 * n + c];
+    rts[i] = inv[1 * n + c];
+    t_sense_r[i] = inv[2 * n + c];
+    thr_rest[i] = inv[3 * n + c];
+    rtr[i] = inv[4 * n + c];
+    rtb[i] = inv[5 * n + c];
+    thr_trp[i] = inv[6 * n + c];
+    tau_wr[i] = inv[7 * n + c];
+    t_sense_w[i] = inv[8 * n + c];
+    thr_trcd_w[i] = inv[9 * n + c];
+    thr_trp_w[i] = inv[10 * n + c];
+#pragma unroll
+    for (int j = 0; j < kSearches; ++j) mask[j][i] = live && inv[(11 + j) * n + c] > 0.5f;
+  }
+  const float latched_r = 1.0f - p.one_minus_vrs;
+  const float latched_w = p.v_over - p.v_over_minus_vrs;
+  int32_t idx[kSearches][2];
+  first_pass2(mask[0], p.n_grid[0], p.tck, idx[0], [&](int i, float t) {
+    return dv0_r[i] * expf((t - p.ovh_rcd) / rts[i]) >= p.thr_sense;
+  });
+  first_pass2(mask[1], p.n_grid[1], p.tck, idx[1], [&](int i, float t) {
+    return restored(t - p.ovh_ras - t_sense_r[i], rtr[i], 1.0f, p.one_minus_vrs, latched_r,
+                    thr_rest[i]);
+  });
+  first_pass2(mask[2], p.n_grid[2], p.tck, idx[2], [&](int i, float t) {
+    return p.v_half * expf(-(t - p.ovh_rp) / rtb[i]) <= thr_trp[i];
+  });
+  first_pass2(mask[3], p.n_grid[3], p.tck, idx[3],
+              [&](int i, float t) { return t >= thr_trcd_w[i]; });
+  first_pass2(mask[4], p.n_grid[4], p.tck, idx[4], [&](int i, float t) {
+    return restored(t - p.ovh_ras - t_sense_w[i], tau_wr[i], p.v_over, p.v_over_minus_vrs,
+                    latched_w, thr_rest[i]);
+  });
+  first_pass2(mask[5], p.n_grid[5], p.tck, idx[5], [&](int i, float t) {
+    return p.v_over * (1.0f - expf(-(t - p.ovh_wr) / tau_wr[i])) >= thr_rest[i];
+  });
+  first_pass2(mask[6], p.n_grid[6], p.tck, idx[6],
+              [&](int i, float t) { return t >= thr_trp_w[i]; });
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (c0 + i * kThreads < n) {
+#pragma unroll
+      for (int j = 0; j < kSearches; ++j) idx_out[j * n + c0 + i * kThreads] = idx[j][i];
+    }
+  }
+}
+
+}  // namespace
+"""
 #: label -> [(text of the source, its replacement), ...]; every text must
 #: occur in the source (all occurrences are replaced).
 VARIANTS = {
@@ -129,10 +273,32 @@ VARIANTS = {
             "      sums[j] = sums[j] + row;\n"
             "    }\n"))],
     },
+    "charge_sweep": {
+        "(i) one candidate loop": [
+            ("  if (c >= n) return;\n",
+             "  const bool live = c < n;\n  const int64_t cl = live ? c : n - 1;\n"),
+            ("* n + c]", "* n + cl]"), (_SWEEP_OUT, _SWEEP_ONE_LOOP + _SWEEP_OUT)],
+        "tRAS shortcut off": [(_SWEEP_SHORTCUT, "")],
+        "last candidate evaluated": [("k < n_grid - 1; ++k", "k < n_grid; ++k")],
+        "candidate converted from k each time": [
+            ("if (pass(kf * tck))", "if (pass(static_cast<float>(k + 1) * tck))")],
+        "search loops unrolled by 2": [(
+            "    for (int32_t k = 0; k < n_grid - 1; ++k, kf += 1.0f) {\n",
+            "#pragma unroll 2\n    for (int32_t k = 0; k < n_grid - 1; ++k, kf += 1.0f) {\n")],
+        "guards off (every search walks 28 candidates)": [(_SWEEP_FIRST_PASS, _SWEEP_NO_GUARDS)],
+        "guards and tRAS shortcut off": [(_SWEEP_FIRST_PASS, _SWEEP_NO_GUARDS),
+                                         (_SWEEP_SHORTCUT, "")],
+        "two cells a thread": [
+            ("}  // namespace\n", _SWEEP_TWO_CELLS),
+            ("charge_sweep_kernel<<<", "charge_sweep_kernel2<<<"),
+            ("(n + kThreads - 1) / kThreads", "(n + 2 * kThreads - 1) / (2 * kThreads)")],
+        "128 threads a block": [("kThreads = 256;", "kThreads = 128;")],
+        "512 threads a block": [("kThreads = 256;", "kThreads = 512;")],
+    },
 }
 #: The C launchers whose ctypes signatures a variant's library copies.
 LAUNCHERS = ("latency_matmul_launch", "flash_attention_launch", "flash_decode_launch",
-             "replay_chunk_launch", "replay_max_bins")
+             "replay_chunk_launch", "replay_max_bins", "charge_sweep_launch")
 
 
 def build_variants(_build, names) -> dict:
@@ -178,7 +344,8 @@ def use_lib(module, lib) -> None:
 
 
 #: Opcodes always reported by ``--sass``, beside the commonest.
-SASS_KEYS = ("FFMA", "FADD", "LDS", "LDG", "LDGSTS", "SHFL", "SEL", "FSEL", "ISETP", "FSETP")
+SASS_KEYS = ("FFMA", "FADD", "LDS", "LDG", "LDGSTS", "SHFL", "SEL", "FSEL", "ISETP", "FSETP",
+             "MUFU", "FCHK", "BRA", "VOTE")
 
 
 def sass_mix(_build, lib_path) -> dict:
@@ -404,6 +571,38 @@ class ReplaySuite:
         return out
 
 
+class SweepSuite:
+    def __init__(self, torch, dev):
+        from repro_torch.core import charge, fleet
+        from repro_torch.kernels.charge_sweep import kernel as sk
+        from repro_torch.kernels.charge_sweep import ops
+        self.torch, self.module = torch, sk
+        gen = torch.Generator(device=dev).manual_seed(0)
+        fl = fleet.synthesize(gen, chip_smoke.FULL_DIMMS, device=dev)
+        cells = charge.CellParams(*(a[None, None, :] for a in fl.cells))
+        boot, _ = ops.stacked_invariants(
+            cells, torch.tensor(chip_smoke.BOOT_BINS, device=dev)[:, None, None])
+        hot, _ = ops.stacked_invariants(cells, torch.tensor(95.0, device=dev))
+        worst = chip_smoke.sweep_worst_case(boot)
+        self.timed_stacks = {"boot": boot, "worst case": worst}
+        self.stacks = self.timed_stacks | {"mixed lanes": chip_smoke.sweep_mixed_lanes(
+            boot, hot, worst, chip_smoke.MIXED_CELLS)}
+        self.scal = ops.kernel_scalars()
+        self.want = {k: sk.charge_sweep_plain(inv, self.scal) for k, inv in self.stacks.items()}
+
+    def check(self, label):
+        for key, inv in self.stacks.items():
+            mism = int((self.module.charge_sweep_cuda(inv, self.scal) != self.want[key]).sum())
+            if mism:
+                sys.exit(f"{label}: charge sweep, {key} stack: {mism} mismatching indices")
+        return 0.0
+
+    def timed(self):
+        return {f"charge sweep {key}": chip_smoke.cuda_ms(
+            self.torch, lambda inv=inv: self.module.charge_sweep_cuda(inv, self.scal), 20)
+            for key, inv in self.timed_stacks.items()}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels", default=",".join(VARIANTS))
@@ -433,7 +632,8 @@ def main() -> None:
     make = {"latency_matmul": lambda: MatmulSuite(torch, rand),
             "flash_attention": lambda: AttentionSuite(torch, rand),
             "flash_decode": lambda: DecodeSuite(torch, rand),
-            "replay_step": lambda: ReplaySuite(torch, rand, dev, gen)}
+            "replay_step": lambda: ReplaySuite(torch, rand, dev, gen),
+            "charge_sweep": lambda: SweepSuite(torch, dev)}
     suites = {name: make[name]() for name in names}
 
     def timed(label: str, which=names) -> dict:
