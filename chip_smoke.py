@@ -33,7 +33,8 @@ Phases, each of which exits non-zero on failure:
    plain versions) on the same table and trace; then the main path,
    ``serve_fleet.serve`` at 1,048,576 DIMMs × 1,440 steps (one day at one
    reading a minute), with every kernel's launch count read around it; its
-   boot again, split into synthesis, invariants, kernel and table; then
+   boot again, split into synthesis, invariants, kernel, the joint stack
+   and table; then
    the same run under ``torch.profiler`` (trace in ``chiprun_out/``) for the
    device's busy share and where the loop's time goes.
 5. Accumulate kernel vs plain at the trace-eval path's full width (65,536
@@ -93,7 +94,20 @@ Phases, each of which exits non-zero on failure:
    candidate validated and timed at the production shapes, with every
    kernel's launch count read around it; every worst-case tile must
    validate. The timing table goes to ``chiprun_out/``.
-15. One JSON line describing each kernel; the card's name and power limit;
+15. The profiling path: ``fleet.sweep`` of the serve boot's 1,048,576 DIMMs
+   (seed 0) × 5 temperatures × 4 patterns, one charge-sweep launch, its
+   wall time, peak device memory and 55 °C means beside the paper's (within
+   its ±0.025 window); ``DimmTimingTable.profile`` equal to the sweep's
+   table and a JSON round trip of 4,096 DIMMs of it; 65,536 DIMMs through
+   the port on the card and on the CPU (the read and write stacks equal up
+   to one-grid-step flips at a decision threshold — the CPU's search
+   reaches the card's value under a perturbation of the cell of at most
+   1e-6 — and the joint stack up to one-tCK flips at a cycle boundary, each
+   counted and listed;
+   ``summary()``, ``fig2_summary`` and ``repeatability`` on the same draws
+   within 1e-6); the Fig. 3 speedup report, single- and multi-core, card
+   within 1e-5 of CPU.
+16. One JSON line describing each kernel; the card's name and power limit;
    the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -167,6 +181,20 @@ FD_CASES = (("production", 8, 32768, 64, 8, 128, 32768, "float32"),
 #: many-block launch (8,192 a SM).
 PROBE_LAUNCHES, PROBE_BLOCKS = 200, 132 * 8192
 
+#: The profiling path's card-vs-CPU check: DIMMs, the repeatability trials,
+#: the JSON round trip's table slice, and the tolerance of its means.
+PROFILE_CHECK_DIMMS = 65536
+REPEAT_TRIALS = 10
+JSON_SLICE_DIMMS = 4096
+MEAN_TOL = 1e-6
+#: The Fig. 3 report, card against CPU (a 60-step float32 bisection each).
+REPORT_TOL = 1e-5
+#: The paper's §1.5 means at 55 °C and the window the repository holds its
+#: sweep to (``tests/test_fleet.py``); its memory-intensive Fig. 3 claim.
+PAPER_55C = {"trcd": 0.173, "tras": 0.377, "twr": 0.548, "trp": 0.352}
+PAPER_TOL = 0.025
+PAPER_INTENSIVE = 0.140
+
 #: Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 non-tensor FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -199,6 +227,74 @@ ACCUMULATE_OPS_PER_STEP = 8
 #: Float operations per unmasked (query, key) pair and head dim of attention:
 #: a multiply-add in Q K^T and one in P V.
 ATTENTION_OPS_PER_PAIR_DIM = 4
+
+
+#: The joint stack's comparison rule: an entry may differ by exactly one tCK
+#: from its reference where the reference's raw minimum lies within this
+#: relative distance of a cycle boundary (``exp``/``log`` differ by an ulp
+#: between torch and XLA, and between torch's CPU and CUDA builds).
+JOINT_BOUNDARY_RTOL = 1e-5
+TCK_NS = 1.25
+
+
+def joint_mismatches(got, want, want_raw, rtol: float = JOINT_BOUNDARY_RTOL):
+    """``(flips, bad)``: entries of the joint stack ``got`` exactly one tCK
+    from ``want`` where ``want_raw / tCK`` lies within ``rtol`` (relative)
+    of an integer, and every other entry that differs. Tensors or arrays."""
+    import torch
+
+    got, want, raw = ((x if isinstance(x, torch.Tensor) else torch.tensor(x)).cpu().double()
+                      for x in (got, want, want_raw))
+    differs = got != want
+    cycles = raw / TCK_NS
+    at_boundary = (cycles - cycles.round()).abs() <= rtol * cycles.abs()
+    flip = differs & ((got - want).abs() == TCK_NS) & at_boundary
+    return int(flip.sum()), int((differs & ~flip).sum())
+
+
+#: The read and write stacks' comparison rule, card against CPU: an entry
+#: may differ by exactly one grid step (one tCK) where the CPU's own search
+#: reaches the card's value once the cell's r, c and leak are scaled by at
+#: most this relative amount (each by 1 − δ, 1 or 1 + δ): the cell sits on a
+#: decision threshold, within the rounding of the transcendentals.
+SWEEP_BOUNDARY_RTOL = 1e-6
+
+
+def sweep_mismatches(card, host, host_cells, rtol: float = SWEEP_BOUNDARY_RTOL) -> dict:
+    """Entries of the card's read and write stacks that differ from the CPU's
+    (``card``, ``host``: ``SweepResult`` of the same fleet; ``host_cells`` its
+    cells on the CPU): ``{stack: (flips, bad, details)}``, ``flips`` those one
+    tCK apart that a perturbation of the cell by δ ≤ ``rtol`` (tried at
+    ``rtol`` / 10, ``rtol`` · 0.3 and ``rtol``) moves the CPU's search onto,
+    ``bad`` every other one, ``details`` a line each with the smallest δ that
+    reproduces it."""
+    import torch
+
+    from repro_torch.core import charge
+    from repro_torch.kernels.charge_sweep import ops
+
+    signs = torch.cartesian_prod(*[torch.tensor([-1.0, 0.0, 1.0])] * 3)   # (27, 3)
+    out = {}
+    for s_i, name in enumerate(("read", "write")):
+        got, want = getattr(card, name).cpu(), getattr(host, name)
+        flips, bad, details = 0, 0, []
+        for t_i, p_i, n_i, col in (got != want).nonzero().tolist():
+            g, w = float(got[t_i, p_i, n_i, col]), float(want[t_i, p_i, n_i, col])
+            at = None
+            for delta in ((rtol / 10, rtol * 0.3, rtol) if abs(g - w) == TCK_NS else ()):
+                cells = charge.CellParams(*(a[n_i] * (1.0 + delta * signs[:, j])
+                                            for j, a in enumerate(host_cells)))
+                eff = charge.apply_pattern(cells, host.patterns[p_i])
+                if bool((ops.sweep_min_timings(eff, host.temps_c[t_i])[s_i][:, col] == g).any()):
+                    at = delta
+                    break
+            flips, bad = flips + (at is not None), bad + (at is None)
+            details.append(f"{name} {('trcd', 'tras', 'twr', 'trp')[col]} at "
+                           f"{float(host.temps_c[t_i])} °C, pattern "
+                           f"{float(host.patterns[p_i])}, DIMM {n_i}: card {g} ns, CPU {w} "
+                           f"ns, reproduced on the CPU at δ = {at}")
+        out[name] = (flips, bad, details)
+    return out
 
 
 def fail(msg: str) -> None:
@@ -345,22 +441,17 @@ def sweep_evaluations(torch, inv, idx, scal, n_grid, warp: int = 32) -> dict:
                                 steps.to(torch.float64).mean(1)]}
 
 
-def boot_split(torch, dev, serve_fleet, fleet, sweep_ops) -> dict:
-    """Seconds of the serve path's boot by part: ``serve_fleet.bootstrap_table``
-    at ``FULL_DIMMS`` from seed 0, with the device synchronized around the
-    population's synthesis (``fleet.synthesize``), the invariant precompute
-    (``stacked_invariants``) and the search kernel (``search_indices``);
-    ``table`` is the rest of the same run (pattern, indices to ns, the
-    controller's table). Fails if a part was never called, as it would be if
-    the boot path stopped reaching it through the hooked module attribute."""
-    parts = {"synthesis": 0.0, "invariants": 0.0, "kernel": 0.0}
+def time_split(torch, label: str, run, hooks, rest: str) -> dict:
+    """Seconds of ``run()`` by part, the device synchronized around each call
+    of the hooked module attributes (``hooks``: (module, attribute, part));
+    ``rest`` names the remainder of the run. Fails if a part was never
+    called, as it would be if the path stopped reaching it through the
+    hooked attribute."""
+    parts = {part: 0.0 for _, _, part in hooks}
     calls = dict.fromkeys(parts, 0)
-    hooks = ((fleet, "synthesize", "synthesis"),
-             (sweep_ops, "stacked_invariants", "invariants"),
-             (sweep_ops, "search_indices", "kernel"))
 
     def timed(fn, part):
-        def run(*args, **kwargs):
+        def call(*args, **kwargs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
@@ -368,7 +459,7 @@ def boot_split(torch, dev, serve_fleet, fleet, sweep_ops) -> dict:
             parts[part] += time.perf_counter() - t0
             calls[part] += 1
             return out
-        return run
+        return call
 
     originals = [(mod, name, getattr(mod, name)) for mod, name, _ in hooks]
     for mod, name, part in hooks:
@@ -376,16 +467,165 @@ def boot_split(torch, dev, serve_fleet, fleet, sweep_ops) -> dict:
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        serve_fleet.bootstrap_table(torch.Generator(device=dev).manual_seed(0), FULL_DIMMS,
-                                    device=dev)
+        run()
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
     finally:
         for mod, name, fn in originals:
             setattr(mod, name, fn)
     if not all(calls.values()):
-        fail(f"boot split: a part of bootstrap_table was never reached: {calls}")
-    return {**parts, "table": total - sum(parts.values()), "total": total}
+        fail(f"{label} split: a part was never reached: {calls}")
+    return {**parts, rest: total - sum(parts.values()), "total": total}
+
+
+def sweep_hooks(sweep_ops, profiler):
+    """The fleet sweep's parts: the invariant precompute
+    (``stacked_invariants``), the search kernel (``search_indices``) and the
+    joint stack (``profiler.joint_min_timings``)."""
+    return ((sweep_ops, "stacked_invariants", "invariants"),
+            (sweep_ops, "search_indices", "kernel"),
+            (profiler, "joint_min_timings", "joint"))
+
+
+def boot_split(torch, dev, serve_fleet, fleet, sweep_ops, profiler) -> dict:
+    """Seconds of the serve path's boot by part: ``serve_fleet.bootstrap_table``
+    at ``FULL_DIMMS`` from seed 0, split into the population's synthesis
+    (``fleet.synthesize``), the sweep's parts (``sweep_hooks``) and ``table``,
+    the rest (pattern, indices to ns, the controller's table)."""
+    return time_split(
+        torch, "boot",
+        lambda: serve_fleet.bootstrap_table(torch.Generator(device=dev).manual_seed(0),
+                                            FULL_DIMMS, device=dev),
+        ((fleet, "synthesize", "synthesis"),) + sweep_hooks(sweep_ops, profiler), "table")
+
+
+def sweep_card_vs_cpu(fl, temps, patterns) -> dict:
+    """``fleet.sweep`` of the card's fleet ``fl`` on the card and, on a copy,
+    on the CPU: the read and write stacks' threshold flips and other
+    mismatches (``sweep_mismatches``), the joint stack's one-tCK boundary
+    flips and other mismatches (``joint_mismatches`` against the CPU's raw
+    minima), and the largest difference of ``summary()``. Returns both
+    sweeps too."""
+    from repro_torch.core import charge, fleet, profiler
+
+    card = fleet.sweep(fl, temps, patterns)
+    host_cells = charge.CellParams(*(a.cpu() for a in fl.cells))
+    host = fleet.sweep(fleet.Fleet(host_cells, fl.vendor.cpu()), temps, patterns)
+    rw = sweep_mismatches(card, host, host_cells)
+    raw = profiler.joint_raw_timings(charge.CellParams(*(a[None, :] for a in host_cells)),
+                                     host.temps_c[:, None])
+    flips, bad = joint_mismatches(card.joint[:, 0], host.joint[:, 0], raw)
+    sc, sh = card.summary(), host.summary()
+    return {"read_flips": rw["read"][0], "read_bad": rw["read"][1],
+            "write_flips": rw["write"][0], "write_bad": rw["write"][1],
+            "flip_details": rw["read"][2] + rw["write"][2],
+            "joint_flips": flips, "joint_bad": bad,
+            "summary_diff": max(abs(a - b) for t in sh for p in sh[t]
+                                for a, b in zip(sc[t][p], sh[t][p])),
+            "card": card, "host": host}
+
+
+def profiling_phase(torch, dev, zero_counts, read_counts) -> dict:
+    """Phase 15: the profiling path. The main path first — ``fleet.sweep`` of
+    the serve boot's fleet at full width over every default temperature and
+    pattern, every kernel's count read around it, then once more split into
+    its parts — then the controller's table from ``DimmTimingTable.profile``
+    against the sweep's, a JSON round trip, the port on the card against the
+    port on the CPU, and the Fig. 3 report on both. Returns the main path's
+    launches."""
+    from repro_torch.core import charge, controller, fleet, perfmodel, profiler
+    from repro_torch.kernels.charge_sweep import ops as sweep_ops
+
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    fl = fleet.synthesize(gen, FULL_DIMMS, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_bytes = torch.cuda.memory_allocated(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    res = fleet.sweep(fl)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev) - base_bytes
+    cells = res.read.shape[0] * res.read.shape[1] * res.read.shape[2]
+    s55 = res.summary()[55.0]
+    log(f"profiling main path: fleet.sweep of {FULL_DIMMS:,} DIMMs × "
+        f"{len(fleet.DEFAULT_TEMPS_C)} temperatures × {len(fleet.DEFAULT_PATTERNS)} patterns "
+        f"({cells:,} cells): wall {wall * 1e3:.3f} ms, peak device memory above the fleet "
+        f"{peak / 2**30:.3f} GiB, launches {launches}")
+    log("  summary()[55.0] mean reductions against the paper's §1.5: " + ", ".join(
+        f"{p} {s55[p][1]:.4f} (paper {PAPER_55C[p]:.3f})" for p in PAPER_55C))
+    want_l = dict.fromkeys(launches, 0)
+    want_l["charge_sweep"] = 1
+    if launches != want_l:
+        fail(f"profiling main path: launches {launches}, expected {want_l}")
+    stacks = (res.read, res.write, res.joint)
+    if not all(tuple(x.shape) == (5, 4, FULL_DIMMS, 4) and bool(torch.isfinite(x).all())
+               for x in stacks):
+        fail("profiling main path: a stack of the wrong shape or with a non-finite entry")
+    if any(abs(s55[p][1] - v) > PAPER_TOL for p, v in PAPER_55C.items()):
+        fail(f"profiling main path: 55 °C means outside the paper's ±{PAPER_TOL} window")
+    del res, stacks
+    split = time_split(torch, "profiling", lambda: fleet.sweep(fl),
+                       sweep_hooks(sweep_ops, profiler), "rest")
+    log("  the same sweep again, synchronized between parts (rest: pattern, indices to "
+        "ns, stacking): " + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in split.items()))
+
+    table = controller.DimmTimingTable.profile(fl.cells, BOOT_BINS)
+    same = table == fleet.sweep(fl, BOOT_BINS, (1.0,)).to_table()
+    part = controller.DimmTimingTable(table.temp_bins, table.stack[:JSON_SLICE_DIMMS])
+    text = part.to_json()
+    again = controller.DimmTimingTable.from_json(text, device=dev)
+    log(f"DimmTimingTable.profile == fleet.sweep(...).to_table() at {FULL_DIMMS:,} DIMMs: "
+        f"{same}; JSON round trip of {JSON_SLICE_DIMMS:,} DIMMs ({len(text):,} bytes, "
+        f"schema v{controller.TABLE_SCHEMA_VERSION}): equal={again == part}")
+    if not same or again != part:
+        fail("the profiled table or its JSON round trip differs")
+    del table, part, again, fl
+
+    small = fleet.synthesize(torch.Generator(device=dev).manual_seed(0), PROFILE_CHECK_DIMMS,
+                             device=dev)
+    cmp = sweep_card_vs_cpu(small, fleet.DEFAULT_TEMPS_C, fleet.DEFAULT_PATTERNS)
+    host_cells = charge.CellParams(*(a.cpu() for a in small.cells))
+    f_card = profiler.fig2_summary(small.cells, 55.0)
+    f_host = profiler.fig2_summary(host_cells, 55.0)
+    normals = torch.randn((REPEAT_TRIALS, PROFILE_CHECK_DIMMS), generator=gen, device=dev)
+    r_card = profiler.repeatability_from_normals(normals, small.cells, 55.0)
+    r_host = profiler.repeatability_from_normals(normals.cpu(), host_cells, 55.0)
+    fig2_diff = max(abs(f_card[k] - f_host[k]) for k in f_host)
+    rep_diff = max(abs(r_card[k] - r_host[k]) for k in r_host)
+    n_entries = cmp["host"].read.numel()
+    log(f"profiling {PROFILE_CHECK_DIMMS:,} DIMMs × 5 × 4, card vs CPU, of {n_entries:,} "
+        f"entries a stack: read and write entries one grid step apart at a decision "
+        f"threshold {cmp['read_flips']} and {cmp['write_flips']}, other mismatches "
+        f"{cmp['read_bad']} and {cmp['write_bad']}; joint entries one tCK apart at a cycle "
+        f"boundary {cmp['joint_flips']}, other joint mismatches {cmp['joint_bad']}; largest "
+        f"difference of summary() {cmp['summary_diff']:.3e}, of fig2_summary(55 °C) "
+        f"{fig2_diff:.3e}, of repeatability on the same draws {rep_diff:.3e} "
+        f"(repeat fraction {r_card['repeat_fraction']:.5f})")
+    for line in cmp["flip_details"]:
+        log(f"  {line}")
+    if (cmp["read_bad"] or cmp["write_bad"] or cmp["joint_bad"]
+            or cmp["summary_diff"] > MEAN_TOL or fig2_diff > MEAN_TOL or rep_diff > MEAN_TOL):
+        fail("the profiling path on the card disagrees with the CPU")
+    del cmp
+
+    worst = 0.0
+    for name in ("SINGLE_CORE", "MULTI_CORE"):
+        cfg = getattr(perfmodel, name)
+        card_r = perfmodel.speedup_report(cfg, device=dev)
+        host_r = perfmodel.speedup_report(cfg, device="cpu")
+        worst = max([worst] + [abs(card_r[k] - host_r[k]) for k in host_r])
+        log(f"Fig. 3 report, {name}, on the card: " + json.dumps(card_r))
+        if not all(math.isfinite(v) for v in card_r.values()):
+            fail(f"Fig. 3 report {name}: a non-finite figure")
+    log(f"  multi-core memory-intensive geomean {card_r['intensive_geomean']:.6f} beside the "
+        f"paper's {PAPER_INTENSIVE:.3f}; card vs CPU largest difference {worst:.3e}")
+    if worst > REPORT_TOL:
+        fail("the Fig. 3 report on the card disagrees with the CPU")
+    return launches
 
 
 def flash_attention_phase(torch, dev, gen, fa_k):
@@ -822,7 +1062,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a GPU")
     try:
-        from repro_torch.core import charge, controller, fleet, perfmodel, stream
+        from repro_torch.core import charge, controller, fleet, perfmodel, profiler, stream
         from repro_torch.kernels import _build
         from repro_torch.kernels.charge_sweep import kernel as sweep_k
         from repro_torch.kernels.charge_sweep import ops as sweep_ops
@@ -1124,7 +1364,7 @@ def main() -> None:
         fail("non-finite score figure")
     if {m.split(".")[0] for m in sys.modules} & {"jax", "jaxlib", "repro"}:
         fail("the port imported JAX or the JAX package")
-    boot = boot_split(torch, dev, serve_fleet, fleet, sweep_ops)
+    boot = boot_split(torch, dev, serve_fleet, fleet, sweep_ops, profiler)
     log(f"serve boot split (bootstrap_table again, synchronized between parts): "
         + ", ".join(f"{k} {v:.4f} s" for k, v in boot.items())
         + f"; the main path's boot_s {report['boot_s']:.4f} s")
@@ -1323,10 +1563,15 @@ def main() -> None:
     if {m.split(".")[0] for m in sys.modules} & {"jax", "jaxlib", "repro"}:
         fail("the port imported JAX or the JAX package")
 
-    # ---- 15. summary -----------------------------------------------------------
+    # ---- 15. the profiling path --------------------------------------------------
+    prof_launches = profiling_phase(torch, dev, zero_counts, read_counts)
+    if {m.split(".")[0] for m in sys.modules} & {"jax", "jaxlib", "repro"}:
+        fail("the port imported JAX or the JAX package")
+
+    # ---- 16. summary -----------------------------------------------------------
     by_path = {"serve": launches, "trace_eval": {
         k: sum(v[k] for v in eval_launches.values()) for k in counters},
-        "lm_serve": lm["launches"], "altune": alt_launches}
+        "lm_serve": lm["launches"], "altune": alt_launches, "profile": prof_launches}
 
     def counted(name: str) -> dict:
         """Launches of one kernel on each main path, as read around it."""

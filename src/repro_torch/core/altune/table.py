@@ -41,14 +41,28 @@ class TimingTable:
                 return self.entries[key]
         return None
 
+    # -- fleet consumption --------------------------------------------------
     @classmethod
     def from_fleet(cls, result, vendor=None, kernel: str = "dram_timing") -> "TimingTable":
-        """Not ported yet: it reads ``SweepResult.table_entries`` and the
-        profiler's stacked reductions, which the port lacks (ROADMAP queue 1,
-        item 8)."""
-        raise NotImplementedError(
-            "TimingTable.from_fleet needs SweepResult.table_entries and "
-            "profiler.stack_reductions, not ported yet (ROADMAP queue 1, item 8)")
+        """Ingest a :class:`repro_torch.core.fleet.SweepResult` as controller
+        registers: one entry per (DIMM, temperature bin, access type),
+        condition-binned ``T{temp}:{read|write}``, device-binned by vendor,
+        margin = that set's mean fractional reduction vs JEDEC (through
+        ``SweepResult.table_entries``, a host-side generator: small fleets)."""
+        from repro_torch.core.timing import PARAM_NAMES
+
+        vendors = [int(v) for v in vendor.tolist()] if vendor is not None else None
+        table = cls()
+        for _b, t, i, access, timings, margin in result.table_entries():
+            table.put(
+                kernel,
+                f"dimm{i:05d}",
+                f"vendor{vendors[i] if vendors else 0}",
+                f"T{t:g}:{access}",
+                dict(zip(PARAM_NAMES, timings)),
+                margin,
+            )
+        return table
 
     # -- persistence --------------------------------------------------------
     def save(self, path: str | pathlib.Path) -> None:

@@ -9,9 +9,10 @@ worst-case cell at 85 °C needs exactly the JEDEC DDR3-1600 value.
 Numerics follow the reference, which runs in float32: Python-float
 constants fold in float64 and meet float32 tensors as float32 scalars, and
 each tensor op rounds once. Two torch idioms would break that and are
-avoided here: ``scalar / tensor`` (torch evaluates it as
-``reciprocal(tensor) * scalar``, see :func:`div`) and int64/float64
-defaults of tensor factories. Transcendentals (``exp``, ``log``, ``pow``)
+avoided here: a division with a Python-float operand (torch evaluates
+``scalar / tensor`` as ``reciprocal(tensor) * scalar``, and on CUDA
+``tensor / scalar`` as a product with the reciprocal; see :func:`div`) and
+int64/float64 defaults of tensor factories. Transcendentals (``exp``, ``log``, ``pow``)
 are the backend's own and may differ from XLA's by an ulp; the tests hold
 the derived quantities to a tolerance and the decisions to exact equality.
 """
@@ -55,14 +56,17 @@ class CellParams(NamedTuple):
     leak: torch.Tensor
 
 
-def div(num, den: torch.Tensor) -> torch.Tensor:
-    """``num / den`` as ONE rounded float32 division, also for a Python-float
-    numerator (torch's ``float / tensor`` is ``reciprocal(den) * num``,
-    which rounds twice). A Python numerator becomes a 0-d float32 tensor
-    by a fill on ``den``'s device, not a host-to-device copy, which would
-    wait for the device."""
+def div(num, den) -> torch.Tensor:
+    """``num / den`` as ONE rounded float32 division on every device, also
+    for a Python-float numerator or denominator. torch rounds twice there:
+    ``float / tensor`` is ``reciprocal(den) * num``, and on CUDA
+    ``tensor / float`` is ``num * (1 / den)``. A Python operand becomes a
+    0-d float32 tensor by a fill on the other operand's device, not a
+    host-to-device copy, which would wait for the device."""
     if not isinstance(num, torch.Tensor):
         num = torch.full((), num, dtype=torch.float32, device=den.device)
+    elif not isinstance(den, torch.Tensor):
+        den = torch.full((), den, dtype=torch.float32, device=num.device)
     return torch.div(num, den)
 
 
@@ -142,6 +146,23 @@ class ChargeModelConstants:
             self.v_half_swing / self.delta_floor,
         )
 
+    def validate(self) -> None:
+        """Raise ``ValueError`` unless the constants describe a physical cell
+        (the reference's checks, without its region span, which the port
+        does not carry yet: ROADMAP item 1)."""
+        checks = (
+            ("0 < ret85 < 1", 0.0 < self.ret85 < 1.0),
+            ("0 < c_min < 1 and r_max > 1", 0.0 < self.c_min < 1.0 and self.r_max > 1.0),
+            ("v_restore_start < v_full < v_overdrive",
+             self.v_restore_start < self.v_full < self.v_overdrive),
+            ("0 < dv_floor < v_sense_target", 0.0 < self.dv_floor < self.v_sense_target),
+            ("every time constant > 0", min(self.tau_sa, self.tau_restore,
+                                            self.tau_write, self.tau_bl) > 0.0),
+        )
+        failed = [name for name, ok in checks if not ok]
+        if failed:
+            raise ValueError(f"charge-model constants violate: {failed}")
+
 
 DEFAULT_CONSTANTS = ChargeModelConstants()
 
@@ -162,7 +183,7 @@ def log_retention(cell: CellParams, temp_c, window_s: float = REFRESH_WINDOW_S,
                   consts: ChargeModelConstants = DEFAULT_CONSTANTS) -> torch.Tensor:
     """log charge fraction retained over one refresh window at ``temp_c``."""
     t = _temp(temp_c, cell.leak)
-    temp_scale = 2.0 ** ((t - T_WORST_C) / consts.leak_doubling_c)
+    temp_scale = 2.0 ** div(t - T_WORST_C, consts.leak_doubling_c)
     return (
         _f32_log(consts.ret85)
         * cell.leak
@@ -181,13 +202,13 @@ def drive_factor(temp_c, like: torch.Tensor,
                  consts: ChargeModelConstants = DEFAULT_CONSTANTS) -> torch.Tensor:
     """Write-driver speed factor ``(T_abs / 358.15 K)^mobility_exp``."""
     t_abs = _temp(temp_c, like) + 273.15
-    return (t_abs / (T_WORST_C + 273.15)) ** consts.mobility_exp
+    return div(t_abs, T_WORST_C + 273.15) ** consts.mobility_exp
 
 
 def quality_index(cell: CellParams,
                   consts: ChargeModelConstants = DEFAULT_CONSTANTS) -> torch.Tensor:
     """Peripheral quality q in [0, 1]: 0 = JEDEC corner, 1 = best silicon."""
-    return (consts.r_max - cell.r) / (consts.r_max - 1.0)
+    return div(consts.r_max - cell.r, consts.r_max - 1.0)
 
 
 def apply_pattern(cell: CellParams, pattern) -> CellParams:
@@ -211,6 +232,15 @@ def sense_time(cell: CellParams, dv0: torch.Tensor,
     return cell.r * consts.tau_sa * torch.log(div(consts.v_sense_target, dv0))
 
 
+def min_trcd(cell: CellParams, temp_c, v_restored=None, window_s: float = REFRESH_WINDOW_S,
+             consts: ChargeModelConstants = DEFAULT_CONSTANTS) -> torch.Tensor:
+    """Minimal safe tRCD (ns); ``v_restored`` defaults to a full restore
+    (the individual profiling mode, other timings at JEDEC)."""
+    v = consts.v_full if v_restored is None else v_restored
+    dv0 = sense_dv0(cell, temp_c, v, window_s, consts)
+    return consts.ovh_rcd + sense_time(cell, dv0, consts)
+
+
 def restore_target(cell: CellParams, temp_c, window_s: float = REFRESH_WINDOW_S,
                    consts: ChargeModelConstants = DEFAULT_CONSTANTS) -> torch.Tensor:
     """Smallest restored voltage whose end-of-window differential still
@@ -221,17 +251,66 @@ def restore_target(cell: CellParams, temp_c, window_s: float = REFRESH_WINDOW_S,
     return torch.clamp(v_needed, lo, consts.v_full)
 
 
+def restore_time(cell: CellParams, v_tgt: torch.Tensor,
+                 consts: ChargeModelConstants = DEFAULT_CONSTANTS) -> torch.Tensor:
+    """Restore time from the post-latch level to ``v_tgt``."""
+    return cell.r * consts.tau_restore * torch.log(
+        div(1.0 - consts.v_restore_start, 1.0 - v_tgt)
+    )
+
+
+def min_tras(cell: CellParams, temp_c, window_s: float = REFRESH_WINDOW_S,
+             consts: ChargeModelConstants = DEFAULT_CONSTANTS,
+             v_tgt: torch.Tensor | None = None) -> torch.Tensor:
+    """Minimal safe tRAS (ns): sensing from a full restore, then restore to
+    the adaptive target (or ``v_tgt``)."""
+    dv0 = sense_dv0(cell, temp_c, consts.v_full, window_s, consts)
+    if v_tgt is None:
+        v_tgt = restore_target(cell, temp_c, window_s, consts)
+    return consts.ovh_ras + sense_time(cell, dv0, consts) + restore_time(cell, v_tgt, consts)
+
+
+def write_time(cell: CellParams, v_tgt: torch.Tensor, temp_c,
+               consts: ChargeModelConstants = DEFAULT_CONSTANTS) -> torch.Tensor:
+    """Write-driver time from the opposite rail to ``v_tgt``."""
+    return (
+        cell.r
+        * consts.tau_write
+        * drive_factor(temp_c, cell.r, consts)
+        * torch.log(div(consts.v_overdrive, consts.v_overdrive - v_tgt))
+    )
+
+
+def min_twr(cell: CellParams, temp_c, window_s: float = REFRESH_WINDOW_S,
+            consts: ChargeModelConstants = DEFAULT_CONSTANTS,
+            v_tgt: torch.Tensor | None = None) -> torch.Tensor:
+    """Minimal safe tWR (ns): drive the cell to the adaptive target."""
+    if v_tgt is None:
+        v_tgt = restore_target(cell, temp_c, window_s, consts)
+    return consts.ovh_wr + write_time(cell, v_tgt, temp_c, consts)
+
+
 def tolerable_residual(cell: CellParams, temp_c,
                        consts: ChargeModelConstants = DEFAULT_CONSTANTS) -> torch.Tensor:
     """Bitline residual the next access can overcome."""
     q = quality_index(cell, consts)
-    dt = (T_WORST_C - _temp(temp_c, cell.r)) / 30.0
+    dt = div(T_WORST_C - _temp(temp_c, cell.r), 30.0)
     return consts.delta_floor * torch.exp(consts.pc_var * q + consts.pc_temp * dt)
+
+
+def min_trp(cell: CellParams, temp_c, window_s: float = REFRESH_WINDOW_S,
+            consts: ChargeModelConstants = DEFAULT_CONSTANTS) -> torch.Tensor:
+    """Minimal safe tRP (ns); it does not depend on the restore."""
+    delta = torch.clamp(tolerable_residual(cell, temp_c, consts),
+                        max=0.4 * consts.v_half_swing)
+    return consts.ovh_rp + cell.r * consts.tau_bl * torch.log(
+        div(consts.v_half_swing, delta)
+    )
 
 
 def _wm_dv0(cell: CellParams, temp_c, window_s: float,
             consts: ChargeModelConstants) -> torch.Tensor:
-    dt = (T_WORST_C - _temp(temp_c, cell.r)) / 30.0
+    dt = div(T_WORST_C - _temp(temp_c, cell.r), 30.0)
     dv0 = sense_dv0(cell, temp_c, consts.v_full, window_s, consts)
     dv0 = dv0 * consts.wm_gain_rcd * torch.exp(consts.wm_temp * dt)
     return torch.clamp(dv0, max=consts.v_sense_target * 0.95)
@@ -250,6 +329,31 @@ def min_trp_write(cell: CellParams, temp_c, window_s: float = REFRESH_WINDOW_S,
     delta = torch.clamp(delta, max=0.4 * consts.v_half_swing)
     return consts.ovh_rp + cell.r * consts.tau_bl * torch.log(
         div(consts.v_half_swing, delta)
+    )
+
+
+def restore_under_write_time(cell: CellParams, v_tgt: torch.Tensor, temp_c,
+                             consts: ChargeModelConstants = DEFAULT_CONSTANTS) -> torch.Tensor:
+    """Row-restore time when the write driver overdrives the restore, from
+    the post-latch level to ``v_tgt`` (the write-mode tRAS channel)."""
+    tau = cell.r * consts.tau_write * drive_factor(temp_c, cell.r, consts)
+    return tau * torch.log(
+        div(consts.v_overdrive - consts.v_restore_start, consts.v_overdrive - v_tgt)
+    )
+
+
+def min_tras_write(cell: CellParams, temp_c, window_s: float = REFRESH_WINDOW_S,
+                   consts: ChargeModelConstants = DEFAULT_CONSTANTS,
+                   v_tgt: torch.Tensor | None = None) -> torch.Tensor:
+    """Minimal safe tRAS for a write access (ns): write-assisted sensing,
+    then restore under write drive to the adaptive target."""
+    dv0 = _wm_dv0(cell, temp_c, window_s, consts)
+    if v_tgt is None:
+        v_tgt = restore_target(cell, temp_c, window_s, consts)
+    return (
+        consts.ovh_ras
+        + sense_time(cell, dv0, consts)
+        + restore_under_write_time(cell, v_tgt, temp_c, consts)
     )
 
 

@@ -23,15 +23,20 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Sequence, Tuple
+import json
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
+from repro_torch.core import charge
 from repro_torch.core.binning import advance_bin, bin_index
+from repro_torch.core.charge import CellParams, ChargeModelConstants, DEFAULT_CONSTANTS
 from repro_torch.core.refresh import BinRefresh, RefreshPolicy, bin_refresh as _bin_refresh
 from repro_torch.core.timing import (
     ACCESS_TYPES,
+    JEDEC_ACCESS,
     JEDEC_DDR3_1600,
     PARAM_NAMES,
     AccessTimings,
@@ -49,14 +54,18 @@ GUARD_BAND_C: float = 5.0
 HYSTERESIS_C: float = 2.0
 HYSTERESIS_STEPS: int = 3
 
+#: Persisted-table format version, the reference's: v1 nested per-DIMM
+#: lists of merged timing dicts, v2 one merged ``(N, B, 4)`` stack, v3 the
+#: per-access ``(N, B, 2, 4)`` stack, v4 adds the refresh policy
+#: (nullable), v5 the region axis (``(N, B, n_regions, 2, 4)`` and
+#: ``"n_regions"``). :meth:`DimmTimingTable.from_json` reads all five;
+#: :meth:`DimmTimingTable.to_json` writes v5 with one region.
+TABLE_SCHEMA_VERSION: int = 5
+
 #: JEDEC (2, 4) sentinel rows, selected beyond the last bin or after a fuse.
 JEDEC_ROWS: Tuple[Tuple[float, ...], ...] = (
     tuple(getattr(JEDEC_DDR3_1600, p) for p in PARAM_NAMES),
 ) * len(ACCESS_TYPES)
-
-
-#: JEDEC for both access types: the sets a fused or too-hot DIMM programs.
-JEDEC_ACCESS = AccessTimings(read=JEDEC_DDR3_1600, write=JEDEC_DDR3_1600)
 
 
 def jedec_rows(device: str | torch.device) -> torch.Tensor:
@@ -91,7 +100,8 @@ class DimmTimingTable:
         self.stack = torch.as_tensor(self.stack, dtype=torch.float32)
         if self.stack.dim() == 5:
             raise NotImplementedError(
-                "regions (sweep_regions, schema v5) are not ported yet"
+                "regions (sweep_regions, rank-5 schema-v5 tables) are not ported "
+                "yet (ROADMAP queue 1, item 1)"
             )
         tail = (len(ACCESS_TYPES), len(PARAM_NAMES))
         if self.stack.dim() != 4 or tuple(self.stack.shape[1:]) != (self.n_bins,) + tail:
@@ -116,6 +126,14 @@ class DimmTimingTable:
     @property
     def device(self) -> torch.device:
         return self.stack.device
+
+    def __eq__(self, other: object) -> bool:
+        return (
+            isinstance(other, DimmTimingTable)
+            and self.temp_bins == other.temp_bins
+            and self.refresh == other.refresh
+            and torch.equal(self.stack, other.stack.to(self.stack.device))
+        )
 
     def oblivious_stack(self) -> torch.Tensor:
         """The ``(n_dimms, n_bins, 2, 4)`` registers (region-free tables
@@ -145,6 +163,127 @@ class DimmTimingTable:
     def to(self, device: str | torch.device) -> "DimmTimingTable":
         """The same registers and policy on ``device``."""
         return DimmTimingTable(self.temp_bins, self.stack.to(device), self.refresh)
+
+    @property
+    def sets(self) -> List[List[AccessTimings]]:
+        """Nested-list view ``sets[dimm][bin]`` for per-DIMM consumers (the
+        storage is :attr:`stack`)."""
+        return [[access_timings(block) for block in per_dimm]
+                for per_dimm in self.stack.tolist()]
+
+    @classmethod
+    def profile(
+        cls,
+        cells: CellParams,
+        temp_bins: Sequence[float] = DEFAULT_TEMP_BINS,
+        window_s: float = charge.REFRESH_WINDOW_S,
+        consts: ChargeModelConstants = DEFAULT_CONSTANTS,
+        refresh: Optional[RefreshPolicy] = None,
+        n_regions: int = 1,
+    ) -> "DimmTimingTable":
+        """Boot-time profiling: one fleet sweep over every bin at the
+        worst-case pattern, on the cells' device, programming each access
+        type at its own profiled margin."""
+        from repro_torch.core import fleet as fleet_mod
+
+        if n_regions < 1:
+            raise ValueError(f"n_regions must be >= 1, got {n_regions}")
+        if n_regions > 1:
+            raise NotImplementedError(
+                "per-region profiling (n_regions > 1: fleet.sweep_regions, rank-5 "
+                "tables) is not ported yet (ROADMAP queue 1, item 1)")
+        result = fleet_mod.sweep(cells, temps_c=tuple(temp_bins), patterns=(1.0,),
+                                 window_s=window_s, consts=consts)
+        return cls.from_fleet(result, temp_bins=temp_bins, refresh=refresh)
+
+    @classmethod
+    def from_sets(
+        cls,
+        temp_bins: Sequence[float],
+        sets: Sequence[Sequence[TimingParams | AccessTimings]],
+        device: str | torch.device = "cuda",
+    ) -> "DimmTimingTable":
+        """Build from nested per-DIMM timing-set lists, on ``device``. A plain
+        :class:`TimingParams` (the v1 merged layout) goes into both access
+        slots; :class:`AccessTimings` keeps its split sets. Entries are
+        matched by field name, so the reference's timing classes work too."""
+        def block(entry):
+            pair = (entry, entry) if not hasattr(entry, "read") else (entry.read, entry.write)
+            return [[float(getattr(t, p)) for p in PARAM_NAMES] for t in pair]
+
+        stack = torch.tensor([[block(t) for t in per_dimm] for per_dimm in sets],
+                             dtype=torch.float32, device=resolve_device(device))
+        return cls(temp_bins=tuple(float(t) for t in temp_bins), stack=stack)
+
+    # -- persistence (the controller's registers survive a reboot) -----------
+    def to_json(self) -> str:
+        """The table as schema-v5 JSON, the reference's layout: a
+        region-explicit ``(N, B, 1, 2, 4)`` stack and ``n_regions`` 1."""
+        refresh = None
+        if self.refresh is not None:
+            refresh = {
+                "boundaries": list(self.refresh.boundaries),
+                "multipliers": list(self.refresh.multipliers),
+                "trefi_base_ns": self.refresh.trefi_base_ns,
+                "trfc_ns": self.refresh.trfc_ns,
+            }
+        return json.dumps({
+            "schema_version": TABLE_SCHEMA_VERSION,
+            "params": list(PARAM_NAMES),
+            "access_types": list(ACCESS_TYPES),
+            "temp_bins": list(self.temp_bins),
+            "n_regions": 1,
+            "stack": self.stack[:, :, None].tolist(),
+            "refresh": refresh,
+        })
+
+    @classmethod
+    def from_json(cls, text: str, device: str | torch.device = "cuda") -> "DimmTimingTable":
+        """Load a table of schema v1–v5 onto ``device``: v1/v2 merged sets go
+        into both access slots, pre-v4 files have no refresh policy, and a
+        v5 file must carry one region (more raise ``NotImplementedError``:
+        ROADMAP queue 1, item 1)."""
+        obj = json.loads(text)
+        version = obj.get("schema_version", 1)
+        dev = resolve_device(device)
+        if version == 1:
+            return cls.from_sets(
+                obj["temp_bins"],
+                [[TimingParams(**d) for d in per_dimm] for per_dimm in obj["sets"]],
+                device=dev,
+            )
+        if version not in (2, 3, 4, 5):
+            raise ValueError(f"unknown DimmTimingTable schema_version {version!r}")
+        if obj.get("params", list(PARAM_NAMES)) != list(PARAM_NAMES):
+            raise ValueError(f"persisted parameter order {obj['params']} does not "
+                             f"match {list(PARAM_NAMES)}")
+        stack = torch.tensor(obj["stack"], dtype=torch.float32, device=dev)
+        if version == 2:
+            return cls(temp_bins=tuple(obj["temp_bins"]),
+                       stack=stack[:, :, None, :].repeat(1, 1, len(ACCESS_TYPES), 1))
+        if obj.get("access_types", list(ACCESS_TYPES)) != list(ACCESS_TYPES):
+            raise ValueError(f"persisted access-type order {obj['access_types']} does "
+                             f"not match {list(ACCESS_TYPES)}")
+        refresh = None
+        if version >= 4 and obj.get("refresh") is not None:
+            r = obj["refresh"]
+            refresh = RefreshPolicy(
+                boundaries=tuple(float(b) for b in r["boundaries"]),
+                multipliers=tuple(float(m) for m in r["multipliers"]),
+                trefi_base_ns=float(r["trefi_base_ns"]),
+                trfc_ns=float(r["trfc_ns"]),
+            )
+        if version == 5:
+            n_regions = int(obj.get("n_regions", 1))
+            if stack.dim() != 5 or stack.shape[2] != n_regions:
+                raise ValueError(f"v5 stack shape {tuple(stack.shape)} does not carry the "
+                                 f"declared n_regions={n_regions} region axis")
+            if n_regions != 1:
+                raise NotImplementedError(
+                    f"a v5 table with n_regions={n_regions} needs rank-5 region "
+                    "tables, not ported yet (ROADMAP queue 1, item 1)")
+            stack = stack[:, :, 0]
+        return cls(temp_bins=tuple(obj["temp_bins"]), stack=stack, refresh=refresh)
 
     @classmethod
     def from_fleet(cls, result, temp_bins: Optional[Sequence[float]] = None,

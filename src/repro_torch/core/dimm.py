@@ -12,15 +12,16 @@ reference's threefry bits).
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.charge import CellParams, ChargeModelConstants, DEFAULT_CONSTANTS
 
-#: Paper population: 115 modules from 3 manufacturers.
+#: Paper population: 115 modules, 862 chips, 3 manufacturers.
 N_DIMMS: int = 115
+N_CHIPS: int = 862
 VENDOR_SPLIT: Tuple[int, int, int] = (40, 40, 35)
 
 GapSpec = Tuple[float, float, float]  # (floor, scale, shape)
@@ -98,3 +99,25 @@ def sample_population(
         for n in split
     ]
     return population_from_uniforms(uniforms, vendors, consts)
+
+
+def worst_case_cell(consts: ChargeModelConstants = DEFAULT_CONSTANTS,
+                    device: str | torch.device = "cuda") -> CellParams:
+    """The JEDEC provisioning corner: the cell the standard is sized for,
+    as 0-d float32 tensors on ``device``."""
+    dev = resolve_device(device)
+    return CellParams(*(torch.full((), v, dtype=torch.float32, device=dev)
+                        for v in (consts.r_max, consts.c_min, 1.0)))
+
+
+def population_summary(cells: CellParams) -> Dict[str, float]:
+    """Means and extremes of a population's worst-cell parameters."""
+    return {
+        "r_mean": float(cells.r.mean()),
+        "r_max": float(cells.r.max()),
+        "c_mean": float(cells.c.mean()),
+        "c_min": float(cells.c.min()),
+        "leak_mean": float(cells.leak.mean()),
+        "leak_max": float(cells.leak.max()),
+        "n": int(cells.r.shape[0]),
+    }

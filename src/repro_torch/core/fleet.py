@@ -5,21 +5,25 @@ A fleet is struct-of-arrays (:class:`Fleet`): one tensor per physical
 quantity over the DIMM axis. :func:`sweep` broadcasts the cells against
 the temperature and pattern grids, hoists the per-cell invariants and runs
 all seven min-safe searches of every grid point in ONE call of the fused
-search (the CUDA kernel for a fleet on the card). :class:`SweepResult`
-holds the ``(T, P, N, 4)`` read and write stacks and hands the per-access
-sets at the guarantee pattern to the controller's
+search (the CUDA kernel for a fleet on the card); the joint stack, which
+has no search, is the closed form once per temperature, broadcast over the
+patterns. :class:`SweepResult` holds the ``(T, P, N, 4)`` read, write and
+joint stacks, their reductions and the paper-style summary, and hands the
+per-access sets at the guarantee pattern to the controller's
 :class:`~repro_torch.core.controller.DimmTimingTable`.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+import warnings
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import charge, dimm
+from repro_torch.core import charge, dimm, profiler
 from repro_torch.core.charge import CellParams, ChargeModelConstants, DEFAULT_CONSTANTS
+from repro_torch.core.timing import ACCESS_TYPES, PARAM_NAMES
 from repro_torch.kernels.charge_sweep import ops as charge_sweep
 
 #: Default characterization temperatures (°C).
@@ -38,6 +42,18 @@ class Fleet(NamedTuple):
     @property
     def n_dimms(self) -> int:
         return int(self.cells.r.shape[0])
+
+    def take(self, idx) -> "Fleet":
+        """Sub-fleet selection (the same layout, every field)."""
+        return Fleet(cells=CellParams(*(a[idx] for a in self.cells)), vendor=self.vendor[idx])
+
+
+def from_population(cells: CellParams, vendor: torch.Tensor | None = None) -> Fleet:
+    """Wrap a sampled population as a fleet (vendor 0 for every DIMM unless
+    ``vendor`` is given)."""
+    if vendor is None:
+        vendor = torch.zeros(cells.r.shape, dtype=torch.int32, device=cells.r.device)
+    return Fleet(cells=cells, vendor=vendor)
 
 
 def vendor_split(n_dimms: int) -> Tuple[int, ...]:
@@ -71,16 +87,35 @@ class SweepResult(NamedTuple):
     patterns: torch.Tensor  # (P,)
     read: torch.Tensor      # (T, P, N, 4) read-mode minima
     write: torch.Tensor     # (T, P, N, 4) write-mode minima
+    joint: torch.Tensor     # (T, P, N, 4) simultaneous-reduction minima
     #: The caller's exact Python temperatures (bin edges come from here).
     temps_exact: Tuple[float, ...] = ()
 
     def bin_edges(self) -> Tuple[float, ...]:
         return self.temps_exact or tuple(float(t) for t in self.temps_c.tolist())
 
+    # -- reductions ---------------------------------------------------------
+    @property
+    def read_reductions(self) -> torch.Tensor:
+        return profiler.stack_reductions(self.read)
+
+    @property
+    def write_reductions(self) -> torch.Tensor:
+        return profiler.stack_reductions(self.write)
+
+    @property
+    def joint_reductions(self) -> torch.Tensor:
+        return profiler.stack_reductions(self.joint)
+
+    # -- controller-facing views -------------------------------------------
+    def worst_pattern_idx(self) -> int:
+        """Index of the guarantee pattern (smallest margin factor)."""
+        return int(torch.argmin(self.patterns))
+
     def _guarantee_pattern_idx(self) -> int:
         """Worst-pattern index, refusing sweeps that never tested the
         guarantee pattern (margin factor 1.0)."""
-        p = int(torch.argmin(self.patterns))
+        p = self.worst_pattern_idx()
         worst = float(self.patterns[p])
         if worst > 1.0:
             raise ValueError(
@@ -95,11 +130,15 @@ class SweepResult(NamedTuple):
         return self.read[:, self._guarantee_pattern_idx()]
 
     def write_timings(self) -> torch.Tensor:
-        """(T, N, 4) write-access sets at the worst-case pattern."""
+        """(T, N, 4) write-access sets at the worst-case pattern; refuses a
+        sweep that carries the untested-tRAS sentinel."""
         w = self.write[:, self._guarantee_pattern_idx()]
         if bool((w < 0.0).any()):
-            raise ValueError("write-mode sweep carries an untested (negative) "
-                             "entry: refusing to program it")
+            raise ValueError(
+                "write-mode sweep carries the untested-tRAS sentinel "
+                f"({profiler.WRITE_TRAS_UNTESTED_NS} ns): re-sweep with "
+                "tras_mode='profiled' before programming write registers"
+            )
         return w
 
     def stacked_timings(self) -> torch.Tensor:
@@ -107,11 +146,62 @@ class SweepResult(NamedTuple):
         pattern: what :class:`DimmTimingTable` ingests."""
         return torch.stack([self.read_timings(), self.write_timings()], dim=-2)
 
+    def merged_timings(self) -> torch.Tensor:
+        """(T, N, 4) elementwise max of the read and write sets at the
+        worst-case pattern.
+
+        .. deprecated::
+            Compat shim for single-register-set consumers: the merge gives
+            each parameter its slower mode's requirement. Program the
+            per-access-type sets (:meth:`stacked_timings`) instead."""
+        warnings.warn(
+            "SweepResult.merged_timings() is a deprecated compat shim for "
+            "single-register-set consumers: it programs the elementwise max "
+            "of the read/write sets, re-inheriting each parameter's slower-"
+            "mode conservatism. Program the per-access-type sets instead "
+            "(stacked_timings() / read_timings() / write_timings()).",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        return torch.maximum(self.read_timings(), self.write_timings())
+
+    def table_entries(self):
+        """Iterate ``(bin_idx, temp_c, dimm_idx, access_type, [trcd, tras,
+        twr, trp], margin)`` over the per-access-type sets at the worst
+        pattern; ``margin`` is that set's mean fractional reduction vs
+        JEDEC. A Python generator for per-entry consumers (altune's
+        ``TimingTable.from_fleet``); it copies the stacks to the host, so
+        keep it to small fleets."""
+        stacked = self.stacked_timings()                          # (T, N, 2, 4)
+        grid = stacked.tolist()
+        margins = profiler.stack_reductions(stacked).mean(dim=-1).tolist()
+        for b, t in enumerate(self.bin_edges()):
+            for i, per_access in enumerate(grid[b]):
+                for a, access in enumerate(ACCESS_TYPES):
+                    yield b, t, i, access, per_access[a], margins[b][i][a]
+
     def to_table(self):
         """Build the controller's :class:`DimmTimingTable` from the sweep."""
         from repro_torch.core.controller import DimmTimingTable
 
         return DimmTimingTable.from_fleet(self)
+
+    # -- paper-style aggregates --------------------------------------------
+    def summary(self) -> Dict[float, Dict[str, Tuple[float, float, float]]]:
+        """Per temperature, per parameter: the (min, mean, max) fractional
+        reduction across the fleet at the worst-case pattern, tWR from the
+        write test (the paper's headline figures)."""
+        p = self.worst_pattern_idx()
+        red = self.read_reductions[:, p]           # (T, N, 4)
+        wred = self.write_reductions[:, p]
+        twr = PARAM_NAMES.index("twr")
+        cols = torch.cat([red[..., :twr], wred[..., twr:twr + 1], red[..., twr + 1:]], dim=-1)
+        stats = torch.stack([cols.amin(dim=1), cols.mean(dim=1), cols.amax(dim=1)],
+                            dim=-1).tolist()       # (T, 4, 3)
+        return {
+            float(t): {name: tuple(stats[ti][pi]) for pi, name in enumerate(PARAM_NAMES)}
+            for ti, t in enumerate(self.bin_edges())
+        }
 
 
 def sweep(
@@ -120,10 +210,17 @@ def sweep(
     patterns: Sequence[float] = DEFAULT_PATTERNS,
     window_s: float = charge.REFRESH_WINDOW_S,
     consts: ChargeModelConstants = DEFAULT_CONSTANTS,
+    write_tras: str = "profiled",
 ) -> SweepResult:
-    """Characterize a whole fleet over the (T, P, N) grid in one fused
-    search, on the fleet's own device. ``read`` / ``write`` are
-    ``(T, P, n_dimms, 4)`` ns."""
+    """Characterize a whole fleet over the (T, P, N) grid, on the fleet's
+    own device: the read and write stacks in one fused search, the joint
+    stack once per temperature and broadcast over the patterns (it does not
+    depend on the pattern). Every stack is ``(T, P, n_dimms, 4)`` ns.
+    ``write_tras="untested"`` fills the write tRAS column with the refused
+    sentinel (for tests of the refusal, never for real tables)."""
+    if write_tras not in profiler.WRITE_TRAS_MODES:
+        raise ValueError(
+            f"write_tras must be one of {profiler.WRITE_TRAS_MODES}, got {write_tras!r}")
     cells = fleet.cells if isinstance(fleet, Fleet) else fleet
     dev = resolve_device(cells.r.device)
     t = torch.tensor([float(x) for x in temps_c], dtype=torch.float32, device=dev)
@@ -132,7 +229,53 @@ def sweep(
         CellParams(*(a[None, None, :] for a in cells)), p[None, :, None]
     )
     read, write = charge_sweep.sweep_min_timings(eff, t[:, None, None], window_s, consts)
+    if write_tras == "untested":
+        write = profiler.untested_tras(write)
+    joint = profiler.joint_min_timings(
+        CellParams(*(a[None, :] for a in cells)), t[:, None], 1.0, window_s, consts)
     return SweepResult(
         temps_c=t, patterns=p, read=read, write=write,
+        joint=joint[:, None].expand(read.shape),
+        temps_exact=tuple(float(x) for x in temps_c),
+    )
+
+
+def sweep_loop_baseline(
+    fleet: Fleet | CellParams,
+    temps_c: Sequence[float] = DEFAULT_TEMPS_C,
+    patterns: Sequence[float] = DEFAULT_PATTERNS,
+    window_s: float = charge.REFRESH_WINDOW_S,
+    consts: ChargeModelConstants = DEFAULT_CONSTANTS,
+) -> SweepResult:
+    """Per-DIMM Python-loop characterization: one ``profile_*`` call per
+    (DIMM, temperature, pattern) point, reassembled from dicts. The
+    equivalence baseline of :func:`sweep`; O(N·T·P) dispatches, never for
+    real fleets."""
+    cells = fleet.cells if isinstance(fleet, Fleet) else fleet
+    dev = cells.r.device
+    stacks = {"read": [], "write": [], "joint": []}
+    for t in temps_c:
+        rows = {k: [] for k in stacks}
+        for p in patterns:
+            per = {k: [] for k in stacks}
+            for i in range(int(cells.r.shape[0])):
+                one = CellParams(*(a[i:i + 1] for a in cells))
+                for k, prof in (
+                    ("read", profiler.profile_individual(one, t, window_s, consts, pattern=p)),
+                    ("write", profiler.profile_write_mode(one, t, window_s, consts, pattern=p)),
+                    ("joint", profiler.profile_joint(one, t, window_s, consts)),
+                ):
+                    per[k].append([float(prof.timings[q][0]) for q in PARAM_NAMES])
+            for k in stacks:
+                rows[k].append(per[k])
+        for k in stacks:
+            stacks[k].append(rows[k])
+
+    def as_t(x) -> torch.Tensor:
+        return torch.tensor(x, dtype=torch.float32, device=dev)
+
+    return SweepResult(
+        temps_c=as_t([float(x) for x in temps_c]), patterns=as_t([float(x) for x in patterns]),
+        **{k: as_t(v) for k, v in stacks.items()},
         temps_exact=tuple(float(x) for x in temps_c),
     )

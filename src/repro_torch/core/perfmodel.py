@@ -18,10 +18,11 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core.charge import div
 from repro_torch.core.timing import (
     ACCESS_TYPES,
@@ -31,6 +32,15 @@ from repro_torch.core.timing import (
     TCL_NS,
     TimingParams,
 )
+
+
+#: Deployed reductions from the paper's real-system evaluation (§1.6).
+DEPLOYED_REDUCTIONS_55C: Dict[str, float] = {
+    "trcd": 0.27,
+    "tras": 0.32,
+    "twr": 0.33,
+    "trp": 0.18,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +110,8 @@ class SystemConfig:
     bisect_iters: int = 60
 
 
+#: The paper's two evaluated configurations.
+SINGLE_CORE = SystemConfig(n_cores=1)
 MULTI_CORE = SystemConfig(n_cores=4)
 
 #: The paper's headline claim: 14 % average speedup, memory-intensive.
@@ -207,6 +219,57 @@ def evaluate(t: TimingParams, cfg: SystemConfig, workloads: Tuple[Workload, ...]
     return {"ipc": 0.5 * (lo + hi), "latency_ns": lat, "service_ns": svc}
 
 
+def _on_device(t: TimingParams, device: torch.device) -> TimingParams:
+    """``t``'s four values as 0-d float32 tensors on ``device``."""
+    return TimingParams(*(torch.full((), float(v), dtype=torch.float32, device=device)
+                          for v in t))
+
+
+def _deployed_speedups(cfg: SystemConfig, reductions: Dict[str, float],
+                       workloads: Tuple[Workload, ...], device) -> torch.Tensor:
+    """IPC ratio per workload of JEDEC reduced by ``reductions`` over JEDEC."""
+    dev = resolve_device(device)
+    base = evaluate(_on_device(JEDEC_DDR3_1600, dev), cfg, workloads)["ipc"]
+    fast = evaluate(_on_device(JEDEC_DDR3_1600.reduced(reductions), dev), cfg,
+                    workloads)["ipc"]
+    return fast / base
+
+
+def _geomean(x: torch.Tensor) -> float:
+    return float(torch.exp(torch.log(x).mean()))
+
+
+def speedup_report(cfg: SystemConfig,
+                   reductions: Dict[str, float] = DEPLOYED_REDUCTIONS_55C,
+                   workloads: Tuple[Workload, ...] = WORKLOADS,
+                   device: str | torch.device = "cuda") -> Dict[str, float]:
+    """Fig. 3 aggregates: per-category geometric-mean speedups of AL-DRAM
+    (the deployed 55 °C reductions) over JEDEC, evaluated on ``device``."""
+    speedup = _deployed_speedups(cfg, reductions, workloads, device)
+
+    def cat(name: str) -> torch.Tensor:
+        idx = [i for i, w in enumerate(workloads) if w.category == name]
+        return speedup[torch.tensor(idx, dtype=torch.long, device=speedup.device)]
+
+    mem = torch.cat([cat("stream"), cat("intensive")])
+    return {
+        "all_geomean": _geomean(speedup) - 1.0,
+        "intensive_geomean": _geomean(mem) - 1.0,
+        "nonintensive_geomean": _geomean(cat("non-intensive")) - 1.0,
+        "stream_max": float(cat("stream").max()) - 1.0,
+        "best": float(speedup.max()) - 1.0,
+    }
+
+
+def per_workload_speedups(cfg: SystemConfig,
+                          reductions: Dict[str, float] = DEPLOYED_REDUCTIONS_55C,
+                          workloads: Tuple[Workload, ...] = WORKLOADS,
+                          device: str | torch.device = "cuda") -> List[Tuple[str, float]]:
+    """``(workload, speedup over JEDEC)`` for each workload (Fig. 3 bars)."""
+    sp = (_deployed_speedups(cfg, reductions, workloads, device) - 1.0).tolist()
+    return [(w.name, sp[i]) for i, w in enumerate(workloads)]
+
+
 def evaluate_stack(timings: torch.Tensor, cfg: SystemConfig,
                    workloads: Tuple[Workload, ...] = WORKLOADS,
                    refresh_occ: Optional[torch.Tensor] = None,
@@ -256,6 +319,39 @@ def fleet_speedups(timings: torch.Tensor, cfg: SystemConfig = MULTI_CORE,
 # ---------------------------------------------------------------------------
 # Trace scoring
 # ---------------------------------------------------------------------------
+def time_in_bin(bin_idx: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """Occupancy fractions ``(n_dimms, n_bins + 1)`` of an ``(n_steps,
+    n_dimms)`` effective-bin history (``n_bins`` = the JEDEC sentinel); each
+    fraction is its count over the steps, one float32 division."""
+    bins = torch.arange(n_bins + 1, device=bin_idx.device)
+    counts = (bin_idx[:, :, None] == bins).sum(dim=0).to(torch.float32)
+    return div(counts, float(bin_idx.shape[0]))
+
+
+def realized_latency_reductions(timings: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Per-DIMM mean read and write latency reduction vs JEDEC over a
+    replay's ``(n_steps, n_dimms, 2, 4)`` realized rows (a legacy merged
+    ``(n_steps, n_dimms, 4)`` stack goes into both access slots): the
+    Fig. 2 sums of each access type's own set, and ``read_params`` /
+    ``write_params``, the ``(n_dimms, 4)`` per-parameter reductions."""
+    timings = torch.as_tensor(timings, dtype=torch.float32)
+    if timings.dim() == 3 and timings.shape[-1] == len(PARAM_NAMES):
+        timings = torch.stack([timings, timings], dim=-2)
+    if timings.dim() != 4 or tuple(timings.shape[-2:]) != (len(ACCESS_TYPES), len(PARAM_NAMES)):
+        raise ValueError(f"expected (n_steps, n_dimms, 2, 4) or (n_steps, n_dimms, 4) "
+                         f"rows, got {tuple(timings.shape)}")
+    rs, ws = timings[..., 0, :], timings[..., 1, :]
+    read = rs[..., 0] + rs[..., 1] + rs[..., 3]
+    write = ws[..., 0] + ws[..., 2] + ws[..., 3]
+    jedec = torch.tensor(list(JEDEC_DDR3_1600), dtype=torch.float32, device=timings.device)
+    return {
+        "read": 1.0 - read.mean(dim=0) / JEDEC_DDR3_1600.read_sum,
+        "write": 1.0 - write.mean(dim=0) / JEDEC_DDR3_1600.write_sum,
+        "read_params": 1.0 - rs.mean(dim=0) / jedec[None, :],
+        "write_params": 1.0 - ws.mean(dim=0) / jedec[None, :],
+    }
+
+
 class ScorePartials(NamedTuple):
     """Running trace-score accumulators over the step axis.
 

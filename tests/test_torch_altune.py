@@ -182,8 +182,15 @@ def test_timing_table_json_crosses_both_ways(tmp_path):
              0.4)
     same.save(tmp_path / "same.json")
     assert (tmp_path / "port.json").read_text() == (tmp_path / "same.json").read_text()
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        altune.TimingTable.from_fleet(None)
+    # A table ingested from a fleet sweep crosses too (its parity with the
+    # reference's from_fleet is in tests/test_torch_tables.py).
+    from repro_torch.core import fleet
+
+    fl = fleet.synthesize(torch.Generator().manual_seed(0), 3, device="cpu")
+    swept = altune.TimingTable.from_fleet(fleet.sweep(fl, (55.0,), (1.0,)), vendor=fl.vendor)
+    swept.save(tmp_path / "fleet.json")
+    assert jaltune.TimingTable.load(tmp_path / "fleet.json").entries == swept.entries
+    assert len(swept.entries) == 3 * 2
 
 
 def test_adaptive_executor_follows_the_reference():

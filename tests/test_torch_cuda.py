@@ -396,3 +396,47 @@ def test_altune_margin_small_on_the_card(cuda_device, tmp_path):
     assert [r[0] for r in rows][::2] == [f"altune/{r.kernel}/margin" for r in results]
     assert (tmp_path / "t.json").exists()
 
+
+
+PROFILE_DIMMS = 4096
+
+
+def _profile_fleet(dev):
+    return fleet.synthesize(torch.Generator(device=dev).manual_seed(0), PROFILE_DIMMS,
+                            device=dev)
+
+
+def test_sweep_on_card_matches_cpu(cuda_device):
+    """``fleet.sweep`` on the card (one charge-sweep launch) against the
+    port's CPU path: the read and write stacks equal except entries one grid
+    step apart at a decision threshold (``chip_smoke.sweep_mismatches``),
+    the joint stack equal up to one-tCK flips where the CPU's raw minimum is
+    at a cycle boundary, the summary within 1e-6."""
+    fl = _profile_fleet(cuda_device)
+    before = sweep_kernel.charge_sweep_cuda.launches
+    cmp = chip_smoke.sweep_card_vs_cpu(fl, fleet.DEFAULT_TEMPS_C, fleet.DEFAULT_PATTERNS)
+    assert sweep_kernel.charge_sweep_cuda.launches == before + 1
+    print(f"threshold flips: read {cmp['read_flips']}, write {cmp['write_flips']}, joint "
+          f"{cmp['joint_flips']}", *cmp["flip_details"], sep="\n")
+    assert (cmp["read_bad"], cmp["write_bad"], cmp["joint_bad"]) == (0, 0, 0)
+    assert cmp["summary_diff"] <= chip_smoke.MEAN_TOL
+    assert cmp["card"].joint.device.type == "cuda"
+
+
+def test_profile_table_on_card_equals_cpu(cuda_device):
+    fl = _profile_fleet(cuda_device)
+    card = controller.DimmTimingTable.profile(fl.cells, chip_smoke.BOOT_BINS)
+    host = controller.DimmTimingTable.profile(charge.CellParams(*(a.cpu() for a in fl.cells)),
+                                              chip_smoke.BOOT_BINS)
+    assert card.device.type == "cuda" and host.device.type == "cpu"
+    assert card == host
+    assert controller.DimmTimingTable.from_json(card.to_json(), device=cuda_device) == card
+
+
+@pytest.mark.parametrize("cfg", ["SINGLE_CORE", "MULTI_CORE"])
+def test_speedup_report_on_card_matches_cpu(cuda_device, cfg):
+    card = perfmodel.speedup_report(getattr(perfmodel, cfg), device=cuda_device)
+    host = perfmodel.speedup_report(getattr(perfmodel, cfg), device="cpu")
+    assert card.keys() == host.keys()
+    for k in host:
+        assert card[k] == pytest.approx(host[k], abs=chip_smoke.REPORT_TOL), k
