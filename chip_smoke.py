@@ -107,7 +107,25 @@ Phases, each of which exits non-zero on failure:
    ``summary()``, ``fig2_summary`` and ``repeatability`` on the same draws
    within 1e-6); the Fig. 3 speedup report, single- and multi-core, card
    within 1e-5 of CPU.
-16. One JSON line describing each kernel; the card's name and power limit;
+16. The region path: (a) ``fleet.sweep_regions`` of the serve boot's
+   1,048,576 DIMMs × 5 temperatures × 4 patterns × 4 regions (83,886,080
+   cells, one charge-sweep launch), cold and warm wall time, split by part,
+   peak device memory, the kernel timed alone on its stack beside its
+   bound; the anchor region bitwise equal to the card's ``fleet.sweep``,
+   the region axis monotone; 65,536 DIMMs card vs CPU by the threshold rule
+   of phase 15. (b) ``DimmTimingTable.profile(n_regions=4)`` of the same
+   fleet at the serve bins: its max-over-regions registers bitwise equal to
+   the region-free boot table, a 4,096-DIMM slice's v5 JSON both ways.
+   (c) ``trace_eval.run`` at 65,536 DIMMs × 10,000 steps, ``design_skew``
+   with 4 regions (near mix), ``ddr3`` refresh: the region rows, aware
+   strictly above oblivious, the region section's time by part (sweep,
+   table, mix, counts, finalize) and the counts' peak memory (no
+   ``(S, N, B+1)`` one-hot). (d) ``replay_stream`` of the region table
+   with a near mix, 65,536 DIMMs × 1,440 steps, chunk 256: the region
+   counts equal to ``region_counts_accumulate`` of the materialized replay,
+   the partials bitwise those of the mix-free stream, every step one
+   replay-chunk launch. Launches are read around (a)–(d).
+17. One JSON line describing each kernel; the card's name and power limit;
    the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -189,6 +207,14 @@ JSON_SLICE_DIMMS = 4096
 MEAN_TOL = 1e-6
 #: The Fig. 3 report, card against CPU (a 60-step float32 bisection each).
 REPORT_TOL = 1e-5
+#: The region path: regions profiled, the region stream's steps (a day) and
+#: mix, and the most device memory the region counts of trace-eval's
+#: history may take above their inputs (a one-hot of the bins would take
+#: EVAL_STEPS × EVAL_DIMMS × 6 × 4 bytes, 15.7 GB).
+REGIONS = 4
+REGION_STREAM_STEPS = SERVE_STEPS
+REGION_STREAM_MIX = "near"
+REGION_COUNTS_PEAK_BYTES = 1 << 30
 #: The paper's §1.5 means at 55 °C and the window the repository holds its
 #: sweep to (``tests/test_fleet.py``); its memory-intensive Fig. 3 claim.
 PAPER_55C = {"trcd": 0.173, "tras": 0.377, "twr": 0.548, "trp": 0.352}
@@ -262,8 +288,9 @@ SWEEP_BOUNDARY_RTOL = 1e-6
 
 def sweep_mismatches(card, host, host_cells, rtol: float = SWEEP_BOUNDARY_RTOL) -> dict:
     """Entries of the card's read and write stacks that differ from the CPU's
-    (``card``, ``host``: ``SweepResult`` of the same fleet; ``host_cells`` its
-    cells on the CPU): ``{stack: (flips, bad, details)}``, ``flips`` those one
+    (``card``, ``host``: ``SweepResult`` or ``RegionSweepResult`` of the same
+    fleet; ``host_cells`` its cells on the CPU): ``{stack: (flips, bad,
+    details)}``, ``flips`` those one
     tCK apart that a perturbation of the cell by δ ≤ ``rtol`` (tried at
     ``rtol`` / 10, ``rtol`` · 0.3 and ``rtol``) moves the CPU's search onto,
     ``bad`` every other one, ``details`` a line each with the smallest δ that
@@ -278,21 +305,25 @@ def sweep_mismatches(card, host, host_cells, rtol: float = SWEEP_BOUNDARY_RTOL) 
     for s_i, name in enumerate(("read", "write")):
         got, want = getattr(card, name).cpu(), getattr(host, name)
         flips, bad, details = 0, 0, []
-        for t_i, p_i, n_i, col in (got != want).nonzero().tolist():
-            g, w = float(got[t_i, p_i, n_i, col]), float(want[t_i, p_i, n_i, col])
+        for where in (got != want).nonzero().tolist():
+            t_i, p_i, *r_i, n_i, col = where
+            g, w = float(got[tuple(where)]), float(want[tuple(where)])
             at = None
             for delta in ((rtol / 10, rtol * 0.3, rtol) if abs(g - w) == TCK_NS else ()):
                 cells = charge.CellParams(*(a[n_i] * (1.0 + delta * signs[:, j])
                                             for j, a in enumerate(host_cells)))
                 eff = charge.apply_pattern(cells, host.patterns[p_i])
+                if r_i:
+                    eff = charge.apply_region(eff, host.region_fracs[r_i[0]])
                 if bool((ops.sweep_min_timings(eff, host.temps_c[t_i])[s_i][:, col] == g).any()):
                     at = delta
                     break
             flips, bad = flips + (at is not None), bad + (at is None)
+            region = f", region {r_i[0]}" if r_i else ""
             details.append(f"{name} {('trcd', 'tras', 'twr', 'trp')[col]} at "
                            f"{float(host.temps_c[t_i])} °C, pattern "
-                           f"{float(host.patterns[p_i])}, DIMM {n_i}: card {g} ns, CPU {w} "
-                           f"ns, reproduced on the CPU at δ = {at}")
+                           f"{float(host.patterns[p_i])}{region}, DIMM {n_i}: card {g} ns, "
+                           f"CPU {w} ns, reproduced on the CPU at δ = {at}")
         out[name] = (flips, bad, details)
     return out
 
@@ -626,6 +657,217 @@ def profiling_phase(torch, dev, zero_counts, read_counts) -> dict:
     if worst > REPORT_TOL:
         fail("the Fig. 3 report on the card disagrees with the CPU")
     return launches
+
+
+def regions_phase(torch, dev, zero_counts, read_counts) -> dict:
+    """Phase 16: the region path, (a)–(d) of the module docstring. Returns
+    the launches of the four main-path runs, summed, and the charge sweep's
+    figures on the region stack."""
+    from repro_torch.core import charge, controller, fleet, perfmodel, stream, traces
+    from repro_torch.kernels.charge_sweep import kernel as sweep_k
+    from repro_torch.kernels.charge_sweep import ops as sweep_ops
+    from repro_torch.launch import trace_eval
+
+    total = {}
+
+    def add(launches: dict) -> None:
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def expect(label: str, launches: dict, **want) -> None:
+        full = dict.fromkeys(launches, 0) | want
+        if launches != full:
+            fail(f"{label}: launches {launches}, expected {full}")
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    # (a) The region sweep at full width.
+    torch.cuda.empty_cache()
+    fl = fleet.synthesize(torch.Generator(device=dev).manual_seed(0), FULL_DIMMS, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_bytes = torch.cuda.memory_allocated(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    res = fleet.sweep_regions(fl, n_regions=REGIONS)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    launches = read_counts()
+    add(launches)
+    peak = torch.cuda.max_memory_allocated(dev) - base_bytes
+    cells = math.prod(res.read.shape[:-1])
+    expect("region sweep", launches, charge_sweep=1)
+    del res
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fleet.sweep_regions(fl, n_regions=REGIONS)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    log(f"region sweep: fleet.sweep_regions of {FULL_DIMMS:,} DIMMs × "
+        f"{len(fleet.DEFAULT_TEMPS_C)} temperatures × {len(fleet.DEFAULT_PATTERNS)} patterns × "
+        f"{REGIONS} regions ({cells:,} cells, one charge-sweep launch): cold {cold * 1e3:.3f} "
+        f"ms, warm {warm * 1e3:.3f} ms, peak device memory above the fleet "
+        f"{peak / 2**30:.3f} GiB, launches {launches}")
+    free = fleet.sweep(fl)
+    anchor = all(torch.equal(bits(getattr(res, k)[:, :, -1]), bits(getattr(free, k)))
+                 for k in ("read", "write"))
+    monotone = all(bool((getattr(res, k).diff(dim=2) >= 0).all()) for k in ("read", "write"))
+    log(f"  anchor region bitwise equal to fleet.sweep on the card: {anchor}; region axis "
+        f"monotone (each region <= the next, read and write): {monotone}")
+    if not (anchor and monotone):
+        fail("region sweep: the anchor region differs from fleet.sweep or the region axis "
+             "is not monotone")
+    del res, free
+    split = time_split(torch, "region sweep",
+                       lambda: fleet.sweep_regions(fl, n_regions=REGIONS),
+                       ((sweep_ops, "stacked_invariants", "invariants"),
+                        (sweep_ops, "search_indices", "kernel")), "rest")
+    log("  the same sweep again, synchronized between parts (rest: pattern, region, "
+        "indices to ns): " + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in split.items()))
+    # The kernel alone on the region stack, beside its bound.
+    t = torch.tensor(fleet.DEFAULT_TEMPS_C, dtype=torch.float32, device=dev)
+    p = torch.tensor(fleet.DEFAULT_PATTERNS, dtype=torch.float32, device=dev)
+    eff = charge.apply_region(
+        charge.apply_pattern(charge.CellParams(*(a[None, None, None, :] for a in fl.cells)),
+                             p[None, :, None, None]),
+        charge.region_fracs(REGIONS, device=dev)[None, None, :, None])
+    inv, _ = sweep_ops.stacked_invariants(eff, t[:, None, None, None])
+    scal = sweep_ops.kernel_scalars()
+    n_grid = sweep_ops.ref.SEARCH_GRID_SIZES
+    kernel_ms = cuda_ms(torch, lambda: sweep_k.charge_sweep_cuda(inv, scal), 5)
+    idx = sweep_k.charge_sweep_cuda(inv, scal)
+    ops = sweep_evaluations(torch, inv, idx, scal, n_grid)["ops"]
+    region_bound, region_by = bound_ms(inv.shape[1] * (inv.shape[0] + sweep_k.N_SEARCHES) * 4,
+                                       ops)
+    log(f"  the charge-sweep kernel alone on the region stack ({inv.shape[1]:,} cells): "
+        f"{kernel_ms:.4f} ms, bound {region_bound:.4f} ms ({region_by})")
+    del inv, idx, eff
+    torch.cuda.empty_cache()
+
+    small = fleet.synthesize(torch.Generator(device=dev).manual_seed(0), PROFILE_CHECK_DIMMS,
+                             device=dev)
+    host_cells = charge.CellParams(*(a.cpu() for a in small.cells))
+    t0 = time.perf_counter()
+    card = fleet.sweep_regions(small, n_regions=REGIONS)
+    host = fleet.sweep_regions(host_cells, n_regions=REGIONS)
+    cmp = sweep_mismatches(card, host, host_cells)
+    log(f"region sweep {PROFILE_CHECK_DIMMS:,} DIMMs × 5 × 4 × {REGIONS}, card vs CPU, of "
+        f"{host.read.numel():,} entries a stack ({time.perf_counter() - t0:.1f} s): read and "
+        f"write entries one grid step apart at a decision threshold {cmp['read'][0]} and "
+        f"{cmp['write'][0]}, other mismatches {cmp['read'][1]} and {cmp['write'][1]}")
+    for line in cmp["read"][2] + cmp["write"][2]:
+        log(f"  {line}")
+    if cmp["read"][1] or cmp["write"][1]:
+        fail("the region sweep on the card disagrees with the CPU beyond the threshold rule")
+    del card, host, small
+
+    # (b) The region boot.
+    zero_counts()
+    t0 = time.perf_counter()
+    rtable = controller.DimmTimingTable.profile(fl.cells, BOOT_BINS, n_regions=REGIONS)
+    torch.cuda.synchronize()
+    boot = time.perf_counter() - t0
+    launches = read_counts()
+    add(launches)
+    expect("region boot", launches, charge_sweep=1)
+    free = controller.DimmTimingTable.profile(fl.cells, BOOT_BINS)
+    same = torch.equal(bits(rtable.oblivious_stack()), bits(free.stack))
+    part = controller.DimmTimingTable(rtable.temp_bins, rtable.stack[:JSON_SLICE_DIMMS])
+    text = part.to_json()
+    again = controller.DimmTimingTable.from_json(text, device=dev)
+    json_ok = again == part and again.to_json() == text and json.loads(text)["n_regions"] == REGIONS
+    log(f"region boot: DimmTimingTable.profile(n_regions={REGIONS}) of {FULL_DIMMS:,} DIMMs × "
+        f"{len(BOOT_BINS)} bins ({rtable.n_dimms * rtable.n_bins * REGIONS:,} cells) "
+        f"{boot * 1e3:.3f} ms, launches {launches}; oblivious registers bitwise equal to the "
+        f"region-free boot: {same}; v5 JSON of {JSON_SLICE_DIMMS:,} DIMMs ({len(text):,} bytes) "
+        f"both ways: {json_ok}")
+    if not (same and json_ok):
+        fail("region boot: the oblivious registers or the v5 JSON round trip differ")
+    del rtable, free, part, again, fl
+
+    # (c) Trace-eval design_skew with regions at the trace-eval width.
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    out = {}
+
+    def run():
+        out["rep"] = trace_eval.run(n_dimms=EVAL_DIMMS, n_steps=EVAL_STEPS,
+                                    scenario="design_skew", refresh="ddr3", error_rate=0.0,
+                                    regions=REGIONS, device=dev)
+
+    parts = time_split(torch, "trace-eval regions", run, (
+        (fleet, "sweep_regions", "sweep"), (fleet.RegionSweepResult, "to_table", "table"),
+        (traces, "region_access_mix", "mix"), (perfmodel, "region_counts_add_", "counts"),
+        (perfmodel, "region_score_finalize", "finalize")), "rest of the run")
+    launches = read_counts()
+    add(launches)
+    rep = out["rep"]
+    expect("trace-eval design_skew", launches, charge_sweep=2,
+           replay_chunk=2 * EVAL_STEPS + EVAL_LOOP_STEPS, accumulate=1)
+    rs = rep["region_score"]
+    log(f"trace-eval main path, design_skew with {REGIONS} regions: {EVAL_DIMMS:,} DIMMs × "
+        f"{EVAL_STEPS:,} steps, peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, launches {launches}")
+    log("  region section by part (synchronized between parts; s): " + json.dumps(
+        {k: round(v, 6) for k, v in parts.items()}))
+    log("  region rows: " + json.dumps({name: value for name, value, _ in rep["rows"]
+                                        if "region" in name}))
+    aware = rs["speedup_region_aware_intensive_mean"]
+    oblivious = rs["speedup_region_oblivious_intensive_mean"]
+    if not aware > oblivious or not all(math.isfinite(v) for v in rs.values()):
+        fail(f"trace-eval design_skew: aware {aware} not above oblivious {oblivious}, or a "
+             "non-finite region figure")
+    rtable, mix = rep["region_table"], rep["region_mix"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    counts = perfmodel.region_counts_add_(
+        perfmodel.region_counts_init(EVAL_DIMMS, rtable.n_bins, REGIONS, dev),
+        rep["replay"].bin_idx, mix)
+    torch.cuda.synchronize()
+    counts_peak = torch.cuda.max_memory_allocated(dev) - before
+    onehot = EVAL_STEPS * EVAL_DIMMS * (rtable.n_bins + 1) * 4
+    log(f"  region counts of the {EVAL_STEPS:,}-step history: peak device memory above their "
+        f"inputs {counts_peak / 2**20:.1f} MiB (a one-hot of the bins: {onehot / 2**30:.1f} "
+        f"GiB); mix an expanded view (stride {tuple(mix.stride())})")
+    if counts_peak > REGION_COUNTS_PEAK_BYTES or mix.stride(0) != 0:
+        fail("trace-eval region counts: too much memory, or the mix was copied over steps")
+    day = rep["trace"][:REGION_STREAM_STEPS].cpu()
+    del rep, out, counts, mix
+
+    # (d) The region stream.
+    mix = traces.region_access_mix(None, REGION_STREAM_STEPS, EVAL_DIMMS, REGIONS,
+                                   profile=REGION_STREAM_MIX, device=dev)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    streamed = stream.replay_stream(rtable, day, chunk_steps=CHUNK, region_mix=mix)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    add(launches)
+    expect("region stream", launches, replay_chunk=REGION_STREAM_STEPS)
+    free = stream.replay_stream(rtable, day, chunk_steps=CHUNK)
+    mat = controller.replay(rtable, day)
+    want = perfmodel.region_counts_accumulate(
+        perfmodel.region_counts_init(EVAL_DIMMS, rtable.n_bins, REGIONS, dev), mat.bin_idx, mix)
+    counts_same = torch.equal(streamed.region_counts, want)
+    partials_same = all(torch.equal(bits(a), bits(b))
+                        for a, b in zip(streamed.partials, free.partials))
+    state_same = all(torch.equal(a, b) for a, b in zip(streamed.state, mat.state))
+    score = streamed.region_score()
+    log(f"region stream: {EVAL_DIMMS:,} DIMMs × {REGION_STREAM_STEPS:,} steps, chunk {CHUNK}, "
+        f"{REGION_STREAM_MIX} mix: {wall:.3f} s, launches {launches}; region counts equal to "
+        f"the materialized replay's: {counts_same}; partials bitwise equal to the mix-free "
+        f"stream's: {partials_same}; final state equal: {state_same}; aware intensive "
+        f"{score['speedup_region_aware_intensive_mean']:.6f}, oblivious "
+        f"{score['speedup_region_oblivious_intensive_mean']:.6f}")
+    if not (counts_same and partials_same and state_same):
+        fail("region stream: counts, partials or state differ")
+    return {"launches": total, "regions_ms": kernel_ms, "regions_bound_ms": region_bound,
+            "regions_bound_by": region_by, "regions_cells": cells}
 
 
 def flash_attention_phase(torch, dev, gen, fa_k):
@@ -1568,10 +1810,16 @@ def main() -> None:
     if {m.split(".")[0] for m in sys.modules} & {"jax", "jaxlib", "repro"}:
         fail("the port imported JAX or the JAX package")
 
-    # ---- 16. summary -----------------------------------------------------------
+    # ---- 16. the region path ----------------------------------------------------
+    reg = regions_phase(torch, dev, zero_counts, read_counts)
+    if {m.split(".")[0] for m in sys.modules} & {"jax", "jaxlib", "repro"}:
+        fail("the port imported JAX or the JAX package")
+
+    # ---- 17. summary -----------------------------------------------------------
     by_path = {"serve": launches, "trace_eval": {
         k: sum(v[k] for v in eval_launches.values()) for k in counters},
-        "lm_serve": lm["launches"], "altune": alt_launches, "profile": prof_launches}
+        "lm_serve": lm["launches"], "altune": alt_launches, "profile": prof_launches,
+        "regions": reg["launches"]}
 
     def counted(name: str) -> dict:
         """Launches of one kernel on each main path, as read around it."""
@@ -1585,7 +1833,9 @@ def main() -> None:
          **counted("charge_sweep"), "mismatches": sum(sweep_mism.values()),
          "max_abs_err": sweep_err, "ms": sweep_ms, "plain_ms": sweep_plain_ms,
          "bound_ms": sweep_bound, "bound_by": sweep_by, "library_ms": None,
-         "worst_case_ms": sweep_worst_ms, "invariants_ms": invariants_ms},
+         "worst_case_ms": sweep_worst_ms, "invariants_ms": invariants_ms,
+         "regions_ms": reg["regions_ms"], "regions_bound_ms": reg["regions_bound_ms"],
+         "regions_cells": reg["regions_cells"]},
         {"name": "replay_chunk", "route": "cuda",
          "source": "src/repro_torch/csrc/replay_step.cu",
          "replaces": "src/repro/kernels/replay_step/kernel.py:92",

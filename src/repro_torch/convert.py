@@ -1,8 +1,9 @@
 """State carried across packages, as numpy arrays.
 
 The fleet controller carries state: the fleet's cell parameters and vendor
-index, a timing table (bin edges, ``(N, B, 2, 4)`` stack and refresh
-policy), the controller registers, the score partials and a materialized
+index, a timing table (bin edges, ``(N, B, 2, 4)`` stack — or a rank-5
+``(N, B, R, 2, 4)`` region stack — and refresh policy), a region sweep's
+stacks, the controller registers, the score partials and a materialized
 replay history. The LM serving path carries weights and KV caches.
 The ``*_from_numpy`` functions take them as numpy arrays — as
 ``np.asarray`` gives them from the reference package's objects, which use
@@ -23,7 +24,7 @@ import torch
 
 from repro_torch.core.charge import CellParams
 from repro_torch.core.controller import ControllerState, DimmTimingTable, ReplayResult
-from repro_torch.core.fleet import Fleet
+from repro_torch.core.fleet import Fleet, RegionSweepResult
 from repro_torch.core.perfmodel import ScorePartials
 from repro_torch.core.refresh import RefreshPolicy
 from repro_torch.models import stack as lm_stack
@@ -53,6 +54,16 @@ def table_from_numpy(temp_bins: Sequence[float], stack, device="cuda",
                                 refresh.trefi_base_ns, refresh.trfc_ns)
     return DimmTimingTable(temp_bins=tuple(float(t) for t in temp_bins),
                            stack=_t(stack, torch.float32, device), refresh=refresh)
+
+
+def region_sweep_from_numpy(temps_c, patterns, region_fracs, read, write,
+                            temps_exact: Sequence[float] = (),
+                            device="cuda") -> RegionSweepResult:
+    """A region sweep's ``(T,)``, ``(P,)``, ``(R,)`` grids and ``(T, P, R, N,
+    4)`` read / write stacks (the reference's ``RegionSweepResult`` fields)."""
+    f32 = [_t(a, torch.float32, device)
+           for a in (temps_c, patterns, region_fracs, read, write)]
+    return RegionSweepResult(*f32, temps_exact=tuple(float(t) for t in temps_exact))
 
 
 def state_from_numpy(bin_idx, cool_streak, fused, device="cuda") -> ControllerState:
@@ -91,6 +102,14 @@ def fleet_to_numpy(fl: Fleet) -> Dict[str, np.ndarray]:
 def table_to_numpy(table: DimmTimingTable) -> Dict[str, np.ndarray]:
     return {"temp_bins": np.asarray(table.temp_bins, np.float64),
             "stack": _np(table.stack)}
+
+
+def region_sweep_to_numpy(res: RegionSweepResult) -> Dict[str, object]:
+    """The sweep's fields by the reference's names (``temps_exact`` a tuple)."""
+    out: Dict[str, object] = {k: _np(getattr(res, k))
+                              for k in ("temps_c", "patterns", "region_fracs", "read", "write")}
+    out["temps_exact"] = tuple(res.temps_exact)
+    return out
 
 
 def state_to_numpy(state: ControllerState) -> Dict[str, np.ndarray]:

@@ -107,6 +107,11 @@ class ChargeModelConstants:
     wm_gain_rcd: float = 2.186
     wm_temp: float = 1.26
     wm_gain_rp: float = 2.709
+    #: Per-region (design-induced) variation span: the peripheral RC
+    #: multiplier of the nearest region is ``(1 - region_span)`` times that
+    #: of the farthest, which is the anchor (factor exactly 1.0, the
+    #: per-DIMM worst-case profile every region-free table is built from).
+    region_span: float = 0.25
 
     # ---- derived anchors (worst case at 85 °C == JEDEC, by construction) --
     @property
@@ -148,9 +153,9 @@ class ChargeModelConstants:
 
     def validate(self) -> None:
         """Raise ``ValueError`` unless the constants describe a physical cell
-        (the reference's checks, without its region span, which the port
-        does not carry yet: ROADMAP item 1)."""
+        (the reference's checks)."""
         checks = (
+            ("0 <= region_span < 1", 0.0 <= self.region_span < 1.0),
             ("0 < ret85 < 1", 0.0 < self.ret85 < 1.0),
             ("0 < c_min < 1 and r_max > 1", 0.0 < self.c_min < 1.0 and self.r_max > 1.0),
             ("v_restore_start < v_full < v_overdrive",
@@ -214,6 +219,38 @@ def quality_index(cell: CellParams,
 def apply_pattern(cell: CellParams, pattern) -> CellParams:
     """Fold a data-pattern margin factor into the effective capacitance."""
     return CellParams(r=cell.r, c=cell.c * pattern, leak=cell.leak)
+
+
+# ---------------------------------------------------------------------------
+# Per-region (design-induced) variation
+# ---------------------------------------------------------------------------
+def region_fracs(n_regions: int, device: str | torch.device = "cpu") -> torch.Tensor:
+    """Normalized distance from the sense amplifiers of each region,
+    ``(R,)`` float32: index 0 the nearest (fastest) class, index R-1 the
+    farthest, frac exactly 1.0 (the anchor, whose effective cell is the
+    per-DIMM worst-case profile). One region is the region-free model."""
+    if n_regions < 1:
+        raise ValueError(f"n_regions must be >= 1, got {n_regions}")
+    idx = torch.arange(1, n_regions + 1, dtype=torch.float32, device=device)
+    return div(idx, float(n_regions))
+
+
+def region_factor(region_frac, consts: ChargeModelConstants = DEFAULT_CONSTANTS
+                  ) -> torch.Tensor:
+    """Peripheral-RC multiplier of a region at normalized distance
+    ``region_frac`` in (0, 1]: linear in distance, exactly 1.0 at 1.0."""
+    f = torch.as_tensor(region_frac, dtype=torch.float32)
+    return 1.0 - consts.region_span * (1.0 - f)
+
+
+def apply_region(cell: CellParams, region_frac,
+                 consts: ChargeModelConstants = DEFAULT_CONSTANTS) -> CellParams:
+    """Fold a region's distance class into the effective cell: distance is a
+    peripheral (bitline/wordline RC) channel, so only ``r`` is scaled, and
+    every min-safe timing is monotone non-decreasing in the region index.
+    At the anchor the factor is 1.0 and ``r * 1.0`` is ``r`` bitwise."""
+    f = torch.as_tensor(region_frac, dtype=torch.float32, device=cell.r.device)
+    return CellParams(r=cell.r * region_factor(f, consts), c=cell.c, leak=cell.leak)
 
 
 # ---------------------------------------------------------------------------

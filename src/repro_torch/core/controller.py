@@ -2,7 +2,8 @@
 
 * :class:`DimmTimingTable` — the controller's timing registers: one
   ``(n_dimms, n_bins, 2, 4)`` float32 stack (access axis read, write;
-  ``PARAM_NAMES`` last) on the device, the bin edges and an optional
+  ``PARAM_NAMES`` last) on the device, or ``(n_dimms, n_bins, n_regions,
+  2, 4)`` for a region-profiled table, the bin edges and an optional
   :class:`~repro_torch.core.refresh.RefreshPolicy`. Temperatures above the
   last edge select JEDEC (the beyond-last sentinel row). A negative entry
   is the profiler's untested sentinel and is refused.
@@ -59,7 +60,7 @@ HYSTERESIS_STEPS: int = 3
 #: per-access ``(N, B, 2, 4)`` stack, v4 adds the refresh policy
 #: (nullable), v5 the region axis (``(N, B, n_regions, 2, 4)`` and
 #: ``"n_regions"``). :meth:`DimmTimingTable.from_json` reads all five;
-#: :meth:`DimmTimingTable.to_json` writes v5 with one region.
+#: :meth:`DimmTimingTable.to_json` writes v5.
 TABLE_SCHEMA_VERSION: int = 5
 
 #: JEDEC (2, 4) sentinel rows, selected beyond the last bin or after a fuse.
@@ -83,8 +84,14 @@ class DimmTimingTable:
     """Per-DIMM, per-access-type timing sets, one per temperature bin.
 
     ``stack[dimm, bin]`` is a ``(2, 4)`` block (read set, write set; ns).
-    ``refresh`` is the temperature-driven refresh policy the DIMMs run
-    under; ``None`` scores latency only."""
+    A region-profiled table (schema v5) carries a rank-5 ``(n_dimms,
+    n_bins, n_regions, 2, 4)`` stack instead, regions ordered nearest
+    (fastest) to farthest (the per-DIMM worst case); a one-region rank-5
+    stack is squeezed to the canonical rank-4 form. Consumers that program
+    one register set per (DIMM, bin) read :meth:`oblivious_stack` (the max
+    over regions, safe for every region); region-resolved lookups read
+    :meth:`region_stack`. ``refresh`` is the temperature-driven refresh
+    policy the DIMMs run under; ``None`` scores latency only."""
 
     temp_bins: Tuple[float, ...]
     stack: torch.Tensor
@@ -98,16 +105,17 @@ class DimmTimingTable:
         if list(self.temp_bins) != sorted(set(self.temp_bins)):
             raise ValueError(f"temp_bins must ascend strictly, got {self.temp_bins}")
         self.stack = torch.as_tensor(self.stack, dtype=torch.float32)
-        if self.stack.dim() == 5:
-            raise NotImplementedError(
-                "regions (sweep_regions, rank-5 schema-v5 tables) are not ported "
-                "yet (ROADMAP queue 1, item 1)"
-            )
+        if self.stack.dim() == 5 and self.stack.shape[2] == 1:
+            self.stack = self.stack[:, :, 0]  # one region is the region-free table
         tail = (len(ACCESS_TYPES), len(PARAM_NAMES))
-        if self.stack.dim() != 4 or tuple(self.stack.shape[1:]) != (self.n_bins,) + tail:
+        shape = tuple(self.stack.shape)
+        ok = (len(shape) == 4 and shape[1:] == (self.n_bins,) + tail) or (
+            len(shape) == 5 and shape[1] == self.n_bins and shape[2] >= 2
+            and shape[3:] == tail)
+        if not ok:
             raise ValueError(
-                f"stack shape {tuple(self.stack.shape)} does not match "
-                f"{self.n_bins} bins × {tail[0]} access types × {tail[1]} params"
+                f"stack shape {shape} does not match {self.n_bins} bins × "
+                f"[n_regions ×] {tail[0]} access types × {tail[1]} params"
             )
         if bool((self.stack < 0.0).any()):
             raise ValueError(
@@ -124,6 +132,11 @@ class DimmTimingTable:
         return len(self.temp_bins)
 
     @property
+    def n_regions(self) -> int:
+        """Distance-from-sense-amp classes per DIMM (1 for rank-4 tables)."""
+        return int(self.stack.shape[2]) if self.stack.dim() == 5 else 1
+
+    @property
     def device(self) -> torch.device:
         return self.stack.device
 
@@ -135,10 +148,16 @@ class DimmTimingTable:
             and torch.equal(self.stack, other.stack.to(self.stack.device))
         )
 
+    def region_stack(self) -> torch.Tensor:
+        """The region-explicit ``(n_dimms, n_bins, n_regions, 2, 4)`` view
+        (a rank-4 table gains a length-1 region axis, no copy)."""
+        return self.stack if self.stack.dim() == 5 else self.stack[:, :, None]
+
     def oblivious_stack(self) -> torch.Tensor:
-        """The ``(n_dimms, n_bins, 2, 4)`` registers (region-free tables
-        only, so this is :attr:`stack` itself)."""
-        return self.stack
+        """The region-oblivious ``(n_dimms, n_bins, 2, 4)`` registers: the
+        max over regions per (bin, access, param), the one set safe for
+        every region; :attr:`stack` itself for a rank-4 table."""
+        return self.stack.amax(dim=2) if self.stack.dim() == 5 else self.stack
 
     def bin_refresh(self) -> Optional[BinRefresh]:
         """Per-effective-bin refresh load under this table's policy — the
@@ -148,12 +167,20 @@ class DimmTimingTable:
             return None
         return _bin_refresh(self.refresh, self.temp_bins)
 
-    def row(self, dimm: int, bin_idx: int) -> AccessTimings:
+    def row(self, dimm: int, bin_idx: int, region: Optional[int] = None) -> AccessTimings:
         """Read + write timing sets at ``(dimm, bin)``; the beyond-last
-        sentinel (``bin_idx >= n_bins``) is JEDEC for both access types."""
+        sentinel (``bin_idx >= n_bins``) is JEDEC for both access types.
+        ``region`` selects one distance class; ``None`` on a region table
+        is the region-oblivious set."""
         if bin_idx >= self.n_bins:
             return JEDEC_ACCESS
-        return access_timings(self.stack[dimm, bin_idx].tolist())
+        if region is None:
+            block = self.stack[dimm, bin_idx]
+            return access_timings((block.amax(dim=0) if block.dim() == 3 else block).tolist())
+        if not 0 <= region < self.n_regions:
+            raise IndexError(f"region {region} out of range for a "
+                             f"{self.n_regions}-region table")
+        return access_timings(self.region_stack()[dimm, bin_idx, region].tolist())
 
     def lookup(self, dimm: int, temp_c: float) -> AccessTimings:
         """Timing sets for the smallest bin covering ``temp_c`` (guard-banded
@@ -167,9 +194,9 @@ class DimmTimingTable:
     @property
     def sets(self) -> List[List[AccessTimings]]:
         """Nested-list view ``sets[dimm][bin]`` for per-DIMM consumers (the
-        storage is :attr:`stack`)."""
+        storage is :attr:`stack`); a region table shows its oblivious sets."""
         return [[access_timings(block) for block in per_dimm]
-                for per_dimm in self.stack.tolist()]
+                for per_dimm in self.oblivious_stack().tolist()]
 
     @classmethod
     def profile(
@@ -183,17 +210,20 @@ class DimmTimingTable:
     ) -> "DimmTimingTable":
         """Boot-time profiling: one fleet sweep over every bin at the
         worst-case pattern, on the cells' device, programming each access
-        type at its own profiled margin."""
+        type at its own profiled margin. ``n_regions > 1`` profiles each
+        distance class (one region sweep) into a rank-5 table;
+        ``n_regions=1`` is the region-free profile."""
         from repro_torch.core import fleet as fleet_mod
 
         if n_regions < 1:
             raise ValueError(f"n_regions must be >= 1, got {n_regions}")
-        if n_regions > 1:
-            raise NotImplementedError(
-                "per-region profiling (n_regions > 1: fleet.sweep_regions, rank-5 "
-                "tables) is not ported yet (ROADMAP queue 1, item 1)")
-        result = fleet_mod.sweep(cells, temps_c=tuple(temp_bins), patterns=(1.0,),
-                                 window_s=window_s, consts=consts)
+        if n_regions == 1:
+            result = fleet_mod.sweep(cells, temps_c=tuple(temp_bins), patterns=(1.0,),
+                                     window_s=window_s, consts=consts)
+        else:
+            result = fleet_mod.sweep_regions(cells, temps_c=tuple(temp_bins),
+                                             patterns=(1.0,), n_regions=n_regions,
+                                             window_s=window_s, consts=consts)
         return cls.from_fleet(result, temp_bins=temp_bins, refresh=refresh)
 
     @classmethod
@@ -218,7 +248,7 @@ class DimmTimingTable:
     # -- persistence (the controller's registers survive a reboot) -----------
     def to_json(self) -> str:
         """The table as schema-v5 JSON, the reference's layout: a
-        region-explicit ``(N, B, 1, 2, 4)`` stack and ``n_regions`` 1."""
+        region-explicit ``(N, B, R, 2, 4)`` stack and ``n_regions``."""
         refresh = None
         if self.refresh is not None:
             refresh = {
@@ -232,8 +262,8 @@ class DimmTimingTable:
             "params": list(PARAM_NAMES),
             "access_types": list(ACCESS_TYPES),
             "temp_bins": list(self.temp_bins),
-            "n_regions": 1,
-            "stack": self.stack[:, :, None].tolist(),
+            "n_regions": self.n_regions,
+            "stack": self.region_stack().tolist(),
             "refresh": refresh,
         })
 
@@ -241,8 +271,8 @@ class DimmTimingTable:
     def from_json(cls, text: str, device: str | torch.device = "cuda") -> "DimmTimingTable":
         """Load a table of schema v1–v5 onto ``device``: v1/v2 merged sets go
         into both access slots, pre-v4 files have no refresh policy, and a
-        v5 file must carry one region (more raise ``NotImplementedError``:
-        ROADMAP queue 1, item 1)."""
+        v5 file's stack must carry its declared region axis (one region
+        loads as the rank-4 table)."""
         obj = json.loads(text)
         version = obj.get("schema_version", 1)
         dev = resolve_device(device)
@@ -278,20 +308,17 @@ class DimmTimingTable:
             if stack.dim() != 5 or stack.shape[2] != n_regions:
                 raise ValueError(f"v5 stack shape {tuple(stack.shape)} does not carry the "
                                  f"declared n_regions={n_regions} region axis")
-            if n_regions != 1:
-                raise NotImplementedError(
-                    f"a v5 table with n_regions={n_regions} needs rank-5 region "
-                    "tables, not ported yet (ROADMAP queue 1, item 1)")
-            stack = stack[:, :, 0]
         return cls(temp_bins=tuple(obj["temp_bins"]), stack=stack, refresh=refresh)
 
     @classmethod
     def from_fleet(cls, result, temp_bins: Optional[Sequence[float]] = None,
                    refresh: Optional[RefreshPolicy] = None) -> "DimmTimingTable":
         """Transpose a :class:`~repro_torch.core.fleet.SweepResult`'s
-        ``(T, N, 2, 4)`` stacked sets into ``(N, T, 2, 4)`` registers, on the
-        sweep's device. The bin edges are the sweep's exact temperatures
-        unless ``temp_bins`` overrides them."""
+        ``(T, N, 2, 4)`` stacked sets into ``(N, T, 2, 4)`` registers, or a
+        :class:`~repro_torch.core.fleet.RegionSweepResult`'s ``(T, R, N, 2,
+        4)`` into ``(N, T, R, 2, 4)``, on the sweep's device. The bin edges
+        are the sweep's exact temperatures unless ``temp_bins`` overrides
+        them."""
         if temp_bins is None:
             temp_bins = result.bin_edges()
         elif len(temp_bins) != result.read.shape[0]:
@@ -299,7 +326,9 @@ class DimmTimingTable:
                 f"{len(temp_bins)} temp_bins for a "
                 f"{result.read.shape[0]}-temperature sweep"
             )
-        stack = result.stacked_timings().permute(1, 0, 2, 3).contiguous()
+        stacked = result.stacked_timings()
+        order = (2, 0, 1, 3, 4) if stacked.dim() == 5 else (1, 0, 2, 3)
+        stack = stacked.permute(*order).contiguous()
         return cls(temp_bins=tuple(temp_bins), stack=stack, refresh=refresh)
 
 

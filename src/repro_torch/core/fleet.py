@@ -11,6 +11,12 @@ patterns. :class:`SweepResult` holds the ``(T, P, N, 4)`` read, write and
 joint stacks, their reductions and the paper-style summary, and hands the
 per-access sets at the guarantee pattern to the controller's
 :class:`~repro_torch.core.controller.DimmTimingTable`.
+
+:func:`sweep_regions` raises the study by one rank, the distance-from-sense-amp
+region classes of :func:`~repro_torch.core.charge.region_fracs`: the whole
+``(T, P, R, N)`` grid is still one fused search (the region axis is one more
+leading axis of the cells; the search never knows it exists), and
+:class:`RegionSweepResult` hands ``(T, R, N, 2, 4)`` sets to a rank-5 table.
 """
 
 from __future__ import annotations
@@ -79,6 +85,31 @@ def synthesize(
     return Fleet(cells=cells, vendor=vidx)
 
 
+def _guarantee_pattern_idx(patterns: torch.Tensor) -> int:
+    """Worst-pattern index, refusing sweeps that never tested the guarantee
+    pattern (margin factor 1.0)."""
+    p = int(torch.argmin(patterns))
+    worst = float(patterns[p])
+    if worst > 1.0:
+        raise ValueError(
+            f"sweep lacks the worst-case guarantee pattern: min margin "
+            f"factor is {worst} (> 1.0); re-sweep with pattern 1.0 "
+            "before programming controller tables"
+        )
+    return p
+
+
+def _tested(write: torch.Tensor) -> torch.Tensor:
+    """``write``, refused if it carries the untested-tRAS sentinel."""
+    if bool((write < 0.0).any()):
+        raise ValueError(
+            "write-mode sweep carries the untested-tRAS sentinel "
+            f"({profiler.WRITE_TRAS_UNTESTED_NS} ns): re-sweep with "
+            "tras_mode='profiled' before programming write registers"
+        )
+    return write
+
+
 class SweepResult(NamedTuple):
     """Dense characterization output over the (temp × pattern × DIMM) grid.
     Stacks are ns, cycle-quantized, last axis in ``PARAM_NAMES`` order."""
@@ -112,34 +143,14 @@ class SweepResult(NamedTuple):
         """Index of the guarantee pattern (smallest margin factor)."""
         return int(torch.argmin(self.patterns))
 
-    def _guarantee_pattern_idx(self) -> int:
-        """Worst-pattern index, refusing sweeps that never tested the
-        guarantee pattern (margin factor 1.0)."""
-        p = self.worst_pattern_idx()
-        worst = float(self.patterns[p])
-        if worst > 1.0:
-            raise ValueError(
-                f"sweep lacks the worst-case guarantee pattern: min margin "
-                f"factor is {worst} (> 1.0); re-sweep with pattern 1.0 "
-                "before programming controller tables"
-            )
-        return p
-
     def read_timings(self) -> torch.Tensor:
         """(T, N, 4) read-access sets at the worst-case pattern."""
-        return self.read[:, self._guarantee_pattern_idx()]
+        return self.read[:, _guarantee_pattern_idx(self.patterns)]
 
     def write_timings(self) -> torch.Tensor:
         """(T, N, 4) write-access sets at the worst-case pattern; refuses a
         sweep that carries the untested-tRAS sentinel."""
-        w = self.write[:, self._guarantee_pattern_idx()]
-        if bool((w < 0.0).any()):
-            raise ValueError(
-                "write-mode sweep carries the untested-tRAS sentinel "
-                f"({profiler.WRITE_TRAS_UNTESTED_NS} ns): re-sweep with "
-                "tras_mode='profiled' before programming write registers"
-            )
-        return w
+        return _tested(self.write[:, _guarantee_pattern_idx(self.patterns)])
 
     def stacked_timings(self) -> torch.Tensor:
         """(T, N, 2, 4) per-access-type sets (read, write) at the worst-case
@@ -202,6 +213,85 @@ class SweepResult(NamedTuple):
             float(t): {name: tuple(stats[ti][pi]) for pi, name in enumerate(PARAM_NAMES)}
             for ti, t in enumerate(self.bin_edges())
         }
+
+
+class RegionSweepResult(NamedTuple):
+    """Dense characterization output over the (temp × pattern × region ×
+    DIMM) grid: :class:`SweepResult`'s read and write stacks raised by one
+    rank. Region index 0 is the nearest class, R-1 the anchor (farthest),
+    equal to the region-free profile."""
+
+    temps_c: torch.Tensor       # (T,)
+    patterns: torch.Tensor      # (P,)
+    region_fracs: torch.Tensor  # (R,) normalized distance classes
+    read: torch.Tensor          # (T, P, R, N, 4) read-mode minima
+    write: torch.Tensor         # (T, P, R, N, 4) write-mode minima
+    temps_exact: Tuple[float, ...] = ()
+
+    @property
+    def n_regions(self) -> int:
+        return int(self.region_fracs.shape[0])
+
+    def bin_edges(self) -> Tuple[float, ...]:
+        return self.temps_exact or tuple(float(t) for t in self.temps_c.tolist())
+
+    def worst_pattern_idx(self) -> int:
+        return int(torch.argmin(self.patterns))
+
+    def read_timings(self) -> torch.Tensor:
+        """(T, R, N, 4) read-access sets at the worst-case pattern."""
+        return self.read[:, _guarantee_pattern_idx(self.patterns)]
+
+    def write_timings(self) -> torch.Tensor:
+        """(T, R, N, 4) write-access sets at the worst-case pattern; refuses
+        the untested-tRAS sentinel."""
+        return _tested(self.write[:, _guarantee_pattern_idx(self.patterns)])
+
+    def stacked_timings(self) -> torch.Tensor:
+        """(T, R, N, 2, 4) per-access-type sets at the worst-case pattern."""
+        return torch.stack([self.read_timings(), self.write_timings()], dim=-2)
+
+    def to_table(self):
+        """The rank-5 :class:`DimmTimingTable` (``(N, B, R, 2, 4)``)."""
+        from repro_torch.core.controller import DimmTimingTable
+
+        return DimmTimingTable.from_fleet(self)
+
+
+def sweep_regions(
+    fleet: Fleet | CellParams,
+    temps_c: Sequence[float] = DEFAULT_TEMPS_C,
+    patterns: Sequence[float] = DEFAULT_PATTERNS,
+    n_regions: int = 1,
+    window_s: float = charge.REFRESH_WINDOW_S,
+    consts: ChargeModelConstants = DEFAULT_CONSTANTS,
+    write_tras: str = "profiled",
+) -> RegionSweepResult:
+    """Characterize a fleet over the (T, P, R, N) grid on the fleet's own
+    device: the cells take the pattern (:func:`charge.apply_pattern`) and
+    then the region class (:func:`charge.apply_region`), and both stacks
+    of the whole grid come out of ONE fused search. Stacks are
+    ``(T, P, R, n_dimms, 4)`` ns; region R-1 is the anchor, bitwise the
+    region-free :func:`sweep`'s stacks, so ``n_regions=1`` reproduces them."""
+    if write_tras not in profiler.WRITE_TRAS_MODES:
+        raise ValueError(
+            f"write_tras must be one of {profiler.WRITE_TRAS_MODES}, got {write_tras!r}")
+    cells = fleet.cells if isinstance(fleet, Fleet) else fleet
+    dev = resolve_device(cells.r.device)
+    t = torch.tensor([float(x) for x in temps_c], dtype=torch.float32, device=dev)
+    p = torch.tensor([float(x) for x in patterns], dtype=torch.float32, device=dev)
+    f = charge.region_fracs(int(n_regions), device=dev)
+    eff = charge.apply_pattern(
+        CellParams(*(a[None, None, None, :] for a in cells)), p[None, :, None, None]
+    )
+    eff = charge.apply_region(eff, f[None, None, :, None], consts)
+    read, write = charge_sweep.sweep_min_timings(eff, t[:, None, None, None], window_s, consts)
+    if write_tras == "untested":
+        write = profiler.untested_tras(write)
+    return RegionSweepResult(
+        temps_c=t, patterns=p, region_fracs=f, read=read, write=write,
+        temps_exact=tuple(float(x) for x in temps_c),
+    )
 
 
 def sweep(

@@ -12,6 +12,12 @@ CUDA kernel) and :func:`trace_score_finalize`, which weights each
 With ``refresh=`` (a :class:`~repro_torch.core.refresh.BinRefresh`) the
 score adds the combined latency + refresh figures: refresh steals bank and
 bus capacity and adds blocking latency in :func:`evaluate`.
+
+Region-resolved scoring (rank-5 tables): int32 region-access counts per
+(DIMM, effective bin, region) (:func:`region_counts_accumulate`, an integer
+scatter, exact under any chunking) weigh each region's own register block
+against the region-oblivious max-over-regions set
+(:func:`region_score_finalize`, :func:`region_trace_score`).
 """
 
 from __future__ import annotations
@@ -515,3 +521,145 @@ def trace_score(stack: torch.Tensor, replay, cfg: SystemConfig = MULTI_CORE,
         replay.timings, replay.bin_idx, replay.switched,
     )
     return trace_score_finalize(partials, stack, cfg, claim, workloads, refresh)
+
+
+# ---------------------------------------------------------------------------
+# Region-resolved scoring (design-induced variation, rank-5 tables)
+# ---------------------------------------------------------------------------
+#: Elements of the flattened ``(steps · n_dimms, n_regions)`` mix block one
+#: region-count scatter takes (an expanded mix is copied a block at a time).
+_REGION_ELEMS_PER_BLOCK: int = 1 << 26
+
+
+def region_counts_init(n_dimms: int, n_bins: int, n_regions: int,
+                       device: str | torch.device = "cuda") -> torch.Tensor:
+    """Zeroed ``(n_dimms, n_bins + 1, n_regions)`` int32 region-access
+    counters (the last bin column is the beyond-last JEDEC sentinel)."""
+    return torch.zeros((n_dimms, n_bins + 1, n_regions), dtype=torch.int32,
+                       device=resolve_device(device))
+
+
+def region_counts_add_(counts: torch.Tensor, bin_idx: torch.Tensor,
+                       region_mix: torch.Tensor) -> torch.Tensor:
+    """:func:`region_counts_accumulate` into ``counts`` itself (contiguous),
+    which it returns."""
+    n, b1, r = counts.shape
+    if bin_idx.dim() != 2 or tuple(bin_idx.shape[1:]) != (n,):
+        raise ValueError(f"bin_idx must be (steps, {n}), got {tuple(bin_idx.shape)}")
+    if tuple(region_mix.shape) != tuple(bin_idx.shape) + (r,):
+        raise ValueError(f"region_mix shape {tuple(region_mix.shape)} does not match "
+                         f"bin_idx {tuple(bin_idx.shape)} × {r} regions")
+    dev = counts.device
+    flat = counts.view(n * b1, r)
+    base = torch.arange(n, dtype=torch.int64, device=dev) * b1
+    block = max(1, _REGION_ELEMS_PER_BLOCK // max(1, n * r))
+    for s in range(0, bin_idx.shape[0], block):
+        idx = base + bin_idx[s:s + block].to(device=dev, dtype=torch.int64)
+        mix = region_mix[s:s + block].to(device=dev, dtype=torch.int32)
+        flat.index_add_(0, idx.reshape(-1), mix.reshape(-1, r))
+    return counts
+
+
+def region_counts_accumulate(counts: torch.Tensor, bin_idx: torch.Tensor,
+                             region_mix: torch.Tensor) -> torch.Tensor:
+    """Absorb a chunk of per-step region-access mixes at each step's
+    effective bin: ``bin_idx`` the ``(chunk, n_dimms)`` effective-bin trace
+    (``n_bins`` = the JEDEC sentinel, as :class:`ReplayResult` records it),
+    ``region_mix`` the ``(chunk, n_dimms, n_regions)`` int32 access counts.
+    An integer scatter over ``dimm · (n_bins + 1) + bin``, a block of steps
+    at a time (no one-hot of the bins is built); integer adds are exact in
+    any order, so the counts equal the reference's one-hot product."""
+    return region_counts_add_(counts.clone(memory_format=torch.contiguous_format),
+                              bin_idx, region_mix)
+
+
+def _region_speedup_grids(region_stack: torch.Tensor, cfg: SystemConfig,
+                          workloads: Tuple[Workload, ...]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(DIMM, effective bin, region) speedups of a rank-5 register stack
+    (each region's own block, the JEDEC row appended as the last bin), and
+    the region-oblivious per-(DIMM, effective bin) speedups of its
+    max-over-regions rows. Each region row is elementwise at most the
+    merge and IPC is monotone in every timing, so aware >= oblivious."""
+    n_dimms, _, n_regions = region_stack.shape[:3]
+    jedec = torch.tensor(list(JEDEC_DDR3_1600), dtype=torch.float32,
+                         device=region_stack.device)
+    jedec_rows = jedec.broadcast_to((n_dimms, 1, n_regions, len(ACCESS_TYPES),
+                                     len(PARAM_NAMES)))
+    rows = torch.cat([region_stack, jedec_rows], dim=1)          # (N, B+1, R, 2, 4)
+    sp = fleet_speedups(rows, cfg, workloads)                    # (N, B+1, R)
+    sp_obl = fleet_speedups(rows.amax(dim=2), cfg, workloads)    # (N, B+1)
+    return sp, sp_obl
+
+
+def region_score_finalize(
+    counts: torch.Tensor,
+    region_stack: torch.Tensor,
+    cfg: SystemConfig = MULTI_CORE,
+    claim: float = PAPER_CLAIM_SPEEDUP,
+    workloads: Tuple[Workload, ...] = WORKLOADS,
+) -> Dict[str, float]:
+    """Region-occupancy-weighted realized speedups from accumulated counts
+    (``(n_dimms, n_bins + 1, n_regions)`` int32) and a table's rank-5
+    ``(n_dimms, n_bins, n_regions, 2, 4)`` registers
+    (:meth:`~repro_torch.core.controller.DimmTimingTable.region_stack`):
+    ``speedup_region_aware_*`` serves each access at its own region's
+    timings, ``speedup_region_oblivious_*`` all of them at the
+    max-over-regions set; their gap is what the region axis buys."""
+    region_stack = region_stack.to(torch.float32)
+    if region_stack.dim() != 5 or tuple(region_stack.shape[3:]) != (
+            len(ACCESS_TYPES), len(PARAM_NAMES)):
+        raise ValueError(f"region_stack must be (n_dimms, n_bins, n_regions, 2, 4), "
+                         f"got {tuple(region_stack.shape)}")
+    n_dimms, n_bins, n_regions = region_stack.shape[:3]
+    if tuple(counts.shape) != (n_dimms, n_bins + 1, n_regions):
+        raise ValueError(f"counts shape {tuple(counts.shape)} does not match a "
+                         f"{n_dimms}-DIMM, {n_bins}-bin, {n_regions}-region table")
+    counts = counts.to(region_stack.device)
+    w = counts.to(torch.float32)                                 # (N, B+1, R)
+    total = w.sum(dim=(1, 2))
+    if bool((total <= 0).any()):
+        raise ValueError("cannot finalize a region score with zero accesses")
+    sp, sp_obl = _region_speedup_grids(region_stack, cfg, workloads)
+    sp_m, sp_obl_m = _region_speedup_grids(region_stack, cfg, MEM_INTENSIVE_WORKLOADS)
+    aware = (w * sp).sum(dim=(1, 2)) / total                     # (N,)
+    aware_m = (w * sp_m).sum(dim=(1, 2)) / total
+    per_bin = w.sum(dim=2)
+    obl = (per_bin * sp_obl).sum(dim=1) / total
+    obl_m = (per_bin * sp_obl_m).sum(dim=1) / total
+    near_frac = w[:, :, 0].sum(dim=1) / total
+    return {
+        "n_regions": float(n_regions),
+        "region_accesses_total": float(counts.to(torch.int64).sum()),
+        "nearest_region_access_frac": float(near_frac.mean()),
+        "speedup_region_aware_mean": float(aware.mean() - 1.0),
+        "speedup_region_aware_min": float(aware.min() - 1.0),
+        "speedup_region_aware_intensive_mean": float(aware_m.mean() - 1.0),
+        "speedup_region_oblivious_mean": float(obl.mean() - 1.0),
+        "speedup_region_oblivious_intensive_mean": float(obl_m.mean() - 1.0),
+        "region_aware_advantage_intensive": float((aware_m - obl_m).mean()),
+        "speedup_region_aware_vs_claim": float(aware_m.mean() - 1.0) - claim,
+    }
+
+
+def region_trace_score(
+    region_stack: torch.Tensor,
+    replay,
+    region_mix: torch.Tensor,
+    cfg: SystemConfig = MULTI_CORE,
+    claim: float = PAPER_CLAIM_SPEEDUP,
+    workloads: Tuple[Workload, ...] = WORKLOADS,
+) -> Dict[str, float]:
+    """Score a materialized replay (duck-typed: only ``bin_idx``, the
+    ``(S, N)`` effective-bin history, is read; bin dynamics depend on the
+    temperature only, so one replay scores any region resolution) against
+    rank-5 registers, given the ``(S, N, R)`` per-step region-access mix:
+    init, accumulate the whole trace, finalize — the counts a streamed
+    replay carries chunk by chunk."""
+    if region_stack.dim() != 5:
+        raise ValueError(f"region_stack must be rank-5, got {tuple(region_stack.shape)}; "
+                         "pass DimmTimingTable.region_stack()")
+    n_dimms, n_bins, n_regions = region_stack.shape[:3]
+    counts = region_counts_add_(
+        region_counts_init(n_dimms, n_bins, n_regions, region_stack.device),
+        replay.bin_idx, region_mix)
+    return region_score_finalize(counts, region_stack, cfg, claim, workloads)

@@ -80,11 +80,14 @@ class ProfileResult:
         return {k: (float(v.min()), float(v.max())) for k, v in self.reductions.items()}
 
 
-def _refuse_regions(region_frac) -> None:
+def _effective(cells: CellParams, pattern, region_frac,
+               consts: ChargeModelConstants) -> CellParams:
+    """The cells with a data pattern folded in and, unless ``region_frac``
+    is ``None`` (the region-free computation, unchanged), a region class."""
+    eff = charge.apply_pattern(cells, pattern)
     if region_frac is not None:
-        raise NotImplementedError(
-            "region_frac (per-region profiling, charge.apply_region) is not "
-            "ported yet (ROADMAP queue 1, item 1)")
+        eff = charge.apply_region(eff, region_frac, consts)
+    return eff
 
 
 def _jedec(like: torch.Tensor) -> torch.Tensor:
@@ -108,9 +111,9 @@ def individual_min_timings(
     ``(broadcast shape of cells and temp_c, 4)`` ns. Both access modes come
     out of one fused search; batch callers wanting both stacks call
     :func:`~repro_torch.kernels.charge_sweep.ops.sweep_min_timings` once,
-    as ``fleet.sweep`` does."""
-    _refuse_regions(region_frac)
-    eff = charge.apply_pattern(cells, pattern)
+    as ``fleet.sweep`` does. ``region_frac`` folds a distance-from-sense-amp
+    class into the effective cell (:func:`charge.apply_region`)."""
+    eff = _effective(cells, pattern, region_frac, consts)
     read, _ = charge_sweep.sweep_min_timings(eff, temp_c, window_s, consts)
     return read
 
@@ -135,11 +138,11 @@ def write_mode_min_timings(
     """Write-test minimal timings for all four parameters (Fig. 2b):
     ``(..., 4)`` ns. ``tras_mode="untested"`` fills the tRAS column with
     :data:`WRITE_TRAS_UNTESTED_NS`, which every table builder refuses (for
-    tests of that refusal, never for real tables)."""
+    tests of that refusal, never for real tables). ``region_frac`` as in
+    :func:`individual_min_timings`."""
     if tras_mode not in WRITE_TRAS_MODES:
         raise ValueError(f"tras_mode must be one of {WRITE_TRAS_MODES}, got {tras_mode!r}")
-    _refuse_regions(region_frac)
-    eff = charge.apply_pattern(cells, pattern)
+    eff = _effective(cells, pattern, region_frac, consts)
     _, write = charge_sweep.sweep_min_timings(eff, temp_c, window_s, consts)
     return untested_tras(write) if tras_mode == "untested" else write
 

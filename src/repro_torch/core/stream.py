@@ -16,6 +16,15 @@ layouts only when :attr:`~StreamingController.state`,
 :attr:`~StreamingController.partials` or :meth:`~StreamingController.score`
 is read.
 
+A region-profiled table's stream may carry a per-step region-access mix
+(:func:`replay_stream` ``region_mix=``): the engine then also carries int32
+``(N, B+1, R)`` counts of the accesses each region took in each effective
+bin. On the CPU a chunk runs the plain
+:func:`~repro_torch.kernels.replay_step.ref.region_chunk_scan`; on the card
+each step launches the chunk kernel for one step on the running partials and
+adds that step's mix row at its effective bin, so the partials are those of
+a mix-free stream bitwise.
+
 Ingestion (:class:`_Ingestor`): on the card each chunk is copied into one
 of two pinned host buffers and sent with a ``non_blocking`` copy on a side
 stream; events order the copy before the kernel that reads it and the next
@@ -43,10 +52,14 @@ from repro_torch.core.perfmodel import (
     PAPER_CLAIM_SPEEDUP,
     WORKLOADS,
     ScorePartials,
+    region_counts_add_,
+    region_counts_init,
+    region_score_finalize,
     trace_score_finalize,
     trace_score_init,
 )
 from repro_torch.kernels.replay_step import ops as replay_ops
+from repro_torch.kernels.replay_step import ref as replay_ref
 
 #: Default step-axis chunk length: 256 minute-cadence observations ≈ 4 h.
 DEFAULT_CHUNK_STEPS: int = 256
@@ -175,6 +188,9 @@ class StreamResult(NamedTuple):
     table: DimmTimingTable
     n_chunks: int
     errors_total: int
+    #: (n_dimms, n_bins + 1, n_regions) int32 region-access counts, only when
+    #: the stream carried a region mix (``replay_stream(region_mix=)``).
+    region_counts: Optional[torch.Tensor] = None
 
     @property
     def n_steps(self) -> int:
@@ -189,6 +205,16 @@ class StreamResult(NamedTuple):
         """The trace-score dict, with the table's refresh figures."""
         return trace_score_finalize(self.partials, self.table.oblivious_stack(),
                                     cfg, claim, workloads, self.table.bin_refresh())
+
+    def region_score(self, cfg=MULTI_CORE, claim: float = PAPER_CLAIM_SPEEDUP,
+                     workloads=WORKLOADS):
+        """The region-score dict of the streamed counts and the table's rank-5
+        registers, equal to the materialized ``region_trace_score``."""
+        if self.region_counts is None:
+            raise ValueError("this stream carried no region mix; pass region_mix= to "
+                             "replay_stream")
+        return region_score_finalize(self.region_counts, self.table.region_stack(), cfg,
+                                     claim, workloads)
 
 
 class StreamingController:
@@ -213,6 +239,7 @@ class StreamingController:
             trace_score_init(table.n_dimms, table.n_bins, dev)
         )
         self._n_steps = 0
+        self._region_counts: Optional[torch.Tensor] = None
         self._ingest = _Ingestor(table.n_dimms, dev, rows=chunk_steps)
         if dev.type == "cuda":
             replay_ops.load_kernel()
@@ -242,17 +269,50 @@ class StreamingController:
             raise NotImplementedError(
                 "the decision-emitting path (return_decisions=True) is not ported yet"
             )
+        self._absorb(temps, errors)
+
+    def _absorb(self, temps, errors, region_mix: Optional[torch.Tensor] = None) -> None:
+        """:meth:`ingest`, with the chunk's ``(c, N, R)`` region mix when the
+        stream carries one (:func:`replay_stream`)."""
         if np.ndim(temps) == 1:
             temps = temps[None]
             errors = None if errors is None else errors[None]
         temps_d, errs_d, slot = self._ingest.stage(temps, errors)
-        self._state3, self._occ, self._sw, self._sums = replay_ops.chunk_scan(
-            self._state3, self._occ, self._sw, self._sums, self._stack_t,
-            temps_d, errs_d, self._scal,
-        )
+        if region_mix is None:
+            self._state3, self._occ, self._sw, self._sums = replay_ops.chunk_scan(
+                self._state3, self._occ, self._sw, self._sums, self._stack_t,
+                temps_d, errs_d, self._scal,
+            )
+        else:
+            self._scan_regions(temps_d, errs_d, region_mix)
         self._ingest.release(slot)
         self._n_steps += int(temps_d.shape[0])
         self.n_chunks += 1
+
+    def _scan_regions(self, temps_d: torch.Tensor, errs_d: torch.Tensor,
+                      region_mix: torch.Tensor) -> None:
+        """One chunk with the region-count carry (see the module docstring)."""
+        table = self.table
+        if self._region_counts is None:
+            self._region_counts = region_counts_init(table.n_dimms, table.n_bins,
+                                                     table.n_regions, table.device)
+        if table.device.type == "cpu":
+            edges = torch.tensor(table.temp_bins, dtype=torch.float32)
+            out = replay_ref.region_chunk_scan(
+                table.oblivious_stack(), edges, self.params, self.state, *self.partials,
+                self._region_counts, temps_d, errs_d != 0, region_mix)
+            self._state3 = replay_ops.to_state3(out[0])
+            self._occ, self._sw, self._sums = replay_ops.to_slot_partials(
+                ScorePartials(*out[1:5]))
+            self._region_counts = out[5]
+            return
+        for k in range(temps_d.shape[0]):
+            self._state3, self._occ, self._sw, self._sums = replay_ops.chunk_scan(
+                self._state3, self._occ, self._sw, self._sums, self._stack_t,
+                temps_d[k:k + 1], errs_d[k:k + 1], self._scal,
+            )
+            eff = torch.where(self._state3[2] != 0, table.n_bins, self._state3[0])
+            region_counts_add_(self._region_counts, eff[None], region_mix[k:k + 1])
 
     def score(self, cfg=MULTI_CORE, claim: float = PAPER_CLAIM_SPEEDUP,
               workloads=WORKLOADS):
@@ -263,18 +323,40 @@ class StreamingController:
 
     def result(self) -> StreamResult:
         return StreamResult(state=self.state, partials=self.partials, table=self.table,
-                            n_chunks=self.n_chunks, errors_total=self.errors_total)
+                            n_chunks=self.n_chunks, errors_total=self.errors_total,
+                            region_counts=self._region_counts)
 
 
 def replay_stream(table: DimmTimingTable, traces, errors=None,
                   params: ControllerParams = ControllerParams(),
                   state: Optional[ControllerState] = None,
-                  chunk_steps: int = DEFAULT_CHUNK_STEPS) -> StreamResult:
+                  chunk_steps: int = DEFAULT_CHUNK_STEPS,
+                  region_mix=None) -> StreamResult:
     """Replay a host-memory ``(n_steps, n_dimms)`` trace in step-axis chunks
-    through a :class:`StreamingController`."""
+    through a :class:`StreamingController`.
+
+    ``region_mix`` — optional ``(n_steps, n_dimms, n_regions)`` int32
+    per-step region-access counts of the table's regions (a tensor on the
+    table's device or on the host, or an array): the stream then carries the
+    region counts (:attr:`StreamResult.region_counts`,
+    :meth:`StreamResult.region_score`), chunked in lockstep with the trace,
+    equal to a materialized accumulation at every chunking."""
+    if region_mix is not None:
+        if not hasattr(traces, "shape"):
+            raise ValueError("region_mix requires a materialized (n_steps, n_dimms) "
+                             "traces array (chunked in lockstep with the mix)")
+        region_mix = torch.as_tensor(region_mix)
+        if region_mix.dim() != 3 or region_mix.shape[2] != table.n_regions:
+            raise ValueError(f"region_mix must be (n_steps, n_dimms, {table.n_regions}), "
+                             f"got {tuple(region_mix.shape)}")
+        if tuple(region_mix.shape[:2]) != tuple(traces.shape):
+            raise ValueError(f"region_mix leading shape {tuple(region_mix.shape[:2])} != "
+                             f"traces shape {tuple(traces.shape)}")
     if traces.shape[1] != table.n_dimms:
         raise ValueError(f"trace has {traces.shape[1]} DIMMs, table has {table.n_dimms}")
     engine = StreamingController(table, params, state)
-    for temps, errs in iter_chunks(traces, errors, chunk_steps):
-        engine.ingest(temps, errs)
+    for s, (temps, errs) in zip(range(0, traces.shape[0], chunk_steps),
+                                iter_chunks(traces, errors, chunk_steps)):
+        engine._absorb(temps, errs,
+                       None if region_mix is None else region_mix[s:s + chunk_steps])
     return engine.result()

@@ -18,12 +18,15 @@ either respect the paper's field bounds (§1.4: drift <0.1 °C/s, never above
 * :func:`hot_bank` — a fraction of the fleet lifted a few °C by a hammered
   bank, gradually.
 * :func:`design_skew` — thermally the diurnal regime (its signature is the
-  region-access mix, which waits for the region slice).
+  region-access mix, :data:`SCENARIO_REGION_PROFILES`).
 * :func:`vendor_skew` — per-vendor constant thermal offsets.
 
 Random draws come from a ``torch.Generator``, or are passed in pre-drawn
-(:class:`DiurnalNoise`, :class:`EventDraws`), which is how the tests feed
-the port the reference's own ``jax.random`` draws.
+(:class:`DiurnalNoise`, :class:`EventDraws`, ``hot_region=``), which is how
+the tests feed the port the reference's own ``jax.random`` draws.
+
+:func:`region_access_mix` gives the per-step region-access counts that
+region-aware scoring weighs (:func:`repro_torch.core.perfmodel.region_trace_score`).
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.charge import div
 
 #: Paper §1.4 field measurement: the deployment-regime drift bound.
 PAPER_MAX_DRIFT_C_PER_S: float = 0.1
@@ -241,8 +245,9 @@ def hot_bank(generator, n_dimms: int, n_steps: int, dt_s: float = DEFAULT_DT_S,
 def design_skew(generator, n_dimms: int, n_steps: int, dt_s: float = DEFAULT_DT_S,
                 device: str | torch.device = "cuda", draws: Optional[DiurnalNoise] = None,
                 **diurnal_kw) -> torch.Tensor:
-    """Design-induced-variation regime: thermally the diurnal one (its
-    region-access mix waits for the region slice)."""
+    """Design-induced-variation regime: thermally the diurnal one; its
+    signature is the near-skewed region-access mix it pairs with
+    (:data:`SCENARIO_REGION_PROFILES`)."""
     return diurnal(generator, n_dimms, n_steps, dt_s, device=device, draws=draws,
                    **diurnal_kw)
 
@@ -276,6 +281,14 @@ SCENARIOS: Dict[str, Callable[..., torch.Tensor]] = {
 }
 
 
+#: Default region-access-mix profile per scenario (:func:`region_access_mix`);
+#: scenarios without a region signature read uniformly.
+SCENARIO_REGION_PROFILES: Dict[str, str] = {
+    "design_skew": "near",
+    "hot_bank": "hot_bank",
+}
+
+
 def generate(name: str, generator: Optional[torch.Generator], n_dimms: int, n_steps: int,
              dt_s: float = DEFAULT_DT_S, device: str | torch.device = "cuda",
              **kw) -> torch.Tensor:
@@ -297,3 +310,90 @@ def error_injections(generator: torch.Generator, n_steps: int, n_dimms: int,
         return torch.zeros((n_steps, n_dimms), dtype=torch.bool, device=dev)
     u = torch.rand((n_steps, n_dimms), generator=generator, dtype=torch.float32, device=dev)
     return u < rate
+
+
+#: Region-access-mix profiles (see :func:`region_access_mix`).
+REGION_MIX_PROFILES: Tuple[str, ...] = ("uniform", "near", "far", "hot_bank")
+
+
+def _row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis, left to right, one float32 add at a time (the
+    order a small reduction takes in the reference), so that the allocation's
+    floors do not depend on a reduction's blocking."""
+    out = x[..., 0]
+    for r in range(1, x.shape[-1]):
+        out = out + x[..., r]
+    return out
+
+
+def _integer_allocate(weights: torch.Tensor, total: int) -> torch.Tensor:
+    """Split ``total`` accesses across the last axis in proportion to
+    ``weights``: floors, then the remainder dealt one each to the slots of
+    largest fractional remainder (ties to the lower index, by stable sorts),
+    so every row sums to exactly ``total``. int32."""
+    w = weights / _row_sum(weights)[..., None]
+    ideal = w * float(total)
+    floor = torch.floor(ideal)
+    base = floor.to(torch.int32)
+    short = total - base.sum(dim=-1, dtype=torch.int32)
+    frac = ideal - floor
+    order = torch.argsort(-frac, dim=-1, stable=True)
+    rank = torch.argsort(order, dim=-1, stable=True)
+    return base + (rank < short[..., None]).to(torch.int32)
+
+
+def region_access_mix(
+    generator: Optional[torch.Generator],
+    n_steps: int,
+    n_dimms: int,
+    n_regions: int,
+    profile: str = "uniform",
+    accesses_per_step: int = 64,
+    skew: float = 4.0,
+    hot_share: float = 0.75,
+    hot_region: Optional[torch.Tensor] = None,
+    device: str | torch.device = "cuda",
+) -> torch.Tensor:
+    """Per-step region-access counts, ``(n_steps, n_dimms, n_regions)``
+    int32, each row summing to ``accesses_per_step``; region 0 is the
+    nearest (fastest) class. Profiles:
+
+    * ``"uniform"`` — an equal split (remainders to the nearest regions);
+    * ``"near"`` — a geometric skew toward near regions, ratio ``skew``
+      between the nearest and the farthest (page placement on fast rows);
+    * ``"far"`` — its mirror image (adversarial for region awareness);
+    * ``"hot_bank"`` — each DIMM puts ``hot_share`` of its accesses in one
+      region (drawn from ``generator``, or given as ``hot_region``, an
+      ``(n_dimms,)`` integer tensor), the rest uniform.
+
+    Counts are deterministic given the weights (largest-remainder
+    allocation). The rows do not change over steps, so the result is an
+    ``expand``ed view of one ``(n_dimms, n_regions)`` allocation, not a copy."""
+    if n_regions < 1:
+        raise ValueError(f"n_regions must be >= 1, got {n_regions}")
+    if accesses_per_step < 1:
+        raise ValueError(f"accesses_per_step must be >= 1, got {accesses_per_step}")
+    if profile not in REGION_MIX_PROFILES:
+        raise ValueError(f"unknown region mix profile {profile!r}; choose from "
+                         f"{REGION_MIX_PROFILES}")
+    dev = resolve_device(device)
+    idx = torch.arange(n_regions, dtype=torch.float32, device=dev)
+    if profile == "uniform":
+        w = torch.ones((1, n_regions), dtype=torch.float32, device=dev)
+    elif profile in ("near", "far"):
+        span = max(n_regions - 1, 1)
+        g = torch.pow(torch.full((), skew, dtype=torch.float32, device=dev),
+                      div(-idx, float(span)))
+        w = (g.flip(0) if profile == "far" else g)[None, :]
+    else:
+        if hot_region is None:
+            hot_region = torch.randint(0, n_regions, (n_dimms,), generator=generator,
+                                       device=dev)
+        hot_region = torch.as_tensor(hot_region).to(device=dev)
+        if tuple(hot_region.shape) != (n_dimms,):
+            raise ValueError(f"hot_region must be ({n_dimms},), got {tuple(hot_region.shape)}")
+        regions = torch.arange(n_regions, device=dev)
+        onehot = (hot_region.long()[:, None] == regions[None, :]).to(torch.float32)
+        w = onehot * hot_share + (1.0 - hot_share) / float(n_regions)
+    per_dimm = _integer_allocate(w, accesses_per_step).expand(n_dimms, n_regions)
+    return per_dimm[None].expand(n_steps, n_dimms, n_regions)

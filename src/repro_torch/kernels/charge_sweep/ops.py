@@ -12,6 +12,7 @@ Both access modes come out of one pass.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -131,10 +132,15 @@ def stacked_invariants(
     consts: ChargeModelConstants = DEFAULT_CONSTANTS,
 ) -> Tuple[torch.Tensor, Tuple[int, ...]]:
     """The invariants broadcast, flattened and stacked to the search's
-    contiguous ``(18, cells)`` input, plus the broadcast cell shape."""
+    contiguous ``(18, cells)`` input, plus the broadcast cell shape. Each
+    invariant is copied straight into its row of the stack, so no flattened
+    copy is made beside it."""
     inv = cell_invariants(cells_eff, temp_c, window_s, consts)
     shape = tuple(torch.broadcast_shapes(*(a.shape for a in inv)))
-    flat = torch.stack([a.broadcast_to(shape).reshape(-1) for a in inv])
+    flat = torch.empty((len(inv), math.prod(shape)), dtype=torch.float32,
+                       device=inv[0].device)
+    for row, a in zip(flat, inv):
+        row.view(shape).copy_(a)
     return flat, shape
 
 

@@ -9,6 +9,11 @@ step order; the CUDA kernel (:mod:`.kernel`) must reproduce the final
 state and partials bit for bit. Public layouts are the reference's:
 ``(N,)`` state, ``(N, B+1)`` occupancy, ``(N, 2, 4)`` sums,
 ``(N, B, 2, 4)`` stack, ``(chunk, N)`` telemetry.
+
+:func:`region_chunk_scan` adds the int32 ``(N, B+1, R)`` region-access-count
+carry of a region-profiled table's stream; it has no kernel of its own (on a
+card the stream advances each step on the chunk kernel and adds that step's
+mix row at its effective bin).
 """
 
 from __future__ import annotations
@@ -18,7 +23,11 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.controller import ControllerParams, ControllerState, step_plain
-from repro_torch.core.perfmodel import ScorePartials, trace_score_accumulate_plain
+from repro_torch.core.perfmodel import (
+    ScorePartials,
+    region_counts_add_,
+    trace_score_accumulate_plain,
+)
 
 
 def chunk_body(stack: torch.Tensor, edges: torch.Tensor, params: ControllerParams,
@@ -41,3 +50,22 @@ def chunk_scan(stack, edges, params, state, occupancy, switches, timing_sums, n_
     partials = ScorePartials(occupancy, switches, timing_sums, n_steps)
     state, partials = chunk_body(stack, edges, params, state, partials, temps, errors)
     return (state,) + tuple(partials)
+
+
+def region_chunk_scan(stack, edges, params, state, occupancy, switches, timing_sums, n_steps,
+                      region_counts, temps, errors, region_mix):
+    """:func:`chunk_scan` plus the region-count carry: each step advances the
+    same state machine on ``stack``, the region-oblivious ``(N, B, 2, 4)``
+    registers (bin dynamics depend on the temperature only), then adds that
+    step's ``(N, R)`` row of ``region_mix`` at its effective bin. Returns
+    ``(state, occupancy, switches, timing_sums, n_steps, region_counts)``;
+    the partials are those of :func:`chunk_scan` bitwise."""
+    partials = ScorePartials(occupancy, switches, timing_sums, n_steps)
+    counts = region_counts.clone(memory_format=torch.contiguous_format)
+    for k in range(temps.shape[0]):
+        state, rows, switched, eff = step_plain(
+            stack, edges, params, state, temps[k], None if errors is None else errors[k]
+        )
+        partials = trace_score_accumulate_plain(partials, rows[None], eff[None], switched[None])
+        region_counts_add_(counts, eff[None], region_mix[k:k + 1])
+    return (state,) + tuple(partials) + (counts,)

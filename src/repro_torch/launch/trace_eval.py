@@ -15,11 +15,26 @@ on a card one launch of the accumulate kernel).
   PYTHONPATH=src python -m repro_torch.launch.trace_eval --device cuda \\
       --n-dimms 65536 --n-steps 10000 --scenario refresh_storm
 
+With ``--regions R`` (default 4 for the scenarios of
+``traces.SCENARIO_REGION_PROFILES``, ``design_skew`` and ``hot_bank``) the
+same fleet is profiled again over R distance-from-sense-amp regions
+(:func:`~repro_torch.core.fleet.sweep_regions`, one charge-sweep launch) into
+a rank-5 table, and the same replay's bin history is scored under the
+scenario's region-access mix (:func:`~repro_torch.core.perfmodel.region_trace_score`):
+each access at its own region's registers (aware) against all of them at
+the max-over-regions set (oblivious).
+
+  PYTHONPATH=src python -m repro_torch.launch.trace_eval --device cpu --tiny \\
+      --scenario design_skew
+
 Gates (the run raises on any): the replay equals the observe loop
 exactly on the sub-grid; every DIMM's coolest-bin read tRAS sits below
 JEDEC; with a refresh policy the combined speedups do not exceed the
-latency-only ones. Rows print as ``name,value,reference`` lines; no file is
-written. The reference's region and sharded sections are not ported.
+latency-only ones; the region table's max-over-regions registers equal the
+region-free table's bitwise (the anchor region), and on a ``near`` mix the
+region-aware speedup lies strictly above the oblivious one. Rows print as
+``name,value,reference`` lines; no file is written. The reference's sharded
+section is not ported.
 """
 
 from __future__ import annotations
@@ -38,8 +53,9 @@ from repro_torch.core import refresh as rf
 #: --refresh choices -> table refresh policy.
 REFRESH_POLICIES = {"ddr3": rf.DDR3_EXTENDED, "ddr3_4x": rf.DDR3_EXTENDED_4X, "off": None}
 
-#: Scenarios whose reference evaluation adds a region section by default.
-REGION_SCENARIOS = ("design_skew", "hot_bank")
+#: Regions profiled for the region section (``regions=None`` picks this for
+#: the scenarios of ``traces.SCENARIO_REGION_PROFILES``, 0 for the others).
+DEFAULT_N_REGIONS = 4
 
 
 def _sync(dev: torch.device) -> None:
@@ -84,6 +100,7 @@ def run(
     table: Optional[controller.DimmTimingTable] = None,
     trace: Optional[torch.Tensor] = None,
     errors: Optional[torch.Tensor] = None,
+    region_mix: Optional[torch.Tensor] = None,
 ) -> Dict:
     """Evaluate the controller on one scenario; returns ``rows`` (name,
     value, reference) as the reference benchmark prints them, the ``score``
@@ -91,25 +108,23 @@ def run(
     ``trace`` and ``errors`` it used.
 
     Inputs are made from ``seed`` with one ``torch.Generator`` on the device
-    (fleet, then trace, then errors) unless given: ``fleet_in`` (on
-    ``device``) replaces the synthesized fleet, ``table`` the profiled
-    registers (its refresh policy is replaced by ``refresh``'s), ``trace``
-    / ``errors`` the generated telemetry; the last three are moved to
-    ``device``."""
+    (fleet, then trace, then errors, then the region mix) unless given:
+    ``fleet_in`` (on ``device``) replaces the synthesized fleet, ``table``
+    the profiled registers (its refresh policy is replaced by
+    ``refresh``'s), ``trace`` / ``errors`` the generated telemetry,
+    ``region_mix`` the ``(n_steps, n_dimms, regions)`` region-access mix;
+    ``table``, ``trace`` and ``errors`` are moved to ``device``. With
+    regions the report adds ``region_score``, ``region_table`` and
+    ``region_s`` (the section's seconds)."""
     if sharded:
         raise NotImplementedError(
             "--sharded: the DIMM-axis split over torch.distributed is not ported yet "
             "(ROADMAP queue 1 item 6, shard.py)")
-    if regions is None and scenario in REGION_SCENARIOS:
-        regions = 0
-        if verbose:
-            print(f"# note: {scenario} pairs with a region-access mix in the reference; "
-                  "regions are not ported yet (ROADMAP queue 1 item 1), so this run "
-                  "scores the region-free table only")
-    if regions:
-        raise NotImplementedError(
-            f"regions={regions}: the region section (sweep_regions, rank-5 tables, "
-            "region_trace_score) is not ported yet (ROADMAP queue 1 item 1)")
+    if regions is None:
+        regions = DEFAULT_N_REGIONS if scenario in traces.SCENARIO_REGION_PROFILES else 0
+    if regions and fleet_in is None and table is not None:
+        raise ValueError("the region section profiles the fleet: pass fleet_in with the "
+                         "table, or regions=0")
     if scenario not in traces.SCENARIOS:
         raise ValueError(f"unknown scenario {scenario!r}; choose from {sorted(traces.SCENARIOS)}")
     dev = resolve_device(device)
@@ -173,6 +188,43 @@ def run(
     t_finalize = time.perf_counter() - t0
     fused_dimms = float(res.state.fused.sum())
 
+    # -- region section: the same fleet's region registers, the same history --
+    # The anchor region makes the region table's max-over-regions registers
+    # the replay table's bitwise, so res.bin_idx is the bin history a
+    # region-oblivious controller realizes: no second replay.
+    region_rows, region_score, rtable, t_region = [], None, None, 0.0
+    if regions:
+        t0 = time.perf_counter()
+        rtable = fleet.sweep_regions(fl, temps_c=tuple(temp_bins), patterns=(1.0,),
+                                     n_regions=regions).to_table()
+        if not torch.equal(rtable.oblivious_stack(), table.stack):
+            raise AssertionError("the region table's max-over-regions registers differ from "
+                                 "the region-free profile: the anchor contract is broken")
+        profile = traces.SCENARIO_REGION_PROFILES.get(scenario, "uniform")
+        if region_mix is None:
+            region_mix = traces.region_access_mix(gen, n_steps, n_dimms, regions,
+                                                  profile=profile, device=dev)
+        region_score = perfmodel.region_trace_score(rtable.region_stack(), res, region_mix)
+        t_region = time.perf_counter() - t0
+        aware = region_score["speedup_region_aware_intensive_mean"]
+        oblivious = region_score["speedup_region_oblivious_intensive_mean"]
+        if profile == "near" and not aware > oblivious:
+            raise AssertionError(f"region-aware intensive speedup {aware:.6f} is not strictly "
+                                 f"above the oblivious {oblivious:.6f} on the near mix")
+        region_rows = [
+            ("trace/region_n_regions", float(regions), ""),
+            ("trace/region_mix_" + profile, 1.0, ""),
+            ("trace/region_seconds", t_region, ""),
+            ("trace/nearest_region_access_frac",
+             region_score["nearest_region_access_frac"], ""),
+            ("trace/speedup_region_aware_intensive_mean", aware,
+             "per-(DIMM,bin,region) lookup"),
+            ("trace/speedup_region_oblivious_intensive_mean", oblivious,
+             "max-over-regions registers"),
+            ("trace/region_aware_advantage_intensive",
+             region_score["region_aware_advantage_intensive"], "> 0 on skewed mixes"),
+        ]
+
     if score["tras_below_jedec_coolest_frac"] < 1.0:
         raise AssertionError(
             "tRAS-at-JEDEC symptom: some DIMM's coolest-bin read set does not reduce "
@@ -227,6 +279,7 @@ def run(
              score["speedup_realized_intensive_mean"] - score["speedup_combined_intensive_mean"],
              ">= 0"),
         ])
+    rows.extend(region_rows)
 
     if verbose:
         print(f"# {scenario}: {n_dimms} DIMMs x {n_steps} steps = {n_dimms * n_steps:,} "
@@ -243,9 +296,17 @@ def run(
             print(f"# refresh ({refresh}): occupancy {score['refresh_occupancy_mean'] * 100:.2f}% "
                   f"of tREFI | combined +{score['speedup_combined_mean'] * 100:.1f}% all, "
                   f"+{score['speedup_combined_intensive_mean'] * 100:.1f}% mem-intensive")
+        if region_score is not None:
+            print(f"# regions ({regions}): aware "
+                  f"+{region_score['speedup_region_aware_intensive_mean'] * 100:.1f}% vs "
+                  f"oblivious "
+                  f"+{region_score['speedup_region_oblivious_intensive_mean'] * 100:.1f}% "
+                  f"mem-intensive (advantage "
+                  f"+{region_score['region_aware_advantage_intensive'] * 100:.2f} pp)")
     return {"rows": rows, "score": score, "partials": partials, "replay": res,
             "table": table, "trace": trace, "errors": errors, "scan_s": t_scan,
-            "loop_exact": exact}
+            "loop_exact": exact, "region_score": region_score, "region_table": rtable,
+            "region_mix": region_mix, "region_s": t_region}
 
 
 def main() -> None:
@@ -267,7 +328,10 @@ def main() -> None:
                     help="steps timed in the observe loop (default 500)")
     ap.add_argument("--tiny", action="store_true", help="64 DIMMs x 512 steps, loop 8 x 128")
     ap.add_argument("--sharded", action="store_true", help="not ported yet (raises)")
-    ap.add_argument("--regions", type=int, default=None, help="not ported yet (> 0 raises)")
+    ap.add_argument("--regions", type=int, default=None,
+                    help=f"profile this many distance-from-sense-amp regions and add the "
+                         f"region-aware vs -oblivious section (default {DEFAULT_N_REGIONS} "
+                         f"for {', '.join(sorted(traces.SCENARIO_REGION_PROFILES))}, else 0)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()

@@ -440,3 +440,50 @@ def test_speedup_report_on_card_matches_cpu(cuda_device, cfg):
     assert card.keys() == host.keys()
     for k in host:
         assert card[k] == pytest.approx(host[k], abs=chip_smoke.REPORT_TOL), k
+
+
+def test_sweep_regions_on_card_one_launch_and_anchor(cuda_device):
+    """``fleet.sweep_regions`` on the card: one charge-sweep launch for the
+    whole (T, P, R, N) grid, the anchor region bitwise the card's
+    ``fleet.sweep``, and the CPU's stacks equal up to threshold flips
+    (``chip_smoke.sweep_mismatches``)."""
+    fl = _profile_fleet(cuda_device)
+    before = sweep_kernel.charge_sweep_cuda.launches
+    card = fleet.sweep_regions(fl, n_regions=4)
+    assert sweep_kernel.charge_sweep_cuda.launches == before + 1
+    free = fleet.sweep(fl)
+    for k in ("read", "write"):
+        assert torch.equal(_bits(getattr(card, k)[:, :, -1]), _bits(getattr(free, k)))
+        assert bool((getattr(card, k).diff(dim=2) >= 0).all())
+    host_cells = charge.CellParams(*(a.cpu() for a in fl.cells))
+    cmp = chip_smoke.sweep_mismatches(card, fleet.sweep_regions(host_cells, n_regions=4),
+                                      host_cells)
+    print(*(cmp["read"][2] + cmp["write"][2]), sep="\n")
+    assert cmp["read"][1] == cmp["write"][1] == 0
+
+
+def test_region_stream_on_card_matches_cpu(cuda_device):
+    """The region stream on the card (one replay-chunk launch a step, the
+    step's mix row added at its effective bin) against the CPU's plain
+    region chunk scan: counts, partials and state equal."""
+    from repro_torch.core import stream, traces
+
+    fl = _profile_fleet(cuda_device)
+    table = controller.DimmTimingTable.profile(fl.cells, chip_smoke.BOOT_BINS, n_regions=4)
+    g = torch.Generator().manual_seed(3)
+    temps = torch.rand((150, PROFILE_DIMMS), generator=g) * 75.0 + 20.0
+    errors = torch.rand(temps.shape, generator=g) < 1e-3
+    mix = traces.region_access_mix(None, 150, PROFILE_DIMMS, 4, profile="near",
+                                   device=cuda_device)
+    before = replay_kernel.replay_chunk_cuda.launches
+    card = stream.replay_stream(table, temps, errors, chunk_steps=64, region_mix=mix)
+    assert replay_kernel.replay_chunk_cuda.launches == before + 150
+    host = stream.replay_stream(table.to("cpu"), temps, errors, chunk_steps=64,
+                                region_mix=mix.cpu())
+    assert torch.equal(card.region_counts.cpu(), host.region_counts)
+    for a, b in zip(card.partials, host.partials):
+        assert torch.equal(_bits(a).cpu(), _bits(b))
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(card.state, host.state))
+    free = stream.replay_stream(table, temps, errors, chunk_steps=64)
+    for a, b in zip(card.partials, free.partials):
+        assert torch.equal(_bits(a), _bits(b))

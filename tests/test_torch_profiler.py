@@ -224,12 +224,18 @@ def test_untested_sentinel_and_its_refusal(pop, jax_minima):
 
 
 def test_regions_are_refused_naming_item_1(pop):
+    """Regions (item 1) are ported: ``region_frac`` is the same search on the
+    cells with ``r`` scaled by the region's factor, and ``profile`` with two
+    regions gives a rank-5 table whose max-over-regions registers are the
+    region-free profile (tests/test_torch_regions.py holds them against the
+    reference)."""
     _, _, cells, _ = pop
+    scaled = charge.CellParams(cells.r * charge.region_factor(0.5), cells.c, cells.leak)
     for fn in (profiler.individual_min_timings, profiler.write_mode_min_timings):
-        with pytest.raises(NotImplementedError, match="item 1"):
-            fn(cells, 55.0, region_frac=0.5)
-    with pytest.raises(NotImplementedError, match="item 1"):
-        DimmTimingTable.profile(cells, (55.0,), n_regions=2)
+        assert torch.equal(fn(cells, 55.0, region_frac=0.5), fn(scaled, 55.0))
+    two = DimmTimingTable.profile(cells, (55.0,), n_regions=2)
+    assert two.n_regions == 2 and tuple(two.stack.shape) == (115, 1, 2, 2, 4)
+    assert torch.equal(two.oblivious_stack(), DimmTimingTable.profile(cells, (55.0,)).stack)
 
 
 def test_joint_on_the_paper_population(sweeps, pop):

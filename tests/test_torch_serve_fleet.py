@@ -178,16 +178,17 @@ def test_entry_points_refuse_cuda_without_a_card():
 
 
 def test_unported_paths_raise():
-    """Regions and the decision-emitting path still raise; refresh policies
-    and every scenario now run (ported with the trace-driven evaluation)."""
+    """The decision-emitting path still raises; refresh policies, every
+    scenario and rank-5 region tables now run (regions: item 1)."""
     from repro_torch.core import refresh
 
     stack = torch.full((2, 5, 2, 4), 10.0)
     table = controller.DimmTimingTable(jcontroller.DEFAULT_TEMP_BINS, stack,
                                        refresh=refresh.DDR3_EXTENDED)
     assert len(table.bin_refresh().occupancy) == 6
-    with pytest.raises(NotImplementedError, match="regions"):
-        controller.DimmTimingTable(jcontroller.DEFAULT_TEMP_BINS, stack[:, :, None].repeat(1, 1, 2, 1, 1))
+    two = controller.DimmTimingTable(jcontroller.DEFAULT_TEMP_BINS,
+                                     stack[:, :, None].repeat(1, 1, 2, 1, 1))
+    assert two.n_regions == 2 and torch.equal(two.oblivious_stack(), stack)
     hot = traces.generate("hvac_failure", torch.Generator(), 4, 4, device="cpu")
     assert tuple(hot.shape) == (4, 4) and bool(torch.isfinite(hot).all())
     with pytest.raises(NotImplementedError, match="decision-emitting"):

@@ -282,15 +282,20 @@ def test_trace_eval_cli_tiny_on_cpu(monkeypatch, capsys):
 
 
 def test_trace_eval_unported_sections(capsys):
+    """``--sharded`` still raises (item 6); ``design_skew`` adds its region
+    section by default (4 regions, near mix), with no note."""
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         trace_eval.run(sharded=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
-        trace_eval.run(regions=4, device="cpu")
     rep = trace_eval.run(n_dimms=16, n_steps=48, scenario="design_skew", refresh="off",
                          baseline_dimms=4, baseline_steps=16, device="cpu")
-    assert "regions are not ported yet" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "not ported" not in out and "# regions (4): aware" in out
     assert "speedup_combined_mean" not in rep["score"] and rep["loop_exact"]
     assert tuple(rep["replay"].timings.shape) == (48, 16, 2, 4)
+    rs = rep["region_score"]
+    assert rep["region_table"].n_regions == 4 and rs["n_regions"] == 4.0
+    assert rs["speedup_region_aware_intensive_mean"] > rs["speedup_region_oblivious_intensive_mean"]
+    assert torch.equal(rep["region_table"].oblivious_stack(), rep["table"].stack)
 
 
 def test_streaming_score_carries_the_tables_refresh(tiny):
