@@ -24,7 +24,13 @@ Phases, each of which exits non-zero on failure:
    followed by the ragged 160-step chunk that ends a day, then the same on
    1,048,573 DIMMs (rows a 16-byte copy cannot take: the kernel's narrow
    copy path). State, occupancy, switches and timing sums must be bitwise
-   equal. The full-width chunk is timed, and trace-eval's launch (chunk 1
+   equal. The emitting entry against the plain emit scan on the same
+   inputs, at the same chunkings (rows also written 4 bytes past a 16-byte
+   boundary at chunks 1 and 37) and at full width (the 256-step chunk,
+   then the ragged one from its state): rows, bins, switch and fuse flags,
+   state and partials bitwise, the carry also the non-emitting entry's.
+   The full-width chunk is timed through both entries (the non-emitting
+   one again after the emitting one), and trace-eval's launch (chunk 1
    × 65,536 DIMMs) as device time from ``torch.profiler``, each beside its
    bound; so are the full-width chunk's ingest steps and two ways of
    streaming chunks from pageable host memory: the engine's pinned double
@@ -36,17 +42,26 @@ Phases, each of which exits non-zero on failure:
    boot again, split into synthesis, invariants, kernel, the joint stack
    and table; then
    the same run under ``torch.profiler`` (trace in ``chiprun_out/``) for the
-   device's busy share and where the loop's time goes.
+   device's busy share and where the loop's time goes. Then (4b) the same
+   day with decisions (``serve(decisions=True)``, launches read around it):
+   score and switch total equal to the day without, wall and the loop's
+   peak device memory; a day through the service with and without
+   decisions, state, partials and score equal, the last chunk's rows,
+   bins and flags equal to ``controller.replay`` of its steps from the
+   state before them; four profiled days in turns (without, with, with,
+   without): the host's waits for the device equal, the mean busy share no
+   lower with decisions.
 5. Accumulate kernel vs plain at the trace-eval path's full width (65,536
    DIMMs × 10,000 steps of cycle-quantized rows, bins over every column,
    running partials to fold into) and on a ragged real history (4,096 DIMMs
    × 97 steps of a card replay with errors at 1e-3 and temperatures over
    every bin): 0 mismatching words. Timed at full width against its bound
    and beside ``torch.sum(timings, dim=0)`` alone.
-6. Card step vs plain step: ``controller.replay`` on the card (the replay
-   kernel at chunk 1, every step) against a loop of ``controller.step_plain``
-   on the card, 65,536 DIMMs × 512 steps: timings, bins, switches, fuses and
-   the final state bitwise equal.
+6. Card replay and step vs plain step: ``controller.replay`` on the card
+   (the emitting entry, one launch a ``REPLAY_CHUNK_STEPS`` steps) and
+   ``controller.step`` (the emitting entry at chunk 1, every step) against a
+   loop of ``controller.step_plain`` on the card, 65,536 DIMMs × 512 steps:
+   timings, bins, switches, fuses and the final state bitwise equal.
 7. Trace-eval, card vs CPU: ``trace_eval.run`` on 4,096 DIMMs × 500 steps
    (refresh_storm, errors at 1e-3) on the card and on the CPU with the same
    table, trace and errors: history and partials bitwise, every score
@@ -54,8 +69,12 @@ Phases, each of which exits non-zero on failure:
 8. Trace-eval main path: ``trace_eval.run`` at 65,536 DIMMs × 10,000 steps
    (one reading a minute for ~7 days), scenarios diurnal and refresh_storm,
    refresh ddr3, no errors, each with every kernel's launch count read
-   around it; then a 200-step window of such a replay under
-   ``torch.profiler`` for the device's busy share per step.
+   around it (two replays of 10,000 steps and the 500-step sub-grid, each
+   one launch a ``REPLAY_CHUNK_STEPS`` steps); then a 200-step window run
+   one launch a step (the card's ``controller.step``) and through
+   ``controller.replay``, each under ``torch.profiler`` for µs a step and
+   the device's busy share; then ``controller.replay``'s launch size, the
+   whole trace against 256 steps, timed in turns at 65,536 × 10,000.
 9. Flash attention, kernel vs plain on every instantiated tile and six
    cases — the LM serve shape (B 4, H 24, Hk 8, S 1,024, dh 128, causal), a
    long causal 8,192, a ragged 1,000, a 512-token window, SmolLM's heads
@@ -123,8 +142,8 @@ Phases, each of which exits non-zero on failure:
    ``(S, N, B+1)`` one-hot). (d) ``replay_stream`` of the region table
    with a near mix, 65,536 DIMMs × 1,440 steps, chunk 256: the region
    counts equal to ``region_counts_accumulate`` of the materialized replay,
-   the partials bitwise those of the mix-free stream, every step one
-   replay-chunk launch. Launches are read around (a)–(d).
+   the partials bitwise those of the mix-free stream, every chunk one
+   launch of the emitting entry. Launches are read around (a)–(d).
 17. One JSON line describing each kernel; the card's name and power limit;
    the last line ``{"ok": true, "device": {...}}``.
 """
@@ -248,6 +267,13 @@ MIXED_CELLS = 100_003
 REPLAY_OPS_PER_STEP = 15
 #: Profiled launches of the replay chunk at chunk 1.
 REPLAY_STEP_LAUNCHES = 200
+#: Bytes a (DIMM, step) the replay chunk's emitting entry writes: the
+#: realized row (8 float32), the effective bin (int32), the switch and fuse
+#: flags (uint8 each).
+EMIT_BYTES_PER_STEP = 8 * 4 + 4 + 1 + 1
+#: ``controller.replay``'s launch sizes timed against each other at the
+#: trace-eval width, in turns (``None``: the whole trace in one launch).
+REPLAY_CHUNK_CHOICES = (None, 256)
 #: Float operations per (step, DIMM) of the accumulation: eight sum adds.
 ACCUMULATE_OPS_PER_STEP = 8
 #: Float operations per unmasked (query, key) pair and head dim of attention:
@@ -389,6 +415,32 @@ def replay_bytes(state, out, steps: int, n: int) -> int:
     visited = int(((out[1][:-1] - state[1][:-1]) > 0).sum())
     per_dimm_state = sum(t.element_size() * t.numel() for t in state) // n
     return n * steps * (4 + 1) + visited * 8 * 4 + 2 * n * per_dimm_state
+
+
+def replay_launches(steps: int) -> int:
+    """Replay-chunk launches of one ``controller.replay`` of ``steps`` steps
+    on the card: one a ``REPLAY_CHUNK_STEPS`` steps, or one for the trace."""
+    from repro_torch.kernels.replay_step import ops
+
+    return -(-steps // (ops.REPLAY_CHUNK_STEPS or steps))
+
+
+def emit_chunk(torch, replay_k, x, y, stack_t, tc, ec, scal, aligned: bool = True):
+    """One chunk through the replay chunk's emitting entry (carry ``x``) and
+    its plain version (carry ``y``), the kernel's rows written at a 16-byte
+    boundary or, unless ``aligned``, 4 bytes past one. Returns ``(x, y,
+    the kernel's decisions, mismatching words by field)``."""
+    c, n = tc.shape
+    out = replay_k.Decisions.empty(c, n, tc.device)
+    if not aligned:
+        rows = torch.empty(c * n * 8 + 1, device=tc.device)[1:].view(c, n, 2, 4)
+        out = out._replace(rows=rows)
+    *x, got = replay_k.replay_chunk_emit_cuda(*x, stack_t, tc, ec, scal, out)
+    *y, want = replay_k.replay_chunk_emit_plain(*y, stack_t, tc, ec, scal)
+    torch.cuda.synchronize()
+    mism = {name: int((words(torch, a) != words(torch, b)).sum())
+            for name, a, b in zip(got._fields, got, want)}
+    return x, y, got, mism
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -805,7 +857,8 @@ def regions_phase(torch, dev, zero_counts, read_counts) -> dict:
     add(launches)
     rep = out["rep"]
     expect("trace-eval design_skew", launches, charge_sweep=2,
-           replay_chunk=2 * EVAL_STEPS + EVAL_LOOP_STEPS, accumulate=1)
+           replay_chunk=2 * replay_launches(EVAL_STEPS) + replay_launches(EVAL_LOOP_STEPS),
+           accumulate=1)
     rs = rep["region_score"]
     log(f"trace-eval main path, design_skew with {REGIONS} regions: {EVAL_DIMMS:,} DIMMs × "
         f"{EVAL_STEPS:,} steps, peak device memory "
@@ -848,7 +901,7 @@ def regions_phase(torch, dev, zero_counts, read_counts) -> dict:
     wall = time.perf_counter() - t0
     launches = read_counts()
     add(launches)
-    expect("region stream", launches, replay_chunk=REGION_STREAM_STEPS)
+    expect("region stream", launches, replay_chunk=-(-REGION_STREAM_STEPS // CHUNK))
     free = stream.replay_stream(rtable, day, chunk_steps=CHUNK)
     mat = controller.replay(rtable, day)
     want = perfmodel.region_counts_accumulate(
@@ -1304,7 +1357,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a GPU")
     try:
-        from repro_torch.core import charge, controller, fleet, perfmodel, profiler, stream
+        from repro_torch.core import (charge, controller, fleet, perfmodel, profiler, stream,
+                                      traces)
         from repro_torch.kernels import _build
         from repro_torch.kernels.charge_sweep import kernel as sweep_k
         from repro_torch.kernels.charge_sweep import ops as sweep_ops
@@ -1455,6 +1509,29 @@ def main() -> None:
         fail(f"replay-chunk kernel: {replay_mism} mismatching words vs plain, "
              f"chunking-invariant={chunk_inv}")
 
+    # The emitting entry against the plain emit scan: rows, bins, switch and
+    # fuse flags bitwise, its carry bitwise the plain one's and the
+    # non-emitting entry's; rows also 4 bytes past a 16-byte boundary.
+    emit_mism = {}
+    for c, final in zip(CHUNKINGS, finals):
+        for aligned in (True, False) if c < CHUNK else (True,):
+            x = y = fresh(REPLAY_DIMMS)
+            mism = {}
+            for s in range(0, temps.shape[0], c):
+                x, y, _, m = emit_chunk(torch, replay_k, x, y, stack_t,
+                                        temps[s:s + c].contiguous(), errs[s:s + c].contiguous(),
+                                        rscal, aligned)
+                mism = {k: mism.get(k, 0) + v for k, v in m.items()}
+            mism["carry"] = sum(int((bits(a) != bits(b)).sum()) for a, b in zip(x, y))
+            mism["carry vs non-emitting"] = sum(int((bits(a) != bits(b)).sum())
+                                                for a, b in zip(x, final))
+            key = f"chunk {c}" + ("" if aligned else ", rows 4 bytes off 16")
+            emit_mism[key] = sum(mism.values())
+            log(f"replay emit {key}: {temps.shape[0]} steps × {REPLAY_DIMMS:,} DIMMs, "
+                f"mismatching words {mism}")
+    if any(emit_mism.values()):
+        fail(f"replay-chunk emitting entry disagrees with its plain version: {emit_mism}")
+
     big_table = fleet.sweep(fl, BOOT_BINS, (1.0,)).to_table()
     big_stack_t = replay_ops.to_stack_t(big_table.stack)
     big_scal = replay_ops.replay_scalars(big_table.temp_bins, params)
@@ -1487,6 +1564,21 @@ def main() -> None:
     replay_mism += sum(full_mism.values())
     if any(full_mism.values()):
         fail(f"replay-chunk kernel disagrees with its plain version at full width: {full_mism}")
+    x = y = z = fresh(FULL_DIMMS)
+    for label, tc, ec in ((f"{CHUNK}-step", big_temps, big_errs),
+                          (f"ragged {RAGGED}-step", rag_temps, rag_errs)):
+        x, y, _, m = emit_chunk(torch, replay_k, x, y, big_stack_t, tc, ec, big_scal)
+        z = replay_k.replay_chunk_cuda(*z, big_stack_t, tc, ec, big_scal)
+        m["carry"] = sum(int((bits(a) != bits(b)).sum()) for a, b in zip(x, y))
+        m["carry vs non-emitting"] = sum(int((bits(a) != bits(b)).sum()) for a, b in zip(x, z))
+        key = f"{label} × {FULL_DIMMS:,}"
+        emit_mism[key] = sum(m.values())
+        log(f"replay emit at full width, {label} chunk × {FULL_DIMMS:,} DIMMs (after the "
+            f"{CHUNK}-step chunk's state for the ragged one): mismatching words {m}")
+    del x, y, z
+    if any(emit_mism.values()):
+        fail(f"replay-chunk emitting entry disagrees with its plain version: {emit_mism}")
+    replay_mism += sum(emit_mism.values())
     del rag_temps, rag_errs
     torch.cuda.empty_cache()
     replay_ms = cuda_ms(torch, lambda: replay_k.replay_chunk_cuda(
@@ -1497,7 +1589,20 @@ def main() -> None:
     replay_bound, replay_by = bound_ms(
         replay_bytes(big_state, big_out, CHUNK, FULL_DIMMS),
         FULL_DIMMS * CHUNK * REPLAY_OPS_PER_STEP)
+    # The emitting entry at the same shape, every decision written, between
+    # two more timings of the non-emitting kernel.
+    emit_bound, emit_by = bound_ms(
+        replay_bytes(big_state, big_out, CHUNK, FULL_DIMMS)
+        + FULL_DIMMS * CHUNK * EMIT_BYTES_PER_STEP, FULL_DIMMS * CHUNK * REPLAY_OPS_PER_STEP)
     del big_out
+    emit_out = replay_k.Decisions.empty(CHUNK, FULL_DIMMS, dev)
+    emit_ms = cuda_ms(torch, lambda: replay_k.replay_chunk_emit_cuda(
+        *big_state, big_stack_t, big_temps, big_errs, big_scal, emit_out), 10)
+    replay_again_ms = cuda_ms(torch, lambda: replay_k.replay_chunk_cuda(
+        *big_state, big_stack_t, big_temps, big_errs, big_scal), 10)
+    del emit_out
+    emit_plain_ms = cuda_ms(torch, lambda: replay_k.replay_chunk_emit_plain(
+        *big_state, big_stack_t, big_temps, big_errs, big_scal), 1)
 
     # Trace-eval's launch: chunk 1 × 65,536 DIMMs, device time per launch.
     step_state = fresh(REPLAY_DIMMS)
@@ -1522,8 +1627,14 @@ def main() -> None:
         stage_s.append(time.perf_counter() - t0)
     stage_ms = 1e3 * sum(stage_s) / len(stage_s)
     gb = host.numel() * 4 / 1e9
-    log(f"replay chunk at {FULL_DIMMS:,} DIMMs × {CHUNK} steps: kernel {replay_ms:.4f} ms, "
-        f"plain {replay_plain_ms:.3f} ms, bound {replay_bound:.4f} ms ({replay_by})")
+    log(f"replay chunk at {FULL_DIMMS:,} DIMMs × {CHUNK} steps: kernel {replay_ms:.4f} ms "
+        f"(again after the emitting entry: {replay_again_ms:.4f} ms), plain "
+        f"{replay_plain_ms:.3f} ms, bound {replay_bound:.4f} ms ({replay_by})")
+    log(f"replay emitting entry at {FULL_DIMMS:,} DIMMs × {CHUNK} steps (rows, bins, switch "
+        f"and fuse flags written): kernel {emit_ms:.4f} ms, plain {emit_plain_ms:.3f} ms, "
+        f"bound {emit_bound:.4f} ms ({emit_by}; {EMIT_BYTES_PER_STEP} bytes a (DIMM, step) "
+        f"written, {FULL_DIMMS * CHUNK * EMIT_BYTES_PER_STEP / emit_ms / 1e6:.1f} GB/s of "
+        f"decisions)")
     log(f"ingest of that chunk's temperatures ({gb:.3f} GB): host staging copy into "
         f"pinned memory {stage_ms:.3f} ms ({gb / stage_ms * 1e3:.1f} GB/s, "
         f"{torch.get_num_threads()} threads), host→device copy {h2d_ms:.3f} ms "
@@ -1623,6 +1734,81 @@ def main() -> None:
     log("  device time by activity (s): " + json.dumps(tr["device_s_by_name"]))
     log("  host ops by self time: " + json.dumps(tr["host_self_s_top"]))
 
+    # ---- 4b. serve with decisions: the main path, then its checks ---------------
+    zero_counts()
+    dec = serve_fleet.serve(n_dimms=FULL_DIMMS, n_steps=SERVE_STEPS, chunk=CHUNK,
+                            scenario="diurnal", error_rate=0.0, device=dev, decisions=True)
+    dec_launches = read_counts()
+    log(f"serve with decisions: {FULL_DIMMS:,} DIMMs × {SERVE_STEPS} steps in "
+        f"{dec['n_chunks']} chunks: wall {dec['wall_s']:.3f} s (without decisions "
+        f"{report['wall_s']:.3f} s), loop peak device memory "
+        f"{dec['loop_peak_device_bytes'] / 2**30:.2f} GiB, total_switches "
+        f"{dec['total_switches']:,} (without decisions {report['total_switches']:,}), "
+        f"launches {dec_launches}")
+    want_l = dict.fromkeys(counters, 0) | {"charge_sweep": launches["charge_sweep"],
+                                           "replay_chunk": dec["n_chunks"]}
+    if dec_launches != want_l:
+        fail(f"serve with decisions: launches {dec_launches}, expected {want_l}")
+    if dec["score"] != report["score"] or dec["total_switches"] != report["total_switches"]:
+        fail("serve with decisions: the score or the switch total differs from the day "
+             "without decisions")
+    # The same day through the service directly: every chunk with decisions
+    # beside one without; the last chunk's decisions against controller.replay
+    # of its steps from the state before them.
+    chk_table = serve_fleet.bootstrap_table(gen, FULL_DIMMS, device=dev)
+    day = traces.generate("diurnal", gen, FULL_DIMMS, SERVE_STEPS, device=dev).cpu()
+    svc = serve_fleet.FleetControllerService(chk_table, chunk_steps=CHUNK)
+    free = serve_fleet.FleetControllerService(chk_table, chunk_steps=CHUNK)
+    last_start = (SERVE_STEPS - 1) // CHUNK * CHUNK
+    for s in range(0, SERVE_STEPS, CHUNK):
+        if s == last_start:
+            before = svc.engine.state
+        resp = svc.submit(day[s:s + CHUNK], decisions=True)
+        free.submit(day[s:s + CHUNK])
+    dec_same = {
+        "state": sum(int((a != b).sum()) for a, b in zip(svc.engine.state, free.engine.state)),
+        "partials": sum(int((bits(a) != bits(b)).sum())
+                        for a, b in zip(svc.engine.partials, free.engine.partials)),
+        "score": int(svc.running_score() != free.running_score())}
+    last = controller.replay(chk_table, day[last_start:], state=before)
+    for key in ("timings", "bin_idx", "switched"):
+        dec_same[f"last chunk {key}"] = int((bits(resp[key]) != bits(getattr(last, key))).sum())
+    log(f"serve with decisions, the day through the service ({SERVE_STEPS - last_start}-step "
+        f"last chunk, {int(resp['total_switches']):,} switches): mismatches against the day "
+        f"without decisions and the last chunk against controller.replay {dec_same}")
+    if any(dec_same.values()):
+        fail(f"serve with decisions disagrees with the day without them: {dec_same}")
+    del svc, free, resp, last, before, day, chk_table
+    # No host sync added to the loop: four profiled days in turns (without,
+    # with, with, without decisions), the host's waits for the device equal
+    # and the device's mean busy share no lower with decisions.
+    torch.cuda.empty_cache()
+    traced_by = {False: [], True: []}
+    for i, with_dec in enumerate((False, True, True, False)):
+        rep = serve_fleet.serve(n_dimms=FULL_DIMMS, n_steps=SERVE_STEPS, chunk=CHUNK,
+                                scenario="diurnal", error_rate=0.0, device=dev,
+                                decisions=with_dec, trace_path=os.path.join(
+                                    out_dir, f"serve_trace_turn{i + 1}.json"))
+        t = rep["trace"]
+        traced_by[with_dec].append(t)
+        log(f"serve {'with' if with_dec else 'without'} decisions under torch.profiler (turn "
+            f"{i + 1} of 4): wall {rep['wall_s']:.3f} s, loop span {t['loop_s']:.3f} s, device "
+            f"busy {t['device_busy_s'] * 1e3:.3f} ms ({t['device_busy_frac'] * 100:.2f} %), "
+            f"host waits {t['host_syncs']}, setup {rep['setup_s']:.3f} s")
+        log("  device time by activity (s): " + json.dumps(t["device_s_by_name"]))
+        log("  host ops by self time: " + json.dumps(t["host_self_s_top"]))
+    busy = {d: sum(t["device_busy_frac"] for t in ts) / len(ts) for d, ts in traced_by.items()}
+    waits = {d: [t["host_syncs"] for t in ts] for d, ts in traced_by.items()}
+    spans = {d: sum(t["loop_s"] for t in ts) / len(ts) for d, ts in traced_by.items()}
+    log(f"serve loop in turns, mean device busy share without / with decisions: "
+        f"{busy[False] * 100:.2f} / {busy[True] * 100:.2f} %; mean loop span {spans[False]:.3f} "
+        f"/ {spans[True]:.3f} s ({spans[True] / spans[False]:.2f}×); host waits for the device "
+        f"{waits[False]} / {waits[True]}")
+    if busy[True] < busy[False] or len(set(waits[False] + waits[True])) != 1:
+        fail("the serve loop with decisions waits on the device more, or keeps it busy less "
+             "of the time, than without: a host sync in the loop?")
+    del rep, traced_by
+
     # ---- 5. accumulate: kernel vs plain ---------------------------------------
     n_bins = len(controller.DEFAULT_TEMP_BINS)
     acc_timings = torch.empty((EVAL_STEPS, EVAL_DIMMS, 2, 4), dtype=torch.float32, device=dev)
@@ -1702,8 +1888,19 @@ def main() -> None:
     step_mism = {key: int((bits(getattr(on_card, key)) != bits(torch.stack(v))).sum())
                  for key, v in plain_hist.items()}
     step_mism["state"] = sum(int((a != b).sum()) for a, b in zip(on_card.state, st))
-    log(f"card step (replay kernel at chunk 1) vs plain step, {REPLAY_DIMMS:,} DIMMs × "
-        f"{STEP_CHECK_STEPS} steps: mismatches {step_mism}, switches "
+    # controller.step on the card: the emitting entry at chunk 1, every step.
+    st_k = controller.init_state(REPLAY_DIMMS, table.n_bins, dev)
+    step_mism["step"] = 0
+    for k in range(STEP_CHECK_STEPS):
+        st_k, rows, sw, eff = controller.step(table.stack, edges, params, st_k,
+                                              step_temps[k], step_errs[k])
+        step_mism["step"] += sum(int((bits(a) != bits(b[k])).sum()) for a, b in (
+            (rows, on_card.timings), (eff, on_card.bin_idx), (sw, on_card.switched),
+            (st_k.fused, on_card.fused)))
+    step_mism["step"] += sum(int((a != b).sum()) for a, b in zip(st_k, st))
+    log(f"card replay ({replay_launches(STEP_CHECK_STEPS)} launch(es) of the emitting entry) "
+        f"and card step (the emitting entry at chunk 1, every step) vs plain step, "
+        f"{REPLAY_DIMMS:,} DIMMs × {STEP_CHECK_STEPS} steps: mismatches {step_mism}, switches "
         f"{on_card.total_switches:,}, fused {int(st.fused.sum()):,}")
     if any(step_mism.values()):
         fail(f"the card's step disagrees with the plain step: {step_mism}")
@@ -1753,8 +1950,8 @@ def main() -> None:
             f"{sc['refresh_occupancy_mean']:.6f}, switches_total {sc['switches_total']:.0f}")
         log("  rows: " + json.dumps({name: value for name, value, _ in rep["rows"]}))
         want_l = {name: 0 for name in counters}
-        want_l.update(charge_sweep=1, replay_chunk=2 * EVAL_STEPS + EVAL_LOOP_STEPS,
-                      accumulate=1)
+        want_l.update(charge_sweep=1, accumulate=1, replay_chunk=2 * replay_launches(
+            EVAL_STEPS) + replay_launches(EVAL_LOOP_STEPS))
         if got_l != want_l:
             fail(f"trace-eval {scenario}: launches {got_l}, expected {want_l} (two "
                  f"replays of {EVAL_STEPS} steps and the {EVAL_LOOP_STEPS}-step sub-grid)")
@@ -1772,19 +1969,50 @@ def main() -> None:
         controller.DEFAULT_TEMP_BINS, torch.full((EVAL_DIMMS, len(controller.DEFAULT_TEMP_BINS),
                                                   2, 4), 12.5, device=dev))
     prof_temps = torch.rand((PROFILED_STEPS, EVAL_DIMMS), generator=gen, device=dev) * 75 + 20
-    controller.replay(prof_table, prof_temps[:2])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        with record_function("replay_window"):
-            controller.replay(prof_table, prof_temps)
-            torch.cuda.synchronize()
-    tr = serve_fleet._trace_summary(prof, range_name="replay_window")
-    log(f"replay of {EVAL_DIMMS:,} DIMMs × {PROFILED_STEPS} steps under torch.profiler: "
-        f"span {tr['loop_s']:.4f} s ({tr['loop_s'] / PROFILED_STEPS * 1e6:.1f} µs a step), "
-        f"device busy {tr['device_busy_s'] * 1e3:.3f} ms ({tr['device_busy_frac'] * 100:.2f} %)")
-    log("  device time by activity (s): " + json.dumps(tr["device_s_by_name"]))
-    log("  host ops by self time: " + json.dumps(tr["host_self_s_top"]))
-    del prof_table, prof_temps
+    per_step = replay_ops.StepKernel(prof_table.stack, prof_table.temp_bins, params)
+
+    def step_loop():
+        st = controller.init_state(EVAL_DIMMS, prof_table.n_bins, dev)
+        for k in range(PROFILED_STEPS):
+            st = per_step(st, prof_temps[k])[0]
+
+    # One launch a step (the card's controller.step, the shape of a per-step
+    # loop) against controller.replay.
+    for label, run in (("one launch a step (controller.step)", step_loop),
+                       (f"controller.replay ({replay_launches(PROFILED_STEPS)} launch(es))",
+                        lambda: controller.replay(prof_table, prof_temps))):
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function("replay_window"):
+                run()
+                torch.cuda.synchronize()
+        tr = serve_fleet._trace_summary(prof, range_name="replay_window")
+        log(f"replay of {EVAL_DIMMS:,} DIMMs × {PROFILED_STEPS} steps, {label}, under "
+            f"torch.profiler: span {tr['loop_s']:.4f} s "
+            f"({tr['loop_s'] / PROFILED_STEPS * 1e6:.2f} µs a step), device busy "
+            f"{tr['device_busy_s'] * 1e3:.3f} ms ({tr['device_busy_frac'] * 100:.2f} %)")
+        log("  device time by activity (s): " + json.dumps(tr["device_s_by_name"]))
+        log("  host ops by self time: " + json.dumps(tr["host_self_s_top"]))
+    del prof_table, prof_temps, per_step
+
+    # controller.replay's launch size: the whole trace in one launch against
+    # a fixed chunk, in turns, at the trace-eval width (history written in place).
+    torch.cuda.empty_cache()
+    hist = replay_ops.Decisions.empty(EVAL_STEPS, EVAL_DIMMS, dev)
+    ch_temps = torch.rand((EVAL_STEPS, EVAL_DIMMS), generator=gen, device=dev) * 75 + 20
+    st0 = controller.init_state(EVAL_DIMMS, table.n_bins, dev)
+    chunk_ms = {}
+    for ch in REPLAY_CHUNK_CHOICES + REPLAY_CHUNK_CHOICES[::-1]:
+        chunk_ms.setdefault(str(ch), []).append(cuda_ms(torch, lambda: replay_ops.replay_history(
+            table.stack, table.temp_bins, params, st0, ch_temps, None, hist, ch), 3))
+    replay_hist_bound, _ = bound_ms(EVAL_STEPS * EVAL_DIMMS * (4 + EMIT_BYTES_PER_STEP), 0)
+    log(f"controller.replay's launches at {EVAL_DIMMS:,} DIMMs × {EVAL_STEPS:,} steps, ms in "
+        f"turns by steps a launch (None: the whole trace): "
+        f"{ {k: [round(v, 4) for v in vs] for k, vs in chunk_ms.items()} }; bound "
+        f"{replay_hist_bound:.4f} ms (bytes: temperatures read, decisions written); "
+        f"REPLAY_CHUNK_STEPS = {replay_ops.REPLAY_CHUNK_STEPS}")
+    del hist, ch_temps, st0
 
     # ---- 9-11. flash attention and the LM serving path ---------------------------
     torch.cuda.empty_cache()
@@ -1816,7 +2044,7 @@ def main() -> None:
         fail("the port imported JAX or the JAX package")
 
     # ---- 17. summary -----------------------------------------------------------
-    by_path = {"serve": launches, "trace_eval": {
+    by_path = {"serve": launches, "serve_decisions": dec_launches, "trace_eval": {
         k: sum(v[k] for v in eval_launches.values()) for k in counters},
         "lm_serve": lm["launches"], "altune": alt_launches, "profile": prof_launches,
         "regions": reg["launches"]}
@@ -1842,7 +2070,8 @@ def main() -> None:
          **counted("replay_chunk"), "mismatches": replay_mism + sum(step_mism.values()),
          "max_abs_err": replay_err, "ms": replay_ms, "plain_ms": replay_plain_ms,
          "bound_ms": replay_bound, "bound_by": replay_by, "library_ms": None,
-         "chunk1_ms": replay_step_ms, "chunk1_bound_ms": replay_step_bound},
+         "chunk1_ms": replay_step_ms, "chunk1_bound_ms": replay_step_bound,
+         "emit_ms": emit_ms, "emit_bound_ms": emit_bound, "emit_plain_ms": emit_plain_ms},
         {"name": "accumulate", "route": "cuda",
          "source": "src/repro_torch/csrc/accumulate.cu",
          "replaces": "src/repro/kernels/replay_step/kernel.py:240",

@@ -12,10 +12,12 @@
   — guard band, hysteresis on cooling, immediate degrade on heating, and
   an error fuse that drops a DIMM to JEDEC for good. On a CPU tensor
   :func:`step` is :func:`step_plain`; on a CUDA tensor it is the
-  replay-chunk kernel at chunk 1
+  replay-chunk kernel's emitting entry at chunk 1
   (:class:`repro_torch.kernels.replay_step.ops.StepKernel`).
-* :func:`replay` — whole traces, one :func:`step` per observation, with
-  the dense ``(n_steps, n_dimms, ...)`` history (:class:`ReplayResult`).
+* :func:`replay` — whole traces with the dense ``(n_steps, n_dimms, ...)``
+  history (:class:`ReplayResult`): on a CPU tensor one :func:`step_plain`
+  per observation, on a card the emitting entry writing the history in
+  place (:func:`repro_torch.kernels.replay_step.ops.replay_history`).
 * :class:`ALDRAMController` — the per-observation API over the shared
   scalar transition (:func:`repro_torch.core.binning.advance_bin`), its
   registers on the host; the exactness baseline for :func:`replay`.
@@ -379,8 +381,8 @@ def step(
     ``errors`` (N,). Errors fuse before the temperature is considered.
     Returns ``(state, rows (N, 2, 4), switched (N,), effective_bin (N,))``;
     the effective bin ``n_bins`` is the JEDEC sentinel. A CPU ``stack``
-    runs :func:`step_plain`; a CUDA one launches the replay-chunk kernel
-    for one step (bitwise the same rows), or raises."""
+    runs :func:`step_plain`; a CUDA one launches the replay-chunk kernel's
+    emitting entry for one step (bitwise the same outputs), or raises."""
     if stack.device.type == "cpu":
         return step_plain(stack, edges, params, state, temps_c, errors)
     from repro_torch.kernels.replay_step import ops as replay_ops
@@ -453,9 +455,12 @@ def replay(
     state: Optional[ControllerState] = None,
 ) -> ReplayResult:
     """Replay whole ``(n_steps, n_dimms)`` temperature traces through the
-    controller on the table's device, one :func:`step` per observation —
-    on a card, one replay-chunk kernel launch per step — keeping the dense
-    history. ``errors`` is an optional same-shaped bool mask of error
+    controller on the table's device, keeping the dense history: on the CPU
+    one :func:`step_plain` per observation; on a card the replay-chunk
+    kernel's emitting entry, one launch a
+    :data:`~repro_torch.kernels.replay_step.ops.REPLAY_CHUNK_STEPS` steps
+    (the whole trace by default), writing the history in place.
+    ``errors`` is an optional same-shaped bool mask of error
     injections (each fuses its DIMM to JEDEC from that step on); ``state``
     an optional starting state (default: the boot state). Bit-exact with
     feeding the same observations to :meth:`ALDRAMController.observe`."""
@@ -474,21 +479,23 @@ def replay(
         state = init_state(table.n_dimms, table.n_bins, dev)
     n_steps, n = traces.shape
     stack = table.oblivious_stack()
-    edges = torch.tensor(table.temp_bins, dtype=torch.float32, device=dev)
-    if dev.type == "cpu":
-        def one_step(st, temps, errs):
-            return step_plain(stack, edges, params, st, temps, errs)
-    else:
-        from repro_torch.kernels.replay_step import ops as replay_ops
-
-        one_step = replay_ops.StepKernel(stack, table.temp_bins, params)
     timings = torch.empty((n_steps, n) + tuple(stack.shape[2:]), dtype=torch.float32,
                           device=dev)
     bin_idx = torch.empty((n_steps, n), dtype=torch.int32, device=dev)
     switched = torch.empty((n_steps, n), dtype=torch.bool, device=dev)
     fused = torch.empty((n_steps, n), dtype=torch.bool, device=dev)
+    if dev.type != "cpu":
+        from repro_torch.kernels.replay_step import ops as replay_ops
+
+        state = replay_ops.replay_history(
+            stack, table.temp_bins, params, state, traces, errors,
+            replay_ops.Decisions(timings, bin_idx, switched, fused),
+            replay_ops.REPLAY_CHUNK_STEPS)
+        return ReplayResult(timings, bin_idx, switched, fused, state)
+    edges = torch.tensor(table.temp_bins, dtype=torch.float32, device=dev)
     for k in range(n_steps):
-        state, rows, sw, eff = one_step(state, traces[k], None if errors is None else errors[k])
+        state, rows, sw, eff = step_plain(stack, edges, params, state, traces[k],
+                                          None if errors is None else errors[k])
         timings[k] = rows
         bin_idx[k] = eff
         switched[k] = sw
@@ -519,8 +526,8 @@ class ALDRAMController:
     Every :meth:`observe` is one :func:`repro_torch.core.binning.advance_bin`
     call on this DIMM's registers, which live on the host as numpy arrays,
     as do the timing rows it reads (a host copy of the table). For whole
-    traces use :meth:`replay` (one :func:`step` per observation for the
-    whole fleet, on the table's device)."""
+    traces use :meth:`replay` (the whole fleet on the table's device, the
+    same transition as :func:`step`)."""
 
     def __init__(self, table: DimmTimingTable, guard_band_c: float = GUARD_BAND_C,
                  hysteresis_c: float = HYSTERESIS_C,

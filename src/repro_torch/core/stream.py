@@ -16,14 +16,21 @@ layouts only when :attr:`~StreamingController.state`,
 :attr:`~StreamingController.partials` or :meth:`~StreamingController.score`
 is read.
 
+A caller that programs hardware asks for each chunk's decisions
+(:meth:`StreamingController.ingest` ``return_decisions=True``): the realized
+``(chunk, N, 2, 4)`` rows, effective bins and switch flags, from the
+kernel's emitting entry on the card and the plain emit scan on the CPU.
+The engine keeps none of them; emitting and non-emitting chunks may
+alternate, and the partials stay bitwise those of a non-emitting stream.
+
 A region-profiled table's stream may carry a per-step region-access mix
 (:func:`replay_stream` ``region_mix=``): the engine then also carries int32
 ``(N, B+1, R)`` counts of the accesses each region took in each effective
 bin. On the CPU a chunk runs the plain
 :func:`~repro_torch.kernels.replay_step.ref.region_chunk_scan`; on the card
-each step launches the chunk kernel for one step on the running partials and
-adds that step's mix row at its effective bin, so the partials are those of
-a mix-free stream bitwise.
+each chunk is one launch of the emitting entry on the running partials,
+asking only for the effective bins, and the chunk's mix is added at them,
+so the partials are those of a mix-free stream bitwise.
 
 Ingestion (:class:`_Ingestor`): on the card each chunk is copied into one
 of two pinned host buffers and sent with a ``non_blocking`` copy on a side
@@ -197,6 +204,11 @@ class StreamResult(NamedTuple):
         return int(self.partials.n_steps)
 
     @property
+    def switch_counts(self) -> torch.Tensor:
+        """(N,) int32 per-DIMM timing-set switches over the stream."""
+        return self.partials.switches
+
+    @property
     def total_switches(self) -> int:
         return int(self.partials.switches.to(torch.int64).sum())
 
@@ -261,33 +273,50 @@ class StreamingController:
     def errors_total(self) -> int:
         return self._ingest.errors_seen
 
-    def ingest(self, temps, errors=None, return_decisions: bool = False) -> None:
+    @property
+    def total_switches(self) -> torch.Tensor:
+        """Timing-set switches over the stream, all DIMMs: a 0-d int64 tensor
+        on the engine's device, computed when read and never copied to the
+        host here (``int()`` reads it), so reading it each chunk adds no
+        host sync to a serve loop."""
+        return self._sw.to(torch.int64).sum()
+
+    def ingest(self, temps, errors=None, return_decisions: bool = False):
         """Absorb one ``(chunk_steps, n_dimms)`` chunk from host memory (a
         1-D ``(n_dimms,)`` row is one step). The chunk's scan is queued on
-        the device; nothing step-indexed is kept."""
-        if return_decisions:
-            raise NotImplementedError(
-                "the decision-emitting path (return_decisions=True) is not ported yet"
-            )
-        self._absorb(temps, errors)
+        the device and nothing step-indexed is kept. With
+        ``return_decisions=True`` returns ``(timings (c, N, 2, 4) float32,
+        bin_idx (c, N) int32, switched (c, N) bool)`` on the engine's device
+        — the realized rows, the effective bin (``n_bins`` = the JEDEC
+        sentinel) and the switch flags — which the caller owns; otherwise
+        ``None``. State and partials advance the same either way."""
+        dec = self._absorb(temps, errors, emit=return_decisions)
+        return None if dec is None else (dec.rows, dec.eff, dec.switched)
 
-    def _absorb(self, temps, errors, region_mix: Optional[torch.Tensor] = None) -> None:
+    def _absorb(self, temps, errors, region_mix: Optional[torch.Tensor] = None,
+                emit: bool = False):
         """:meth:`ingest`, with the chunk's ``(c, N, R)`` region mix when the
-        stream carries one (:func:`replay_stream`)."""
+        stream carries one (:func:`replay_stream`). Returns the chunk's
+        :class:`~repro_torch.kernels.replay_step.kernel.Decisions` when
+        ``emit``, else ``None``."""
         if np.ndim(temps) == 1:
             temps = temps[None]
             errors = None if errors is None else errors[None]
         temps_d, errs_d, slot = self._ingest.stage(temps, errors)
-        if region_mix is None:
-            self._state3, self._occ, self._sw, self._sums = replay_ops.chunk_scan(
-                self._state3, self._occ, self._sw, self._sums, self._stack_t,
-                temps_d, errs_d, self._scal,
-            )
-        else:
+        dec = None
+        carry = (self._state3, self._occ, self._sw, self._sums, self._stack_t,
+                 temps_d, errs_d, self._scal)
+        if region_mix is not None:
             self._scan_regions(temps_d, errs_d, region_mix)
+        elif emit:
+            *out, dec = replay_ops.chunk_scan_emit(*carry)
+            self._state3, self._occ, self._sw, self._sums = out
+        else:
+            self._state3, self._occ, self._sw, self._sums = replay_ops.chunk_scan(*carry)
         self._ingest.release(slot)
         self._n_steps += int(temps_d.shape[0])
         self.n_chunks += 1
+        return dec
 
     def _scan_regions(self, temps_d: torch.Tensor, errs_d: torch.Tensor,
                       region_mix: torch.Tensor) -> None:
@@ -306,13 +335,11 @@ class StreamingController:
                 ScorePartials(*out[1:5]))
             self._region_counts = out[5]
             return
-        for k in range(temps_d.shape[0]):
-            self._state3, self._occ, self._sw, self._sums = replay_ops.chunk_scan(
-                self._state3, self._occ, self._sw, self._sums, self._stack_t,
-                temps_d[k:k + 1], errs_d[k:k + 1], self._scal,
-            )
-            eff = torch.where(self._state3[2] != 0, table.n_bins, self._state3[0])
-            region_counts_add_(self._region_counts, eff[None], region_mix[k:k + 1])
+        self._state3, self._occ, self._sw, self._sums, dec = replay_ops.chunk_scan_emit(
+            self._state3, self._occ, self._sw, self._sums, self._stack_t,
+            temps_d, errs_d, self._scal, fields=("eff",),
+        )
+        region_counts_add_(self._region_counts, dec.eff, region_mix)
 
     def score(self, cfg=MULTI_CORE, claim: float = PAPER_CLAIM_SPEEDUP,
               workloads=WORKLOADS):

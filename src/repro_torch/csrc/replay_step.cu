@@ -47,6 +47,20 @@
 // and table copy would add a barrier and shared-memory traffic to a launch
 // that is mostly latency.
 //
+// The emitting entry (replay_chunk_emit_launch; EMIT = true) also writes
+// each step's realized row, effective bin, switch flag and fuse flag, the
+// decisions a controller programs: rows [chunk][n][8] (the public (c, N, 2,
+// 4) layout), bins [chunk][n] int32, flags [chunk][n] uint8 (0 or 1). Each
+// output pointer may be null and is then skipped by a branch that is the
+// same across the grid. The staged kernel reads the realized row from
+// shared memory for its sums anyway; a thread stores it as two 16-byte
+// words at rows + (k * n + i) * 8, so a warp writes 1 KB contiguously
+// (4-byte stores where the base is not 16-byte aligned). The writes bound
+// it: 38 bytes a (DIMM, step) against the 5 the non-emitting kernel reads.
+// EMIT is a template parameter, so the non-emitting instantiations are
+// unchanged. Offsets are 64-bit: k * n + i passes 2^31 on trace-eval's
+// history.
+//
 // Numerics: the state and partials must equal the plain PyTorch version
 // bit for bit. t_eff = temp + guard and target_edge - hysteresis are
 // float32 operations on float32-rounded scalars, the bin is the count of
@@ -75,6 +89,14 @@ struct ReplayParams {
   float hysteresis_c;
   int32_t n_bins;
   int32_t hysteresis_steps;
+};
+
+// Per-step outputs of the emitting entry; a null pointer is not written.
+struct EmitOut {
+  float* rows;        // [chunk][n][8]
+  int32_t* eff;       // [chunk][n]
+  uint8_t* switched;  // [chunk][n]
+  uint8_t* fused;     // [chunk][n]
 };
 
 namespace {
@@ -138,7 +160,25 @@ __device__ __forceinline__ int32_t transition(const ReplayParams& p, float temp,
   return fused ? NB : bin;
 }
 
-template <int NB, bool WIDE>
+// Store one (DIMM, step)'s decisions at element at = k * n + i.
+__device__ __forceinline__ void emit(const EmitOut& e, int64_t at, const float (&row)[kSlots],
+                                     int32_t eff_bin, bool switched, bool fused) {
+  if (e.rows != nullptr) {
+    float* dst = e.rows + at * kSlots;
+    if ((reinterpret_cast<uintptr_t>(e.rows) & 15u) == 0) {
+      reinterpret_cast<float4*>(dst)[0] = make_float4(row[0], row[1], row[2], row[3]);
+      reinterpret_cast<float4*>(dst)[1] = make_float4(row[4], row[5], row[6], row[7]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kSlots; ++j) dst[j] = row[j];
+    }
+  }
+  if (e.eff != nullptr) e.eff[at] = eff_bin;
+  if (e.switched != nullptr) e.switched[at] = switched ? 1 : 0;
+  if (e.fused != nullptr) e.fused[at] = fused ? 1 : 0;
+}
+
+template <int NB, bool WIDE, bool EMIT>
 __global__ void __launch_bounds__(kThreads)
 replay_chunk_kernel(const int32_t* __restrict__ state_in,   // [3][n]
                     const int32_t* __restrict__ occ_in,     // [NB + 1][n]
@@ -149,7 +189,7 @@ replay_chunk_kernel(const int32_t* __restrict__ state_in,   // [3][n]
                     const uint8_t* __restrict__ errs,       // [chunk][n]
                     int32_t* __restrict__ state_out, int32_t* __restrict__ occ_out,
                     int32_t* __restrict__ sw_out, float* __restrict__ sums_out,
-                    int64_t n, int32_t chunk, ReplayParams p) {
+                    int64_t n, int32_t chunk, ReplayParams p, EmitOut e) {
   constexpr int kRowStride = (NB + 1) * kThreads;  // floats from one slot of a row to the next
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_temp = reinterpret_cast<float*>(smem);                          // [stage][step][thread]
@@ -252,6 +292,7 @@ replay_chunk_kernel(const int32_t* __restrict__ state_in,   // [3][n]
   // The byte offset of this block's flags in the first word of a step's row.
   const uint32_t e_lo = static_cast<uint32_t>(reinterpret_cast<uintptr_t>(errs + i0));
   const uint32_t n_lo = static_cast<uint32_t>(n);
+  [[maybe_unused]] int32_t k_emit = 0;  // the step a live thread is at (EMIT only)
 
   auto step = [&](float temp, bool err) {
     bool switched;
@@ -263,6 +304,13 @@ replay_chunk_kernel(const int32_t* __restrict__ state_in,   // [3][n]
     sw += switched ? 1 : 0;
 #pragma unroll
     for (int j = 0; j < kSlots; ++j) sums[j] = sums[j] + rp[j * kRowStride];
+    if constexpr (EMIT) {
+      float row[kSlots];
+#pragma unroll
+      for (int j = 0; j < kSlots; ++j) row[j] = rp[j * kRowStride];
+      emit(e, static_cast<int64_t>(k_emit) * n + i, row, eff_bin, switched, fused);
+      ++k_emit;
+    }
   };
 
   for (int s = 0; s < n_tiles; ++s) {
@@ -301,14 +349,15 @@ replay_chunk_kernel(const int32_t* __restrict__ state_in,   // [3][n]
 
 // Chunks shorter than a tile: every operand loaded at once into registers,
 // the row selected from them, the occupancy one-hot.
-template <int NB>
+template <int NB, bool EMIT>
 __global__ void __launch_bounds__(kThreads)
 replay_direct_kernel(const int32_t* __restrict__ state_in, const int32_t* __restrict__ occ_in,
                      const int32_t* __restrict__ sw_in, const float* __restrict__ sums_in,
                      const float* __restrict__ stack, const float* __restrict__ temps,
                      const uint8_t* __restrict__ errs, int32_t* __restrict__ state_out,
                      int32_t* __restrict__ occ_out, int32_t* __restrict__ sw_out,
-                     float* __restrict__ sums_out, int64_t n, int32_t chunk, ReplayParams p) {
+                     float* __restrict__ sums_out, int64_t n, int32_t chunk, ReplayParams p,
+                     EmitOut e) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= n) return;
   int32_t bin = state_in[i];
@@ -332,13 +381,15 @@ replay_direct_kernel(const int32_t* __restrict__ state_in, const int32_t* __rest
 #pragma unroll
     for (int b = 0; b <= NB; ++b) occ[b] += (eff_bin == b) ? 1 : 0;
     sw += switched ? 1 : 0;
+    float row[kSlots];
 #pragma unroll
     for (int j = 0; j < kSlots; ++j) {
-      float row = p.jedec[j];
+      row[j] = p.jedec[j];
 #pragma unroll
-      for (int b = NB - 1; b >= 0; --b) row = (eff_bin == b) ? rows[b * kSlots + j] : row;
-      sums[j] = sums[j] + row;
+      for (int b = NB - 1; b >= 0; --b) row[j] = (eff_bin == b) ? rows[b * kSlots + j] : row[j];
+      sums[j] = sums[j] + row[j];
     }
+    if constexpr (EMIT) emit(e, static_cast<int64_t>(k) * n + i, row, eff_bin, switched, fused);
   }
   state_out[i] = bin;
   state_out[n + i] = streak;
@@ -356,28 +407,54 @@ bool rows_16(const float* stack, const float* temps, const uint8_t* errs, int64_
          reinterpret_cast<uintptr_t>(temps) % 16 == 0 && reinterpret_cast<uintptr_t>(errs) % 16 == 0;
 }
 
-template <int NB>
+template <int NB, bool EMIT>
 int launch(const int32_t* state_in, const int32_t* occ_in, const int32_t* sw_in,
            const float* sums_in, const float* stack, const float* temps,
            const uint8_t* errs, int32_t* state_out, int32_t* occ_out, int32_t* sw_out,
            float* sums_out, int64_t n, int32_t chunk, const ReplayParams& p,
-           cudaStream_t stream) {
+           const EmitOut& e, cudaStream_t stream) {
   const unsigned int blocks = static_cast<unsigned int>((n + kThreads - 1) / kThreads);
   if (chunk < kSteps) {
-    replay_direct_kernel<NB><<<blocks, kThreads, 0, stream>>>(
+    replay_direct_kernel<NB, EMIT><<<blocks, kThreads, 0, stream>>>(
         state_in, occ_in, sw_in, sums_in, stack, temps, errs, state_out, occ_out, sw_out,
-        sums_out, n, chunk, p);
+        sums_out, n, chunk, p, e);
     return static_cast<int>(cudaGetLastError());
   }
-  auto kern = rows_16(stack, temps, errs, n) ? replay_chunk_kernel<NB, true>
-                                             : replay_chunk_kernel<NB, false>;
+  auto kern = rows_16(stack, temps, errs, n) ? replay_chunk_kernel<NB, true, EMIT>
+                                             : replay_chunk_kernel<NB, false, EMIT>;
   constexpr int smem = smem_bytes<NB>();
   const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kern<<<blocks, kThreads, smem, stream>>>(state_in, occ_in, sw_in, sums_in, stack, temps, errs,
-                                           state_out, occ_out, sw_out, sums_out, n, chunk, p);
+                                           state_out, occ_out, sw_out, sums_out, n, chunk, p, e);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool EMIT>
+int dispatch(const int32_t* state_in, const int32_t* occ_in, const int32_t* sw_in,
+             const float* sums_in, const float* stack, const float* temps,
+             const uint8_t* errs, int32_t* state_out, int32_t* occ_out, int32_t* sw_out,
+             float* sums_out, int64_t n, int32_t chunk, const ReplayParams& p,
+             const EmitOut& e, cudaStream_t stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+#define REPLAY_CASE(NB)                                                                  \
+  case NB:                                                                               \
+    return launch<NB, EMIT>(state_in, occ_in, sw_in, sums_in, stack, temps, errs,        \
+                            state_out, occ_out, sw_out, sums_out, n, chunk, p, e, stream);
+  switch (p.n_bins) {
+    REPLAY_CASE(1)
+    REPLAY_CASE(2)
+    REPLAY_CASE(3)
+    REPLAY_CASE(4)
+    REPLAY_CASE(5)
+    REPLAY_CASE(6)
+    REPLAY_CASE(7)
+    REPLAY_CASE(8)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef REPLAY_CASE
 }
 
 }  // namespace
@@ -396,25 +473,24 @@ int replay_chunk_launch(const int32_t* state_in, const int32_t* occ_in,
                         const float* temps, const uint8_t* errs, int32_t* state_out,
                         int32_t* occ_out, int32_t* sw_out, float* sums_out, int64_t n,
                         int32_t chunk, const ReplayParams* params, cudaStream_t stream) {
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const ReplayParams& p = *params;
-#define REPLAY_CASE(NB)                                                                  \
-  case NB:                                                                               \
-    return launch<NB>(state_in, occ_in, sw_in, sums_in, stack, temps, errs, state_out,   \
-                      occ_out, sw_out, sums_out, n, chunk, p, stream);
-  switch (p.n_bins) {
-    REPLAY_CASE(1)
-    REPLAY_CASE(2)
-    REPLAY_CASE(3)
-    REPLAY_CASE(4)
-    REPLAY_CASE(5)
-    REPLAY_CASE(6)
-    REPLAY_CASE(7)
-    REPLAY_CASE(8)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef REPLAY_CASE
+  return dispatch<false>(state_in, occ_in, sw_in, sums_in, stack, temps, errs, state_out,
+                         occ_out, sw_out, sums_out, n, chunk, *params,
+                         EmitOut{nullptr, nullptr, nullptr, nullptr}, stream);
+}
+
+// replay_chunk_launch, and each step's decisions: rows [chunk][n][8] float32,
+// eff [chunk][n] int32, switched and fused [chunk][n] uint8. Any of the four
+// may be null.
+int replay_chunk_emit_launch(const int32_t* state_in, const int32_t* occ_in,
+                             const int32_t* sw_in, const float* sums_in, const float* stack,
+                             const float* temps, const uint8_t* errs, int32_t* state_out,
+                             int32_t* occ_out, int32_t* sw_out, float* sums_out,
+                             float* rows_out, int32_t* eff_out, uint8_t* switched_out,
+                             uint8_t* fused_out, int64_t n, int32_t chunk,
+                             const ReplayParams* params, cudaStream_t stream) {
+  return dispatch<true>(state_in, occ_in, sw_in, sums_in, stack, temps, errs, state_out,
+                        occ_out, sw_out, sums_out, n, chunk, *params,
+                        EmitOut{rows_out, eff_out, switched_out, fused_out}, stream);
 }
 
 }  // extern "C"

@@ -16,6 +16,14 @@ so that a warp's reads are coalesced:
 reference scan (:func:`.ref.chunk_scan`). Both return new
 ``(state3, occ, sw, sums)``.
 
+The emitting entry also returns each step's decisions (:class:`Decisions`:
+the realized ``(chunk, N, 2, 4)`` rows, the effective bin, the switch and
+the post-step fuse flags): :func:`replay_chunk_emit_cuda` launches the
+kernel's ``EMIT`` instantiation and writes into outputs the caller may
+pass in; :func:`replay_chunk_emit_plain` runs the plain emit scan. Both
+return ``(state3, occ, sw, sums, decisions)``, the first four bitwise
+those of the non-emitting entry.
+
 The fused score accumulation over a materialized history works on the
 public layouts instead (the reference's ``(S, N, ...)`` replay outputs and
 ``ScorePartials``): :func:`accumulate_cuda` launches ``csrc/accumulate.cu``,
@@ -28,7 +36,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -44,6 +52,27 @@ ROW_SLOTS: int = 8
 MAX_BINS: int = 8
 
 Operands = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+class Decisions(NamedTuple):
+    """Per-step outputs of the emitting entry, in the public step-major
+    layouts; a field is ``None`` where it was not asked for."""
+
+    rows: Optional[torch.Tensor]      # (chunk, N, 2, 4) float32 realized rows, ns
+    eff: Optional[torch.Tensor]       # (chunk, N) int32 effective bin (B = JEDEC)
+    switched: Optional[torch.Tensor]  # (chunk, N) bool
+    fused: Optional[torch.Tensor]     # (chunk, N) bool, post-step fuse state
+
+    @staticmethod
+    def empty(chunk: int, n: int, device, fields=("rows", "eff", "switched", "fused")
+              ) -> "Decisions":
+        """Uninitialized outputs for the named fields, ``None`` for the rest."""
+        make = {"rows": lambda: torch.empty((chunk, n, 2, 4), dtype=torch.float32,
+                                            device=device),
+                "eff": lambda: torch.empty((chunk, n), dtype=torch.int32, device=device),
+                "switched": lambda: torch.empty((chunk, n), dtype=torch.bool, device=device),
+                "fused": lambda: torch.empty((chunk, n), dtype=torch.bool, device=device)}
+        return Decisions(**{k: make[k]() if k in fields else None for k in make})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,6 +107,10 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_int64, ctypes.c_int32, ctypes.POINTER(_ReplayParamsC), ctypes.c_void_p,
     ]
     lib.replay_chunk_launch.restype = ctypes.c_int
+    lib.replay_chunk_emit_launch.argtypes = [ctypes.c_void_p] * 15 + [
+        ctypes.c_int64, ctypes.c_int32, ctypes.POINTER(_ReplayParamsC), ctypes.c_void_p,
+    ]
+    lib.replay_chunk_emit_launch.restype = ctypes.c_int
     lib.replay_max_bins.restype = ctypes.c_int
     if lib.replay_max_bins() != MAX_BINS:
         raise RuntimeError(f"csrc/replay_step.cu is built for {lib.replay_max_bins()} "
@@ -93,35 +126,46 @@ def _shapes(scal: ReplayScalars, n: int, chunk: int):
     }
 
 
-def replay_chunk_plain(state3, occ, sw, sums, stack_t, temps, errs,
-                       scal: ReplayScalars) -> Operands:
-    """The chunk scan in torch ops on any device (same contract as
-    :func:`replay_chunk_cuda`)."""
+def _plain_scan(scan, state3, occ, sw, sums, stack_t, temps, errs, scal: ReplayScalars):
+    """Run a scan of :mod:`.ref` on the public layouts of the slot-major
+    operands: returns the new slot-major ``(state3, occ, sw, sums)`` and the
+    scan's outputs past its partials."""
     n_bins, n = len(scal.edges), state3.shape[1]
     state = ControllerState(state3[0], state3[1], state3[2] != 0)
     params = ControllerParams(scal.guard_band_c, scal.hysteresis_c, scal.hysteresis_steps)
     edges = torch.tensor(scal.edges, dtype=torch.float32, device=state3.device)
     stack = stack_t.t().reshape(n, n_bins, 2, 4)
     zero = torch.zeros((), dtype=torch.int32, device=state3.device)
-    st, occ_o, sw_o, sums_o, _ = ref.chunk_scan(
+    st, occ_o, sw_o, sums_o, _, *rest = scan(
         stack, edges, params, state, occ.t(), sw, sums.t().reshape(n, 2, 4), zero,
         temps, errs != 0,
     )
     state_o = torch.stack([st.bin_idx, st.cool_streak, st.fused.to(torch.int32)])
     return (state_o, occ_o.t().contiguous(), sw_o,
-            sums_o.reshape(n, ROW_SLOTS).t().contiguous())
+            sums_o.reshape(n, ROW_SLOTS).t().contiguous()), rest
 
 
-def replay_chunk_cuda(state3, occ, sw, sums, stack_t, temps, errs,
-                      scal: ReplayScalars) -> Operands:
-    """Launch ``csrc/replay_step.cu`` on PyTorch's current stream. All
-    operands are contiguous CUDA tensors on one device, in the layouts of
-    this module. Counts its launches in ``replay_chunk_cuda.launches``."""
+def replay_chunk_plain(state3, occ, sw, sums, stack_t, temps, errs,
+                       scal: ReplayScalars) -> Operands:
+    """The chunk scan in torch ops on any device (same contract as
+    :func:`replay_chunk_cuda`)."""
+    return _plain_scan(ref.chunk_scan, state3, occ, sw, sums, stack_t, temps, errs, scal)[0]
+
+
+def replay_chunk_emit_plain(state3, occ, sw, sums, stack_t, temps, errs, scal: ReplayScalars):
+    """The emitting chunk scan in torch ops on any device (same contract as
+    :func:`replay_chunk_emit_cuda` with every decision field asked for)."""
+    carry, (rows, switched, eff, fused) = _plain_scan(
+        ref.emit_scan, state3, occ, sw, sums, stack_t, temps, errs, scal)
+    return carry + (Decisions(rows, eff, switched, fused),)
+
+
+def _check_operands(state3, occ, sw, sums, stack_t, temps, errs, scal: ReplayScalars) -> int:
+    """The wrapper-side checks of both entries; returns the bin count."""
     n_bins = len(scal.edges)
     if not 1 <= n_bins <= MAX_BINS:
         raise ValueError(f"the CUDA replay kernel takes 1..{MAX_BINS} bins, got {n_bins}")
-    n, chunk = state3.shape[-1], temps.shape[0]
-    shapes = _shapes(scal, n, chunk)
+    shapes = _shapes(scal, state3.shape[-1], temps.shape[0])
     args = dict(state3=state3, occ=occ, sw=sw, sums=sums, stack_t=stack_t,
                 temps=temps, errs=errs)
     dtypes = dict(state3=torch.int32, occ=torch.int32, sw=torch.int32,
@@ -131,12 +175,26 @@ def replay_chunk_cuda(state3, occ, sw, sums, stack_t, temps, errs,
         _build.require(t, name, dtypes[name], shapes[name])
         if t.device != state3.device:
             raise ValueError(f"{name} is on {t.device}, state3 on {state3.device}")
-    outs = tuple(torch.empty_like(t) for t in (state3, occ, sw, sums))
-    params = _ReplayParamsC(
+    return n_bins
+
+
+def _params(scal: ReplayScalars, n_bins: int) -> _ReplayParamsC:
+    return _ReplayParamsC(
         (ctypes.c_float * MAX_BINS)(*scal.edges),
         (ctypes.c_float * ROW_SLOTS)(*scal.jedec),
         scal.guard_band_c, scal.hysteresis_c, n_bins, scal.hysteresis_steps,
     )
+
+
+def replay_chunk_cuda(state3, occ, sw, sums, stack_t, temps, errs,
+                      scal: ReplayScalars) -> Operands:
+    """Launch ``csrc/replay_step.cu`` on PyTorch's current stream. All
+    operands are contiguous CUDA tensors on one device, in the layouts of
+    this module. Counts its launches in ``replay_chunk_cuda.launches``."""
+    n_bins = _check_operands(state3, occ, sw, sums, stack_t, temps, errs, scal)
+    n, chunk = state3.shape[-1], temps.shape[0]
+    outs = tuple(torch.empty_like(t) for t in (state3, occ, sw, sums))
+    params = _params(scal, n_bins)
     lib = _lib()
     rc = lib.replay_chunk_launch(
         *(_build.ptr(t) for t in (state3, occ, sw, sums, stack_t, temps, errs)),
@@ -149,6 +207,50 @@ def replay_chunk_cuda(state3, occ, sw, sums, stack_t, temps, errs,
 
 
 replay_chunk_cuda.launches = 0
+
+
+def replay_chunk_emit_cuda(state3, occ, sw, sums, stack_t, temps, errs, scal: ReplayScalars,
+                           out: Optional[Decisions] = None):
+    """Launch the emitting entry of ``csrc/replay_step.cu`` on PyTorch's
+    current stream: :func:`replay_chunk_cuda`, and each step's decisions
+    written into ``out`` (default: all four fields allocated here). A field
+    of ``out`` that is ``None`` is not written; the others are contiguous
+    CUDA tensors on the operands' device in :class:`Decisions`' shapes and
+    dtypes (``switched`` and ``fused`` bool or uint8, written 0 or 1; rows
+    at any 4-byte offset), e.g. slices of a caller's history. Returns
+    ``(state3, occ, sw, sums, out)``. Counts its launches in
+    ``replay_chunk_cuda.launches``."""
+    n_bins = _check_operands(state3, occ, sw, sums, stack_t, temps, errs, scal)
+    n, chunk = state3.shape[-1], temps.shape[0]
+    if out is None:
+        out = Decisions.empty(chunk, n, state3.device)
+    specs = dict(rows=((chunk, n, 2, 4), (torch.float32,)),
+                 eff=((chunk, n), (torch.int32,)),
+                 switched=((chunk, n), (torch.bool, torch.uint8)),
+                 fused=((chunk, n), (torch.bool, torch.uint8)))
+    ptrs = []
+    for name, t in out._asdict().items():
+        if t is None:
+            ptrs.append(ctypes.c_void_p(None))
+            continue
+        shape, dtypes = specs[name]
+        if t.dtype not in dtypes:
+            raise ValueError(f"{name} must be one of {dtypes}, got {t.dtype}")
+        _build.require(t, name, t.dtype, shape)
+        if t.device != state3.device:
+            raise ValueError(f"{name} is on {t.device}, state3 on {state3.device}")
+        ptrs.append(_build.ptr(t))
+    outs = tuple(torch.empty_like(t) for t in (state3, occ, sw, sums))
+    params = _params(scal, n_bins)
+    lib = _lib()
+    rc = lib.replay_chunk_emit_launch(
+        *(_build.ptr(t) for t in (state3, occ, sw, sums, stack_t, temps, errs)),
+        *(_build.ptr(t) for t in outs), *ptrs,
+        n, chunk, ctypes.byref(params), _build.stream_ptr(state3.device),
+    )
+    _build.check(lib, rc, "replay_chunk_emit_launch")
+    replay_chunk_cuda.launches += 1
+    return outs + (out,)
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,13 @@ chunk scan and the fused score accumulation.
 :mod:`.kernel`: a CPU tensor goes to the plain version
 (:func:`.kernel.replay_chunk_plain`), a CUDA tensor to the CUDA kernel
 (:func:`.kernel.replay_chunk_cuda`), which raises if it cannot launch.
-:class:`StepKernel` is ``controller.step`` on a card: the chunk kernel at
-chunk 1. :func:`accumulate_chunk` is ``perfmodel.trace_score_accumulate``
+:func:`chunk_scan_emit` does the same for the emitting entry, which also
+returns each step's decisions (:class:`.kernel.Decisions`).
+:func:`replay_history` is ``controller.replay`` on a card: the emitting
+entry writing the dense history in place, one launch a
+:data:`REPLAY_CHUNK_STEPS` steps. :class:`StepKernel` is
+``controller.step`` on a card: the emitting entry at chunk 1.
+:func:`accumulate_chunk` is ``perfmodel.trace_score_accumulate``
 on a card (:func:`.kernel.accumulate_cuda`). The ``to_*`` / ``from_*``
 helpers convert between the public layouts and the slot-major ones; the
 streaming engine converts the table once and the partials only when they
@@ -24,14 +29,21 @@ from repro_torch.core.controller import JEDEC_ROWS, ControllerParams, Controller
 from repro_torch.core.perfmodel import ScorePartials
 from repro_torch.kernels.replay_step.kernel import (
     ROW_SLOTS,
+    Decisions,
     Operands,
     ReplayScalars,
     _lib,
     accumulate_cuda,
     accumulate_plain,
     replay_chunk_cuda,
+    replay_chunk_emit_cuda,
+    replay_chunk_emit_plain,
     replay_chunk_plain,
 )
+
+#: Steps a launch of :func:`replay_history` takes; ``None``: the whole trace
+#: in one launch.
+REPLAY_CHUNK_STEPS: Optional[int] = None
 
 
 def replay_scalars(temp_bins: Sequence[float], params: ControllerParams) -> ReplayScalars:
@@ -59,13 +71,60 @@ def chunk_scan(state3, occ, sw, sums, stack_t, temps, errs, scal: ReplayScalars)
     return replay_chunk_cuda(state3, occ, sw, sums, stack_t, temps, errs, scal)
 
 
+def chunk_scan_emit(state3, occ, sw, sums, stack_t, temps, errs, scal: ReplayScalars,
+                    fields: Sequence[str] = ("rows", "eff", "switched")):
+    """Advance one chunk and emit its decisions on the operands' device:
+    CPU → plain, CUDA → the kernel's emitting entry, writing only the named
+    :class:`.kernel.Decisions` fields (the rest are ``None``). Returns
+    ``(state3, occ, sw, sums, decisions)``."""
+    if state3.device.type == "cpu":
+        *carry, dec = replay_chunk_emit_plain(state3, occ, sw, sums, stack_t, temps, errs, scal)
+        return (*carry, Decisions(*(t if k in fields else None
+                                    for k, t in dec._asdict().items())))
+    out = Decisions.empty(temps.shape[0], state3.shape[1], state3.device, fields)
+    return replay_chunk_emit_cuda(state3, occ, sw, sums, stack_t, temps, errs, scal, out)
+
+
+def _partials_zero(n_bins: int, n: int, device) -> Tuple[torch.Tensor, ...]:
+    return (torch.zeros((n_bins + 1, n), dtype=torch.int32, device=device),
+            torch.zeros((n,), dtype=torch.int32, device=device),
+            torch.zeros((ROW_SLOTS, n), dtype=torch.float32, device=device))
+
+
+def replay_history(stack: torch.Tensor, temp_bins: Sequence[float], params: ControllerParams,
+                   state: ControllerState, traces: torch.Tensor,
+                   errors: Optional[torch.Tensor], out: Decisions,
+                   chunk_steps: Optional[int]) -> ControllerState:
+    """``controller.replay`` on a card: run the emitting entry over the
+    ``(S, N)`` float32 trace on the card, ``chunk_steps`` steps a launch
+    (``None``: one launch), writing each step's decisions into ``out``'s
+    ``(S, N, ...)`` tensors in place (bool fields through uint8 views).
+    Returns the final state; the partials it carries are dropped."""
+    n_steps, n = traces.shape
+    dev = traces.device
+    c = n_steps if chunk_steps is None else chunk_steps
+    scal = replay_scalars(temp_bins, params)
+    stack_t = to_stack_t(stack)
+    zero = _partials_zero(len(temp_bins), n, dev)
+    traces = traces.contiguous()
+    if errors is None:
+        no_errors = torch.zeros((min(c, n_steps), n), dtype=torch.uint8, device=dev)
+    else:
+        errors = errors.contiguous().view(torch.uint8)
+    state3 = to_state3(state)
+    for s in range(0, n_steps, max(c, 1)):
+        e = min(s + c, n_steps)
+        errs = no_errors[:e - s] if errors is None else errors[s:e]
+        state3, *_ = replay_chunk_emit_cuda(state3, *zero, stack_t, traces[s:e], errs, scal,
+                                            Decisions(*(t[s:e] for t in out)))
+    return from_state3(state3)
+
+
 class StepKernel:
     """``controller.step`` on a card, bound to one table: each call launches
-    the replay-chunk kernel for one step against zeroed partials. The
-    one-step occupancy is the one-hot of the effective bin, the switch count
-    is the switch flag, and the one-step timing sums are the realized rows
-    (``0 + row`` is exact), so all three come back bitwise. The table is
-    converted to the slot-major layout once, here."""
+    the emitting entry for one step, which writes the realized rows, the
+    effective bin and the switch flag directly. The table is converted to
+    the slot-major layout once, here; the partials it carries are dropped."""
 
     def __init__(self, stack: torch.Tensor, temp_bins: Sequence[float],
                  params: ControllerParams):
@@ -73,9 +132,7 @@ class StepKernel:
         dev = stack.device
         self.scal = replay_scalars(temp_bins, params)
         self.stack_t = to_stack_t(stack)
-        self.zero = (torch.zeros((n_bins + 1, n), dtype=torch.int32, device=dev),
-                     torch.zeros((n,), dtype=torch.int32, device=dev),
-                     torch.zeros((ROW_SLOTS, n), dtype=torch.float32, device=dev))
+        self.zero = _partials_zero(n_bins, n, dev)
         self.no_errors = torch.zeros((1, n), dtype=torch.uint8, device=dev)
 
     def __call__(self, state: ControllerState, temps_c: torch.Tensor,
@@ -84,11 +141,9 @@ class StepKernel:
         temps = temps_c.to(torch.float32).reshape(1, n).contiguous()
         errs = (self.no_errors if errors is None
                 else errors.to(torch.uint8).reshape(1, n).contiguous())
-        state3, occ, sw, sums = replay_chunk_cuda(to_state3(state), *self.zero,
-                                                  self.stack_t, temps, errs, self.scal)
-        rows = sums.t().reshape(n, 2, 4)
-        eff = occ.argmax(dim=0).to(torch.int32)
-        return from_state3(state3), rows, sw > 0, eff
+        state3, _, _, _, dec = chunk_scan_emit(to_state3(state), *self.zero, self.stack_t,
+                                               temps, errs, self.scal)
+        return from_state3(state3), dec.rows[0], dec.switched[0], dec.eff[0]
 
 
 def step_kernel(stack, edges, params: ControllerParams, state: ControllerState, temps_c,

@@ -10,6 +10,11 @@ state and partials bit for bit. Public layouts are the reference's:
 ``(N,)`` state, ``(N, B+1)`` occupancy, ``(N, 2, 4)`` sums,
 ``(N, B, 2, 4)`` stack, ``(chunk, N)`` telemetry.
 
+:func:`chunk_scan_emit` is the decision-emitting scan (the serving path):
+the same loop, which also returns each step's realized rows, switch flags
+and effective bins; :func:`emit_scan` adds the post-step fuse flags
+(the kernel's emitting entry's plain version).
+
 :func:`region_chunk_scan` adds the int32 ``(N, B+1, R)`` region-access-count
 carry of a region-profiled table's stream; it has no kernel of its own (on a
 card the stream advances each step on the chunk kernel and adds that step's
@@ -32,14 +37,36 @@ from repro_torch.core.perfmodel import (
 
 def chunk_body(stack: torch.Tensor, edges: torch.Tensor, params: ControllerParams,
                state: ControllerState, partials: ScorePartials, temps: torch.Tensor,
-               errors: Optional[torch.Tensor]) -> Tuple[ControllerState, ScorePartials]:
-    """Scan one chunk, accumulating score partials per step."""
+               errors: Optional[torch.Tensor], history=None
+               ) -> Tuple[ControllerState, ScorePartials]:
+    """Scan one chunk, accumulating score partials per step. ``history``,
+    optional ``(rows (c, N, 2, 4), switched (c, N), eff (c, N), fused (c,
+    N))`` tensors, receives each step's decisions."""
     for k in range(temps.shape[0]):
         state, rows, switched, eff = step_plain(
             stack, edges, params, state, temps[k], None if errors is None else errors[k]
         )
         partials = trace_score_accumulate_plain(partials, rows[None], eff[None], switched[None])
+        if history is not None:
+            for dst, v in zip(history, (rows, switched, eff, state.fused)):
+                dst[k] = v
     return state, partials
+
+
+def emit_scan(stack, edges, params, state, occupancy, switches, timing_sums, n_steps,
+              temps, errors):
+    """:func:`chunk_scan_emit`, and the ``(chunk, N)`` post-step fuse flags
+    last: ``(state, occupancy, switches, timing_sums, n_steps, rows,
+    switched, eff, fused)``."""
+    c, n = temps.shape
+    dev = temps.device
+    history = (torch.empty((c, n, 2, 4), dtype=torch.float32, device=dev),
+               torch.empty((c, n), dtype=torch.bool, device=dev),
+               torch.empty((c, n), dtype=torch.int32, device=dev),
+               torch.empty((c, n), dtype=torch.bool, device=dev))
+    partials = ScorePartials(occupancy, switches, timing_sums, n_steps)
+    state, partials = chunk_body(stack, edges, params, state, partials, temps, errors, history)
+    return (state,) + tuple(partials) + history
 
 
 def chunk_scan(stack, edges, params, state, occupancy, switches, timing_sums, n_steps,
@@ -50,6 +77,16 @@ def chunk_scan(stack, edges, params, state, occupancy, switches, timing_sums, n_
     partials = ScorePartials(occupancy, switches, timing_sums, n_steps)
     state, partials = chunk_body(stack, edges, params, state, partials, temps, errors)
     return (state,) + tuple(partials)
+
+
+def chunk_scan_emit(stack, edges, params, state, occupancy, switches, timing_sums, n_steps,
+                    temps, errors):
+    """Decision-emitting chunk scan with the reference's signature and
+    return order: ``(state, occupancy, switches, timing_sums, n_steps,
+    rows (c, N, 2, 4) float32, switched (c, N) bool, eff (c, N) int32)``;
+    the partials are those of :func:`chunk_scan` bitwise."""
+    return emit_scan(stack, edges, params, state, occupancy, switches, timing_sums, n_steps,
+                     temps, errors)[:8]
 
 
 def region_chunk_scan(stack, edges, params, state, occupancy, switches, timing_sums, n_steps,

@@ -1,17 +1,24 @@
-"""Fleet-controller service: batched observation chunks in, running score out.
+"""Fleet-controller service: batched observation chunks in, timing
+decisions and the running score out.
 
 A long-lived AL-DRAM controller that holds the fleet's timing registers
 (:class:`~repro_torch.core.controller.DimmTimingTable`) and per-DIMM state
 on the card, takes batched temperature/error telemetry chunks from host
-memory and answers with the running realized-speedup score. At boot
+memory and answers with the running realized-speedup score and, when
+asked (``decisions=True``), the realized per-access timing rows, effective
+bins and switch flags a hardware agent programs. At boot
 :func:`bootstrap_table` profiles every DIMM (the charge-sweep CUDA kernel);
-every chunk runs through the replay-chunk CUDA kernel
+every chunk runs through the replay-chunk CUDA kernel, its emitting entry
+for a chunk with decisions
 (:class:`~repro_torch.core.stream.StreamingController`).
 
-Usage (demo driver feeding a synthetic day through the service; ``--trace``
-also records the streaming loop with ``torch.profiler`` as a Chrome trace):
+Usage (demo driver feeding a synthetic day through the service;
+``--decisions`` asks for each chunk's decisions and prints DIMM 0's last
+ones; ``--trace`` also records the streaming loop with ``torch.profiler``
+as a Chrome trace):
   PYTHONPATH=src python -m repro_torch.launch.serve_fleet --device cuda \\
-      --n-dimms 1048576 --n-steps 1440 --chunk 256 [--trace serve_trace.json]
+      --n-dimms 1048576 --n-steps 1440 --chunk 256 [--decisions] \\
+      [--trace serve_trace.json]
 """
 
 from __future__ import annotations
@@ -26,6 +33,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import fleet, stream, traces
 from repro_torch.core.controller import ControllerParams, DimmTimingTable
+from repro_torch.core.timing import ACCESS_TYPES, PARAM_NAMES
+from repro_torch.kernels.replay_step.kernel import Decisions
 
 #: Bins profiled by the bootstrap (the paper's evaluation points).
 DEFAULT_TEMP_BINS = (45.0, 55.0, 70.0, 85.0)
@@ -33,7 +42,8 @@ DEFAULT_TEMP_BINS = (45.0, 55.0, 70.0, 85.0)
 
 class FleetControllerService:
     """The request/response face of the streaming fleet controller: one
-    instance per fleet; :meth:`submit` absorbs a chunk, :meth:`running_score`
+    instance per fleet; :meth:`submit` absorbs a chunk (and with
+    ``decisions=True`` answers with its decisions), :meth:`running_score`
     finalizes the partials without disturbing the stream."""
 
     def __init__(self, table: DimmTimingTable,
@@ -46,13 +56,24 @@ class FleetControllerService:
         return self.engine.table
 
     def submit(self, temps, errors=None, decisions: bool = False) -> Dict:
-        """Ingest one ``(chunk_steps, n_dimms)`` observation chunk."""
-        self.engine.ingest(temps, errors, return_decisions=decisions)
-        return {
+        """Ingest one ``(chunk_steps, n_dimms)`` observation chunk. The
+        response's ``total_switches`` is a 0-d int64 tensor on the engine's
+        device (``int()`` reads it; see
+        :attr:`~repro_torch.core.stream.StreamingController.total_switches`),
+        so a serve loop on a card does not wait on the host each chunk. With
+        ``decisions=True`` it also carries the chunk's ``timings`` (c, N, 2,
+        4), ``bin_idx`` (c, N) and ``switched`` (c, N) on that device."""
+        out = self.engine.ingest(temps, errors, return_decisions=decisions)
+        resp = {
             "n_steps": self.engine.n_steps,
             "n_chunks": self.engine.n_chunks,
+            "total_switches": self.engine.total_switches,
             "errors_total": self.engine.errors_total,
         }
+        if decisions:
+            rows, bin_idx, switched = out
+            resp.update(timings=rows, bin_idx=bin_idx, switched=switched)
+        return resp
 
     def running_score(self) -> Dict[str, float]:
         """The trace-score dict over everything submitted."""
@@ -76,12 +97,17 @@ def _sync(dev: torch.device) -> None:
 #: Name of the profiler range around the streaming loop.
 _LOOP_RANGE = "serve_loop"
 
+#: CUDA runtime calls that make the host wait for the device.
+_SYNC_CALLS = ("cudaDeviceSynchronize", "cudaStreamSynchronize", "cudaEventSynchronize",
+               "cudaMemcpy")
+
 
 def _trace_summary(prof, top: int = 6, range_name: str = _LOOP_RANGE) -> Dict:
     """Read a profiled loop (the ``record_function`` range ``range_name``):
     the loop's span, the device's busy time in it (the union of kernel, copy
-    and memset intervals), device time by activity, and the host operations
-    with the most self time."""
+    and memset intervals), device time by activity, the host's waits for the
+    device in it (``_SYNC_CALLS``), and the host operations with the most
+    self time."""
     from torch.autograd import DeviceType
 
     events = prof.events()
@@ -102,6 +128,8 @@ def _trace_summary(prof, top: int = 6, range_name: str = _LOOP_RANGE) -> Dict:
         if b > reach:
             busy_us += b - max(a, reach)
             reach = b
+    syncs = sum(1 for e in events if e.name in _SYNC_CALLS and e.device_type == DeviceType.CPU
+                and lo <= e.time_range.start <= hi)
     host = sorted(((e.key, e.self_cpu_time_total * 1e-6, e.count)
                    for e in prof.key_averages() if e.key != range_name),
                   key=lambda r: -r[1])[:top]
@@ -111,6 +139,7 @@ def _trace_summary(prof, top: int = 6, range_name: str = _LOOP_RANGE) -> Dict:
         "device_busy_s": busy_us * 1e-6,
         "device_busy_frac": busy_us / max(hi - lo, 1e-9),
         "device_s_by_name": dict(sorted(by_name.items(), key=lambda kv: -kv[1])),
+        "host_syncs": syncs,
         "host_self_s_top": [{"op": k, "s": t, "calls": n} for k, t, n in host],
     }
 
@@ -126,14 +155,19 @@ def serve(
     table: Optional[DimmTimingTable] = None,
     device: str | torch.device = "cuda",
     trace_path: Optional[str] = None,
+    decisions: bool = False,
 ) -> Dict:
     """Demo driver: boot the service, stream a synthetic scenario through it
     chunk by chunk from host memory, return the score and the run's figures
     (``wall_s`` of the streaming loop, ``obs_per_s``, ``peak_device_bytes``
     over streaming + scoring on a card, ``boot_s`` for profiling the fleet,
     ``setup_s`` for building the service with its staging buffers,
-    ``score_s`` for finalizing the score). With ``trace_path`` the loop runs
-    under ``torch.profiler``, the Chrome trace is written there and
+    ``score_s`` for finalizing the score, ``total_switches``). With
+    ``decisions`` every chunk is submitted with ``decisions=True``, DIMM 0's
+    last read and write sets and bin are printed, and on a card
+    ``loop_peak_device_bytes`` is the loop's own peak (the last two chunks'
+    decisions are alive at once). With ``trace_path`` the loop runs under
+    ``torch.profiler``, the Chrome trace is written there and
     ``report["trace"]`` summarizes it (:func:`_trace_summary`)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -153,6 +187,13 @@ def serve(
               if error_rate > 0.0 else None)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+        if decisions:
+            # The loop holds two chunks' decisions at once (the last response
+            # and the one being made): their memory enters the allocator's
+            # cache here, so that no cudaMalloc lands inside the loop.
+            reserved = [Decisions.empty(chunk, n_dimms, dev, ("rows", "eff", "switched"))
+                        for _ in range(2)]
+            del reserved
         torch.cuda.reset_peak_memory_stats(dev)
 
     prof = contextlib.nullcontext()
@@ -169,9 +210,17 @@ def serve(
         t0 = time.perf_counter()
         with loop:
             for temps_c, errs_c in stream.iter_chunks(trace, errors, chunk):
-                resp = service.submit(temps_c, errs_c)
+                resp = service.submit(temps_c, errs_c, decisions=decisions)
             _sync(dev)
         wall = time.perf_counter() - t0
+    loop_peak = (torch.cuda.max_memory_allocated(dev)
+                 if decisions and dev.type == "cuda" else None)
+    last = None
+    if decisions and resp:
+        # DIMM 0's last step, indexed on the device: a chunk's rows are GiBs.
+        last = (resp["timings"][-1, 0].cpu(), int(resp["bin_idx"][-1, 0]))
+    n_chunks, total_switches = resp.get("n_chunks", 0), int(resp.get("total_switches", 0))
+    del resp  # the last chunk's decisions, before scoring allocates
     t0 = time.perf_counter()
     score = service.running_score()
     score_s = time.perf_counter() - t0
@@ -179,30 +228,41 @@ def serve(
 
     report = {
         "score": score,
-        "n_chunks": resp.get("n_chunks", 0),
+        "n_chunks": n_chunks,
+        "total_switches": total_switches,
+        "decisions": decisions,
         "wall_s": wall,
         "obs_per_s": n_steps * n_dimms / max(wall, 1e-9),
         "boot_s": boot_s,
         "setup_s": setup_s,
         "score_s": score_s,
         "peak_device_bytes": peak,
+        "loop_peak_device_bytes": loop_peak,
     }
     if trace_path is not None:
         prof.export_chrome_trace(trace_path)
         report["trace"] = _trace_summary(prof)
     print(
         f"[serve_fleet] {scenario}: {n_dimms} DIMMs × {n_steps} steps "
-        f"(chunk {chunk}, device {dev}) | {report['n_chunks']} chunks in "
-        f"{wall:.3f} s ({report['obs_per_s']:,.0f} obs/s, "
+        f"(chunk {chunk}, device {dev}{', decisions' if decisions else ''}) | "
+        f"{report['n_chunks']} chunks in {wall:.3f} s ({report['obs_per_s']:,.0f} obs/s, "
         f"{n_steps * dt_s / max(wall, 1e-9):,.0f}× real time)"
     )
     print(
         f"[serve_fleet] running score: realized "
         f"{score['speedup_realized_mean'] * 100:+.2f} % "
         f"(intensive {score['speedup_realized_intensive_mean'] * 100:+.2f} %), "
-        f"switches {score['switches_total']:.0f}, "
+        f"switches {report['total_switches']}, "
         f"time at JEDEC {score['time_at_jedec_frac'] * 100:.1f} %"
     )
+    if last is not None:
+        rows, last_bin = last
+        for a, ai in (("read", 0), ("write", 1)):
+            sets = ", ".join(f"{p}={float(rows[ai, pi]):.2f}"
+                             for pi, p in enumerate(PARAM_NAMES))
+            print(f"[serve_fleet] DIMM 0 last {a} set (ns): {sets}")
+        print(f"[serve_fleet] DIMM 0 last bin: {last_bin} "
+              f"(JEDEC sentinel = {table.n_bins}); access order {ACCESS_TYPES}")
     return report
 
 
@@ -215,12 +275,14 @@ def main() -> None:
     ap.add_argument("--chunk", type=int, default=stream.DEFAULT_CHUNK_STEPS)
     ap.add_argument("--scenario", default="diurnal", choices=traces.SCENARIOS)
     ap.add_argument("--error-rate", type=float, default=0.0)
+    ap.add_argument("--decisions", action="store_true",
+                    help="return per-chunk timing rows / bin decisions")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", default=None, help="write a Chrome trace of the loop here")
     args = ap.parse_args()
     serve(n_dimms=args.n_dimms, n_steps=args.n_steps, chunk=args.chunk,
           scenario=args.scenario, error_rate=args.error_rate, seed=args.seed,
-          device=args.device, trace_path=args.trace)
+          device=args.device, trace_path=args.trace, decisions=args.decisions)
 
 
 if __name__ == "__main__":

@@ -4,7 +4,8 @@ Profiles a synthetic fleet into timing registers (the charge-sweep kernel on
 a card), gives the table a refresh policy, generates one of the thermal
 scenarios (:mod:`repro_torch.core.traces`), replays it through the
 controller with the dense history kept (:func:`~repro_torch.core.controller.replay`:
-on a card one replay-chunk kernel launch per step), holds the replay
+on a card the replay-chunk kernel's emitting entry, one launch a
+``REPLAY_CHUNK_STEPS`` steps of the trace), holds the replay
 bitwise against the per-observation :class:`ALDRAMController` loop on a
 sub-grid, and scores the realized latency reductions, switching activity
 and speedups against the paper's 14 % claim — latency-only and combined

@@ -115,6 +115,95 @@ def test_replay_kernel_matches_plain(cuda_device, chunk, n):
         assert torch.equal(_bits(a), _bits(b))
 
 
+def _emit_outputs(chunk, n, dev, aligned):
+    """Decision outputs; rows 4 bytes past a 16-byte boundary unless ``aligned``."""
+    out = replay_kernel.Decisions.empty(chunk, n, dev)
+    if aligned:
+        return out
+    flat = torch.empty(chunk * n * 8 + 1, device=dev)
+    rows = flat[1:].view(chunk, n, 2, 4)
+    assert rows.data_ptr() % 16 == 4
+    return out._replace(rows=rows)
+
+
+@pytest.mark.parametrize("n", [4099, 4112])   # narrow copies / 16-byte copies
+@pytest.mark.parametrize("chunk", [1, 37, 160, 256])
+def test_replay_emit_kernel_matches_plain(cuda_device, chunk, n):
+    """The emitting entry against the plain emit scan, bitwise: each chunk's
+    rows (at 4,099 DIMMs into a view 4 bytes off a 16-byte boundary), bins,
+    switch and fuse flags, and the carried state and partials, which also
+    equal the non-emitting entry's."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    table = serve_fleet.bootstrap_table(g, n, device=cuda_device)
+    temps = torch.rand((300, n), generator=g, device=cuda_device) * 75 + 20
+    errs = (torch.rand(temps.shape, generator=g, device=cuda_device) < 2e-3).to(torch.uint8)
+    scal = replay_ops.replay_scalars(table.temp_bins, controller.ControllerParams())
+    stack_t = replay_ops.to_stack_t(table.stack)
+    x = y = z = (replay_ops.to_state3(controller.init_state(n, table.n_bins, cuda_device)),
+                 torch.zeros((table.n_bins + 1, n), dtype=torch.int32, device=cuda_device),
+                 torch.zeros(n, dtype=torch.int32, device=cuda_device),
+                 torch.zeros((8, n), device=cuda_device))
+    before = replay_kernel.replay_chunk_cuda.launches
+    for s in range(0, temps.shape[0], chunk):
+        tc, ec = temps[s:s + chunk].contiguous(), errs[s:s + chunk].contiguous()
+        out = _emit_outputs(tc.shape[0], n, cuda_device, aligned=n % 16 == 0)
+        *x, got = replay_kernel.replay_chunk_emit_cuda(*x, stack_t, tc, ec, scal, out)
+        assert got is out
+        *y, want = replay_kernel.replay_chunk_emit_plain(*y, stack_t, tc, ec, scal)
+        z = replay_kernel.replay_chunk_cuda(*z, stack_t, tc, ec, scal)
+        torch.cuda.synchronize()
+        for name, a, b in zip(got._fields, got, want):
+            assert torch.equal(_bits(a), _bits(b)), name
+        assert set(got.switched.view(torch.uint8).unique().tolist()) <= {0, 1}
+    assert replay_kernel.replay_chunk_cuda.launches == before + 2 * -(-300 // chunk)
+    for a, b, c in zip(x, y, z):
+        assert torch.equal(_bits(a), _bits(b)) and torch.equal(_bits(a), _bits(c))
+
+
+def test_ingest_decisions_on_card_matches_cpu(cuda_device):
+    """``ingest(return_decisions=True)`` on the card against the CPU, ragged
+    chunks with errors arriving mid-stream and non-emitting chunks between:
+    decisions, state and partials bitwise; the switch total stays on the card."""
+    from repro_torch.core import stream
+
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    table = serve_fleet.bootstrap_table(g, 3001, device=cuda_device)
+    trace = (torch.rand((300, 3001), generator=g, device=cuda_device) * 75 + 20).cpu()
+    errors = (torch.rand((300, 3001), generator=g, device=cuda_device) < 2e-3).cpu()
+    card = stream.StreamingController(table)
+    host = stream.StreamingController(table.to("cpu"))
+    for k, (s, e) in enumerate(((0, 7), (7, 100), (100, 101), (101, 230), (230, 300))):
+        err = errors[s:e] if k >= 2 else None
+        emit = k != 3
+        got = card.ingest(trace[s:e], err, return_decisions=emit)
+        want = host.ingest(trace[s:e], err, return_decisions=emit)
+        assert card.total_switches.device.type == "cuda"
+        for a, b in zip(got or (), want or ()):
+            assert a.device.type == "cuda" and torch.equal(_bits(a.cpu()), _bits(b))
+    for a, b in zip(card.partials, host.partials):
+        assert torch.equal(_bits(a.cpu()), _bits(b))
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(card.state, host.state))
+    assert int(card.total_switches) == int(host.total_switches) > 0
+
+
+@pytest.mark.parametrize("chunk_steps", [None, 16])
+def test_replay_launches_per_chunk_and_equals_cpu(cuda_device, chunk_steps, monkeypatch):
+    """``controller.replay`` on the card: one launch of the emitting entry a
+    ``REPLAY_CHUNK_STEPS`` steps (here also at 16, ragged over 100 steps),
+    its history and final state equal to the CPU's."""
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    table, temps, errs = _card_replay(g, cuda_device, 4099, 100, error_rate=5e-3)
+    monkeypatch.setattr(replay_ops, "REPLAY_CHUNK_STEPS", chunk_steps)
+    before = replay_kernel.replay_chunk_cuda.launches
+    res = controller.replay(table, temps, errs)
+    launches = replay_kernel.replay_chunk_cuda.launches - before
+    assert launches == (1 if chunk_steps is None else -(-100 // chunk_steps))
+    host = controller.replay(table.to("cpu"), temps.cpu(), errs.cpu())
+    for k in ("timings", "bin_idx", "switched", "fused"):
+        assert torch.equal(_bits(getattr(res, k).cpu()), _bits(getattr(host, k))), k
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(res.state, host.state))
+
+
 def test_service_on_card_matches_cpu(cuda_device):
     g = torch.Generator(device=cuda_device).manual_seed(2)
     table = serve_fleet.bootstrap_table(g, 1000, device=cuda_device)
@@ -195,13 +284,16 @@ def test_accumulate_kernel_matches_plain(cuda_device):
 
 
 def test_card_step_matches_plain_step(cuda_device):
-    """``replay`` on the card (the chunk kernel at chunk 1, every step) is
-    bitwise the plain step loop on the card."""
+    """``replay`` on the card (the emitting entry, one launch a
+    ``REPLAY_CHUNK_STEPS`` steps) and ``step`` on the card (the emitting
+    entry at chunk 1, every step) are bitwise the plain step loop on the
+    card."""
     g = torch.Generator(device=cuda_device).manual_seed(5)
     table, temps, errs = _card_replay(g, cuda_device, 4099, 64, error_rate=5e-3)
     before = replay_kernel.replay_chunk_cuda.launches
     res = controller.replay(table, temps, errs)
-    assert replay_kernel.replay_chunk_cuda.launches == before + 64
+    c = replay_ops.REPLAY_CHUNK_STEPS or 64
+    assert replay_kernel.replay_chunk_cuda.launches == before + -(-64 // c)
     edges = torch.tensor(table.temp_bins, dtype=torch.float32, device=cuda_device)
     st = controller.init_state(table.n_dimms, table.n_bins, cuda_device)
     p = controller.ControllerParams()
@@ -212,9 +304,16 @@ def test_card_step_matches_plain_step(cuda_device):
         assert torch.equal(res.fused[k], st.fused)
     for a, b in zip(res.state, st):
         assert torch.equal(a, b)
-    one = controller.step(table.stack, edges, p, controller.init_state(
-        table.n_dimms, table.n_bins, cuda_device), temps[0], errs[0])
-    assert torch.equal(_bits(one[1]), _bits(res.timings[0]))
+    st = controller.init_state(table.n_dimms, table.n_bins, cuda_device)
+    before = replay_kernel.replay_chunk_cuda.launches
+    for k in range(64):
+        st, rows, sw, eff = controller.step(table.stack, edges, p, st, temps[k], errs[k])
+        assert torch.equal(_bits(rows), _bits(res.timings[k]))
+        assert torch.equal(eff, res.bin_idx[k]) and torch.equal(sw, res.switched[k])
+        assert torch.equal(st.fused, res.fused[k])
+    assert replay_kernel.replay_chunk_cuda.launches == before + 64
+    for a, b in zip(res.state, st):
+        assert torch.equal(a, b)
 
 
 def test_trace_eval_card_matches_cpu(cuda_device):
@@ -463,9 +562,9 @@ def test_sweep_regions_on_card_one_launch_and_anchor(cuda_device):
 
 
 def test_region_stream_on_card_matches_cpu(cuda_device):
-    """The region stream on the card (one replay-chunk launch a step, the
-    step's mix row added at its effective bin) against the CPU's plain
-    region chunk scan: counts, partials and state equal."""
+    """The region stream on the card (one launch of the emitting entry a
+    chunk, the chunk's mix added at its effective bins) against the CPU's
+    plain region chunk scan: counts, partials and state equal."""
     from repro_torch.core import stream, traces
 
     fl = _profile_fleet(cuda_device)
@@ -477,7 +576,7 @@ def test_region_stream_on_card_matches_cpu(cuda_device):
                                    device=cuda_device)
     before = replay_kernel.replay_chunk_cuda.launches
     card = stream.replay_stream(table, temps, errors, chunk_steps=64, region_mix=mix)
-    assert replay_kernel.replay_chunk_cuda.launches == before + 150
+    assert replay_kernel.replay_chunk_cuda.launches == before + -(-150 // 64)
     host = stream.replay_stream(table.to("cpu"), temps, errors, chunk_steps=64,
                                 region_mix=mix.cpu())
     assert torch.equal(card.region_counts.cpu(), host.region_counts)

@@ -169,6 +169,12 @@ def test_cuda_wrapper_refuses_cpu_tensors():
             torch.zeros((3, n)), torch.zeros((3, n), dtype=torch.uint8))
     with pytest.raises(ValueError, match="CUDA tensor"):
         replay_kernel.replay_chunk_cuda(*args, scal)
-    with pytest.raises(NotImplementedError, match="decision-emitting"):
-        stream.StreamingController(convert.table_from_numpy(BINS, stack, "cpu")).ingest(
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        replay_kernel.replay_chunk_emit_cuda(*args, scal)
+    # The decision-emitting path runs its plain version on CPU tensors.
+    rows, bins, switched = stream.StreamingController(
+        convert.table_from_numpy(BINS, stack, "cpu")).ingest(
             np.zeros((2, n), np.float32), return_decisions=True)
+    assert tuple(rows.shape) == (2, n, 2, 4) and rows.dtype == torch.float32
+    assert bins.dtype == torch.int32 and switched.dtype == torch.bool
+    assert tuple(bins.shape) == tuple(switched.shape) == (2, n)

@@ -178,8 +178,9 @@ def test_entry_points_refuse_cuda_without_a_card():
 
 
 def test_unported_paths_raise():
-    """The decision-emitting path still raises; refresh policies, every
-    scenario and rank-5 region tables now run (regions: item 1)."""
+    """Paths once unported now run: refresh policies, every scenario,
+    rank-5 region tables (regions: item 1) and the decision-emitting path
+    (item 5)."""
     from repro_torch.core import refresh
 
     stack = torch.full((2, 5, 2, 4), 10.0)
@@ -191,10 +192,11 @@ def test_unported_paths_raise():
     assert two.n_regions == 2 and torch.equal(two.oblivious_stack(), stack)
     hot = traces.generate("hvac_failure", torch.Generator(), 4, 4, device="cpu")
     assert tuple(hot.shape) == (4, 4) and bool(torch.isfinite(hot).all())
-    with pytest.raises(NotImplementedError, match="decision-emitting"):
-        serve_fleet.FleetControllerService(
-            controller.DimmTimingTable(jcontroller.DEFAULT_TEMP_BINS, stack)
-        ).submit(np.zeros((1, 2), np.float32), decisions=True)
+    resp = serve_fleet.FleetControllerService(
+        controller.DimmTimingTable(jcontroller.DEFAULT_TEMP_BINS, stack)
+    ).submit(np.zeros((1, 2), np.float32), decisions=True)
+    assert tuple(resp["timings"].shape) == (1, 2, 2, 4)
+    assert resp["bin_idx"].tolist() == [[4, 4]] and int(resp["total_switches"]) == 0
 
 
 def test_port_imports_neither_jax_nor_the_reference():
