@@ -144,7 +144,27 @@ Phases, each of which exits non-zero on failure:
    counts equal to ``region_counts_accumulate`` of the materialized replay,
    the partials bitwise those of the mix-free stream, every chunk one
    launch of the emitting entry. Launches are read around (a)–(d).
-17. One JSON line describing each kernel; the card's name and power limit;
+18. The sharded path (run after 16, before the summary): (a) three gloo
+   ranks sharing the card (``shard.launch(..., "cuda:0")``), once a probe
+   of raw ``all_reduce`` SUM/MIN and ``all_gather_single`` on CUDA tensors
+   shows gloo takes them with the right values (only gloo's own refusal
+   leaves (a) out, with the reason logged; a wrong value fails the phase):
+   at 4,099 DIMMs (3 does not divide it) and 2 (fewer than the ranks),
+   ``fleet.sweep``, ``sweep_regions`` (4 regions), ``controller.replay``
+   with errors at ``ERROR_RATE`` over 512 steps, ``trace_score``, a stream
+   with decisions at chunkings 1, 37 and whole and a region stream, each
+   with ``mesh=`` against the unsharded card call: map outputs bitwise,
+   counts exact, score floats within 1e-5, the streamed sharded score
+   bitwise the materialized one. (b) ``torch.cuda.device_count()`` NCCL
+   ranks (one a card): ``serve_fleet.serve(sharded=True)`` at 1,048,576
+   DIMMs × 1,440 steps, chunk 256 — score and switch total equal to
+   phase 4's day (counts exact, floats within 1e-5) — and
+   ``trace_eval.run(sharded=True)`` at 65,536 DIMMs × 10,000 steps
+   (diurnal, ddr3) with its sharded replay bitwise; each rank's wall,
+   finalize seconds and peak device memory; every kernel's launch counter
+   read around both on each rank and summed.
+17. One JSON line describing each kernel (``launches_by_path`` with
+   ``"sharded"``: phase 18(b)'s launches); the card's name and power limit;
    the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -154,9 +174,11 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
+from typing import Optional
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -352,6 +374,377 @@ def sweep_mismatches(card, host, host_cells, rtol: float = SWEEP_BOUNDARY_RTOL) 
                            f"CPU {w} ns, reproduced on the CPU at δ = {at}")
         out[name] = (flips, bad, details)
     return out
+
+
+#: The sharded path's parity check: the temperature bins and patterns it
+#: sweeps, its regions, and the tolerance of its score floats against the
+#: single-device score (counts are held exactly).
+SHARD_BINS = (45.0, 55.0, 70.0, 85.0)
+SHARD_PATTERNS = (1.0, 1.03)
+SHARD_REGIONS = 4
+SHARD_SCORE_TOL = 1e-5
+#: Phase 18(a): ranks sharing the one card over gloo, the fleet sizes (one
+#: that 3 does not divide, one smaller than the mesh), steps and chunkings
+#: (``None``: the whole trace in one chunk).
+SHARD_GLOO_RANKS = 3
+SHARD_GLOO_SIZES = (4099, 2)
+SHARD_STEPS = 512
+SHARD_CHUNKINGS = (1, 37, None)
+
+
+def _mismatches(torch, a, b) -> int:
+    """Words that differ between two tensors of one shape (float32 compared
+    as bit patterns)."""
+    if a.shape != b.shape:
+        return max(a.numel(), b.numel(), 1)
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return int((a != b).sum())
+
+
+def _score_errors(got: dict, want: dict) -> tuple:
+    """``(max float error relative to max(|want|, 1), integer mismatches)``
+    of two score dicts; a missing or extra key is an integer mismatch."""
+    ints = ("switches_total", "n_regions", "region_accesses_total")
+    err, bad = 0.0, int(set(got) != set(want))
+    for k in set(got) & set(want):
+        if k in ints:
+            bad += int(got[k] != want[k])
+        else:
+            err = max(err, abs(got[k] - want[k]) / max(abs(want[k]), 1.0))
+    return err, bad
+
+
+def shard_inputs(dev, n: int, steps: int, error_rate: float, seed: int = 0):
+    """The parity check's inputs for one fleet size, from ``seed + n`` on
+    ``dev``: a fleet, a ``(steps, n)`` trace of uniform temperatures over
+    every bin, error injections at ``error_rate`` and a region-access mix
+    of ``SHARD_REGIONS`` regions. Every rank draws the same whole inputs."""
+    import torch
+
+    from repro_torch.core import fleet
+
+    gen = torch.Generator(device=dev).manual_seed(seed + n)
+    fl = fleet.synthesize(gen, n, device=dev)
+    trace = torch.rand((steps, n), generator=gen, device=dev) * 75.0 + 20.0
+    errors = torch.rand((steps, n), generator=gen, device=dev) < error_rate
+    mix = torch.randint(0, 16, (steps, n, SHARD_REGIONS), generator=gen, device=dev,
+                        dtype=torch.int32)
+    return fl, trace, errors, mix
+
+
+def shard_parity(device: str, sizes, steps: int, chunkings, error_rate: float,
+                 seed: int = 0, eval_kwargs=None, return_inputs: bool = False) -> dict:
+    """Rank body of the sharded path's parity check (run it on the ranks of
+    one process group, e.g. ``shard.launch(shard_parity, 4, "cpu", "cpu",
+    ...)``; ``device`` is ``"cpu"`` or ``"cuda"``, the rank's own card).
+
+    For each fleet size: the inputs of :func:`shard_inputs` on this rank's
+    device; then the single-device port and the sharded port (``mesh=``) on
+    the same inputs: ``fleet.sweep`` (read, write, joint stacks) and
+    ``sweep_regions`` (``SHARD_REGIONS``), ``controller.replay`` with errors,
+    ``trace_score`` with the ddr3 refresh policy, a stream with decisions at
+    each chunking and the region stream. Map outputs are held bitwise: the
+    gathered stacks whole, and this rank's block of the replay history,
+    stream state, partials, decisions and region counts against the same
+    columns of the single-device result (the replay's state and bins also
+    gathered whole); the switch totals exactly; score floats within
+    ``SHARD_SCORE_TOL``; the last chunking's streamed sharded score against
+    the materialized sharded one bitwise (dict equality). With
+    ``eval_kwargs``, also ``trace_eval.run(sharded=True)`` on them.
+
+    Returns, on every rank, ``{size: {check: mismatches summed over ranks
+    (largest error for ``*_err``), ...}}`` with the sharded scores under
+    ``"score"`` and ``"region_score"`` and, with ``return_inputs``, the
+    fleet's cells, the trace and the errors under ``"inputs"`` and the
+    sharded sweep's stacks and the sharded replay's history and final state,
+    gathered whole, under ``"sharded"`` (host tensors); the sharded trace-eval's rows under ``"eval_rows"``; the
+    rank's loaded modules of JAX or the JAX package under
+    ``"foreign_modules"`` (none); on cards the kernels' launches summed
+    over ranks under ``"launches"``. Imports no JAX: spawned ranks import
+    this module."""
+    import torch
+
+    from repro_torch.core import controller, fleet, perfmodel, shard, stream
+    from repro_torch.core import refresh as rf
+
+    dev = (torch.device("cuda", torch.cuda.current_device()) if device == "cuda"
+           else torch.device("cpu"))
+    mesh = shard.fleet_mesh(device=dev)
+    out = {}
+    for n in sizes:
+        lo, hi = shard.local_range(n, mesh)
+        fl, trace, errors, mix = shard_inputs(dev, n, steps, error_rate, seed)
+        trace_h, errors_h = trace.cpu(), errors.cpu()
+        m = {}
+
+        one = fleet.sweep(fl, SHARD_BINS, SHARD_PATTERNS)
+        got = fleet.sweep(fl, SHARD_BINS, SHARD_PATTERNS, mesh=mesh)
+        m["sweep"] = sum(_mismatches(torch, getattr(got, k), getattr(one, k))
+                         for k in ("read", "write", "joint"))
+        one_r = fleet.sweep_regions(fl, SHARD_BINS, (1.0,), n_regions=SHARD_REGIONS)
+        got_r = fleet.sweep_regions(fl, SHARD_BINS, (1.0,), n_regions=SHARD_REGIONS,
+                                    mesh=mesh)
+        m["sweep_regions"] = sum(_mismatches(torch, getattr(got_r, k), getattr(one_r, k))
+                                 for k in ("read", "write"))
+        table = controller.DimmTimingTable.from_fleet(got, refresh=rf.DDR3_EXTENDED)
+        rtable = got_r.to_table()
+
+        rep1 = controller.replay(table, trace, errors)
+        rep = controller.replay(table, trace, errors, mesh=mesh)
+        m["replay"] = sum(_mismatches(torch, getattr(rep, k), getattr(rep1, k)[:, lo:hi])
+                          for k in ("timings", "bin_idx", "switched", "fused"))
+        m["replay_state"] = sum(_mismatches(torch, a, b[lo:hi])
+                                for a, b in zip(rep.state, rep1.state))
+        m["replay_gathered"] = sum(
+            _mismatches(torch, shard.gather_dimm(a, mesh, n, axis), b)
+            for a, b, axis in ((rep.bin_idx, rep1.bin_idx, 1), (rep.switched, rep1.switched, 1),
+                               (rep.state.fused, rep1.state.fused, 0)))
+        score1 = perfmodel.trace_score(table.stack, rep1, refresh=table.bin_refresh())
+        score = perfmodel.trace_score(table.stack, rep, refresh=table.bin_refresh(), mesh=mesh)
+        m["score_err"], m["score_int"] = _score_errors(score, score1)
+        m["switch_total"] = abs(int(score["switches_total"]) - rep1.total_switches)
+
+        for c in chunkings:
+            c_steps = steps if c is None else c
+            single = stream.StreamingController(table)
+            engine = stream.StreamingController(table, mesh=mesh)
+            decs = []
+            for temps_c, errs_c in stream.iter_chunks(trace_h, errors_h, c_steps):
+                single.ingest(temps_c, errs_c)
+                decs.append(engine.ingest(temps_c, errs_c, return_decisions=True))
+            key = f"stream_{'whole' if c is None else c}"
+            m[key] = sum(_mismatches(torch, a, b[lo:hi]) for a, b in
+                         zip((*engine.state, *engine.partials[:3]),
+                             (*single.state, *single.partials[:3])))
+            m[key + "_decisions"] = sum(
+                _mismatches(torch, torch.cat([d[i] for d in decs]), full[:, lo:hi])
+                for i, full in enumerate((rep1.timings, rep1.bin_idx, rep1.switched)))
+            m[key + "_switch_total"] = abs(int(engine.total_switches) - rep1.total_switches)
+        # The streamed sharded score of the last chunking (the partials of
+        # every chunking are held above; the finalize is one function of them).
+        m["stream_score_vs_materialized"] = int(engine.score() != score)
+
+        c_reg = steps if chunkings[-1] is None else chunkings[-1]
+        reg1 = stream.replay_stream(rtable, trace_h, errors_h, chunk_steps=c_reg,
+                                    region_mix=mix)
+        reg = stream.replay_stream(rtable, trace_h, errors_h, chunk_steps=c_reg,
+                                   region_mix=mix, mesh=mesh)
+        m["region_counts"] = _mismatches(torch, reg.region_counts, reg1.region_counts[lo:hi])
+        m["region_partials"] = sum(_mismatches(torch, a, b[lo:hi]) for a, b in
+                                   zip(reg.partials[:3], reg1.partials[:3]))
+        region_score = reg.region_score()
+        m["region_score_err"], m["region_score_int"] = _score_errors(region_score,
+                                                                     reg1.region_score())
+
+        counts = torch.tensor([v for k, v in m.items() if not k.endswith("_err")],
+                              dtype=torch.int64, device=dev)
+        errs = torch.tensor([v for k, v in m.items() if k.endswith("_err")],
+                            dtype=torch.float64, device=dev)
+        counts, errs = shard.psum(counts, mesh).tolist(), shard.pmax(errs, mesh).tolist()
+        ints = iter(counts)
+        floats = iter(errs)
+        out[n] = {k: next(floats) if k.endswith("_err") else next(ints) for k in m}
+        out[n].update(score=score, region_score=region_score)
+        if return_inputs:
+            out[n]["inputs"] = {"cells": tuple(a.cpu() for a in fl.cells), "trace": trace_h,
+                                "errors": errors_h}
+            out[n]["sharded"] = {
+                **{k: getattr(got, k).cpu() for k in ("read", "write", "joint")},
+                **{k: shard.gather_dimm(getattr(rep, k), mesh, n, 1).cpu()
+                   for k in ("timings", "bin_idx", "switched", "fused")},
+                "state": tuple(shard.gather_dimm(a, mesh, n).cpu() for a in rep.state)}
+    if eval_kwargs is not None:
+        from repro_torch.launch import trace_eval
+
+        out["eval_rows"] = trace_eval.run(**eval_kwargs, device=dev, sharded=True,
+                                          verbose=False)["rows"]
+    out["foreign_modules"] = sorted(m for m in sys.modules
+                                    if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+    if dev.type == "cuda":
+        from repro_torch.kernels.charge_sweep import kernel as sweep_k
+        from repro_torch.kernels.replay_step import kernel as replay_k
+
+        fns = (sweep_k.charge_sweep_cuda, replay_k.replay_chunk_cuda, replay_k.accumulate_cuda)
+        launches = shard.psum(torch.tensor([f.launches for f in fns], device=dev), mesh)
+        out["launches"] = dict(zip(("charge_sweep", "replay_chunk", "accumulate"),
+                                   launches.tolist()))
+    return out
+
+
+#: What gloo says when it refuses a CUDA tensor: the one outcome of the
+#: probe that leaves phase 18(a) out.
+GLOO_REFUSAL = re.compile(r"unsupported|not supported|no support|does not support", re.I)
+
+
+def gloo_cuda_probe() -> Optional[str]:
+    """Rank body: whether this torch build's gloo takes CUDA tensors for the
+    collectives the sharded path uses, called raw on the default group:
+    ``all_reduce`` SUM (int64, float64) and MIN (float32) and
+    ``all_gather_single`` (int32). Returns ``None`` where it does, and the
+    backend's own refusal (a message ``GLOO_REFUSAL`` matches) where it
+    refuses one. A wrong value or any other exception raises, and fails the
+    caller: only the refusal leaves 18(a) out."""
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rank, world = dist.get_rank(), dist.get_world_size()
+    total = torch.tensor([rank], dtype=torch.int64, device=dev)
+    fsum = torch.tensor([0.5 * rank], dtype=torch.float64, device=dev)
+    low = torch.tensor([float(rank) + 1.0], device=dev)
+    mine = torch.full((1, 2), rank, dtype=torch.int32, device=dev)
+    gathered = torch.empty((world, 2), dtype=torch.int32, device=dev)
+    gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    calls = (("all_reduce SUM int64", lambda: dist.all_reduce(total)),
+             ("all_reduce SUM float64", lambda: dist.all_reduce(fsum)),
+             ("all_reduce MIN float32", lambda: dist.all_reduce(low, op=dist.ReduceOp.MIN)),
+             ("all_gather_single int32", lambda: gather(gathered, mine)))
+    for name, call in calls:
+        try:
+            call()
+        except (RuntimeError, NotImplementedError) as e:
+            if not GLOO_REFUSAL.search(str(e)):
+                raise
+            return f"{name}: {type(e).__name__}: {str(e).strip().splitlines()[-1][:300]}"
+    want = torch.arange(world, dtype=torch.int32)[:, None].expand(world, 2)
+    if not (int(total) == world * (world - 1) // 2
+            and float(fsum) == 0.25 * world * (world - 1) and float(low) == 1.0
+            and torch.equal(gathered.cpu(), want)):
+        raise AssertionError(
+            f"gloo collectives on CUDA tensors returned wrong values on rank {rank}: sum "
+            f"{int(total)}, float sum {float(fsum)}, min {float(low)}, gathered "
+            f"{gathered.cpu().tolist()}")
+    return None
+
+
+def sharded_main_path() -> dict:
+    """Rank body of phase 18(b), one rank a card over NCCL: the kernels'
+    counters set to 0, then ``serve_fleet.serve(sharded=True)`` at the full
+    width (1,048,576 DIMMs × 1,440 steps, chunk 256, diurnal) and
+    ``trace_eval.run(sharded=True)`` at 65,536 DIMMs × 10,000 steps
+    (diurnal, ddr3), each rank's wall, score-finalize seconds and peak
+    device memory, and the counters read after, summed over ranks. Returns
+    the serve report (its per-rank figures under ``"per_rank"``), the
+    trace-eval rows, each rank's figures and the summed launches."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import shard
+    from repro_torch.kernels.charge_sweep import kernel as sweep_k
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_decode import kernel as fd_k
+    from repro_torch.kernels.latency_matmul import kernel as mm_k
+    from repro_torch.kernels.replay_step import kernel as replay_k
+    from repro_torch.kernels.rglru_scan import kernel as sc_k
+    from repro_torch.launch import serve_fleet, trace_eval
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = shard.fleet_mesh(device=dev)
+    counters = {"charge_sweep": sweep_k.charge_sweep_cuda,
+                "replay_chunk": replay_k.replay_chunk_cuda,
+                "accumulate": replay_k.accumulate_cuda,
+                "flash_attention": fa_k.flash_attention_cuda,
+                "latency_matmul": mm_k.matmul_cuda,
+                "rglru_scan": sc_k.rglru_scan_cuda,
+                "flash_decode": fd_k.flash_decode_cuda}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    serve = serve_fleet.serve(n_dimms=FULL_DIMMS, n_steps=SERVE_STEPS, chunk=CHUNK,
+                              scenario="diurnal", error_rate=0.0, device=dev, sharded=True)
+    serve_run_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    ev = trace_eval.run(n_dimms=EVAL_DIMMS, n_steps=EVAL_STEPS, scenario="diurnal",
+                        refresh="ddr3", error_rate=0.0, device=dev, sharded=True,
+                        verbose=False)
+    eval_run_s = time.perf_counter() - t0
+    mine = {"rank": dist.get_rank(), "card": torch.cuda.current_device(),
+            "serve_run_s": serve_run_s, "eval_run_s": eval_run_s,
+            "eval_sharded_replay_s": ev["sharded_s"],
+            "eval_peak_device_bytes": torch.cuda.max_memory_allocated(dev)}
+    rows = ev["rows"]
+    del ev
+    per_rank = [None] * dist.get_world_size()
+    dist.all_gather_object(per_rank, mine)
+    launches = shard.psum(torch.tensor([fn.launches for fn in counters.values()],
+                                       device=dev), mesh)
+    return {"serve": serve, "eval_rows": rows, "per_rank": per_rank,
+            "launches": dict(zip(counters, launches.tolist()))}
+
+
+def sharded_phase(torch, dev, serve_score: dict, serve_switches: int) -> dict:
+    """Phase 18, the sharded path (see the module docstring): (a) the parity
+    check on three gloo ranks sharing this card, after a probe of gloo's
+    CUDA collectives; (b) one NCCL rank a card through
+    :func:`sharded_main_path`, its serve day held to phase 4's unsharded
+    one. Returns the kernels' launches on (b), summed over ranks."""
+    import gc
+
+    from repro_torch.core import shard
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"sharded path: this process holds {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB "
+        f"of device memory ({torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB reserved) "
+        "while its ranks run")
+    refused = shard.launch(gloo_cuda_probe, SHARD_GLOO_RANKS, "cuda:0")
+    if refused:
+        log(f"18(a) left out: gloo refuses CUDA tensors on this torch build ({refused})")
+    else:
+        t0 = time.perf_counter()
+        got = shard.launch(shard_parity, SHARD_GLOO_RANKS, "cuda:0", "cuda", SHARD_GLOO_SIZES,
+                           SHARD_STEPS, SHARD_CHUNKINGS, ERROR_RATE)
+        wall = time.perf_counter() - t0
+        for n in SHARD_GLOO_SIZES:
+            r = {k: v for k, v in got[n].items() if k not in ("score", "region_score")}
+            log(f"18(a) {SHARD_GLOO_RANKS} gloo ranks on one card, {n:,} DIMMs × "
+                f"{SHARD_STEPS} steps: " + json.dumps(r))
+            bad = {k: v for k, v in r.items()
+                   if (v > SHARD_SCORE_TOL if k.endswith("_err") else v != 0)}
+            if bad:
+                fail(f"sharded path on {SHARD_GLOO_RANKS} gloo ranks, {n} DIMMs, disagrees "
+                     f"with the unsharded card call: {bad}")
+        log(f"18(a) done in {wall:.3f} s (spawn included); launches over the ranks "
+            f"{got['launches']}")
+
+    cards = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    got = shard.launch(sharded_main_path, cards, "cuda")
+    wall = time.perf_counter() - t0
+    serve = got["serve"]
+    err = max(abs(serve["score"][k] - v) / max(abs(v), 1.0) for k, v in serve_score.items()
+              if k != "switches_total")
+    log(f"18(b) {cards} NCCL rank(s): serve {FULL_DIMMS:,} DIMMs × {SERVE_STEPS} steps "
+        f"sharded: slowest loop {serve['wall_s']:.3f} s, {serve['obs_per_s']:,.0f} obs/s, boot "
+        f"{serve['boot_s']:.3f} s, score {serve['score_s']:.3f} s (rank 0), switches "
+        f"{serve['total_switches']} (phase 4: {serve_switches}), max score difference from "
+        f"phase 4 {err:.3e}; launch of the ranks and both runs {wall:.3f} s")
+    for r in serve["per_rank"]:
+        log(f"  serve rank {r['rank']}: loop {r['wall_s']:.3f} s, finalize {r['score_s']:.4f} s, "
+            f"peak device memory {r['peak_device_bytes'] / 2**30:.2f} GiB")
+    for r in got["per_rank"]:
+        log(f"  rank {r['rank']} on cuda:{r['card']}: serve run {r['serve_run_s']:.3f} s, "
+            f"trace-eval run {r['eval_run_s']:.3f} s (sharded replay "
+            f"{r['eval_sharded_replay_s']:.4f} s), trace-eval peak device memory "
+            f"{r['eval_peak_device_bytes'] / 2**30:.2f} GiB")
+    rows = {name: value for name, value, _ in got["eval_rows"]}
+    log("  trace-eval sharded rows: " + json.dumps(
+        {k: v for k, v in rows.items() if k.startswith("trace/sharded")
+         or k in ("trace/scan_seconds", "trace/accumulate_seconds",
+                  "trace/finalize_seconds")}))
+    log(f"  launches over the ranks {got['launches']}")
+    if int(serve["total_switches"]) != serve_switches or \
+            serve["score"]["switches_total"] != serve_score["switches_total"] or err > SHARD_SCORE_TOL:
+        fail("the sharded serve day disagrees with phase 4's unsharded day")
+    if rows.get("trace/sharded_replay_parity_exact") != 1.0:
+        fail("trace-eval's sharded replay is not bitwise the single-device replay")
+    launches = got["launches"]
+    if not (launches["charge_sweep"] and launches["replay_chunk"] and launches["accumulate"]):
+        fail(f"the sharded path did not launch every fleet kernel: {launches}")
+    return launches
 
 
 def fail(msg: str) -> None:
@@ -2043,11 +2436,16 @@ def main() -> None:
     if {m.split(".")[0] for m in sys.modules} & {"jax", "jaxlib", "repro"}:
         fail("the port imported JAX or the JAX package")
 
+    # ---- 18. the sharded path --------------------------------------------------
+    shard_launches = sharded_phase(torch, dev, score, int(report["total_switches"]))
+    if {m.split(".")[0] for m in sys.modules} & {"jax", "jaxlib", "repro"}:
+        fail("the port imported JAX or the JAX package")
+
     # ---- 17. summary -----------------------------------------------------------
     by_path = {"serve": launches, "serve_decisions": dec_launches, "trace_eval": {
         k: sum(v[k] for v in eval_launches.values()) for k in counters},
         "lm_serve": lm["launches"], "altune": alt_launches, "profile": prof_launches,
-        "regions": reg["launches"]}
+        "regions": reg["launches"], "sharded": shard_launches}
 
     def counted(name: str) -> dict:
         """Launches of one kernel on each main path, as read around it."""

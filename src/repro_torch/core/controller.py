@@ -17,7 +17,8 @@
 * :func:`replay` — whole traces with the dense ``(n_steps, n_dimms, ...)``
   history (:class:`ReplayResult`): on a CPU tensor one :func:`step_plain`
   per observation, on a card the emitting entry writing the history in
-  place (:func:`repro_torch.kernels.replay_step.ops.replay_history`).
+  place (:func:`repro_torch.kernels.replay_step.ops.replay_history`);
+  ``mesh=`` replays each rank's block of DIMMs and keeps its history there.
 * :class:`ALDRAMController` — the per-observation API over the shared
   scalar transition (:func:`repro_torch.core.binning.advance_bin`), its
   registers on the host; the exactness baseline for :func:`replay`.
@@ -33,7 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import charge
+from repro_torch.core import charge, shard
 from repro_torch.core.binning import advance_bin, bin_index
 from repro_torch.core.charge import CellParams, ChargeModelConstants, DEFAULT_CONSTANTS
 from repro_torch.core.refresh import BinRefresh, RefreshPolicy, bin_refresh as _bin_refresh
@@ -453,6 +454,7 @@ def replay(
     errors=None,
     params: ControllerParams = ControllerParams(),
     state: Optional[ControllerState] = None,
+    mesh=None,
 ) -> ReplayResult:
     """Replay whole ``(n_steps, n_dimms)`` temperature traces through the
     controller on the table's device, keeping the dense history: on the CPU
@@ -463,7 +465,18 @@ def replay(
     ``errors`` is an optional same-shaped bool mask of error
     injections (each fuses its DIMM to JEDEC from that step on); ``state``
     an optional starting state (default: the boot state). Bit-exact with
-    feeding the same observations to :meth:`ALDRAMController.observe`."""
+    feeding the same observations to :meth:`ALDRAMController.observe`.
+
+    ``mesh`` — a 1-D ``"dimm"`` mesh (:func:`repro_torch.core.shard.fleet_mesh`):
+    the table, traces, errors and state are whole on every rank, as above,
+    and each rank replays its contiguous block of DIMMs with the same
+    single-device replay (on a card the emitting entry of the replay-chunk
+    kernel). The ``(S, N, ...)`` history is too large to gather (21 GB at
+    65,536 DIMMs × 10,000 steps), so it stays where it was computed: the
+    result holds this rank's real DIMMs ``[lo:hi]``
+    (:func:`~repro_torch.core.shard.local_range`) — timings, bins, switch
+    and fuse flags ``(S, hi - lo, ...)`` and the block's final state —
+    bitwise those columns of the single-device replay."""
     dev = table.device
     traces = torch.as_tensor(traces).to(device=dev, dtype=torch.float32)
     if traces.dim() != 2:
@@ -477,6 +490,16 @@ def replay(
                              f"{tuple(traces.shape)}")
     if state is None:
         state = init_state(table.n_dimms, table.n_bins, dev)
+    if mesh is not None:
+        def local(stack_b, traces_b, errors_b, state_b):
+            r = replay(DimmTimingTable(table.temp_bins, stack_b), traces_b, errors_b,
+                       params, state_b)
+            return r.timings, r.bin_idx, r.switched, r.fused, r.state
+
+        run = shard.sharded_dimm_map(
+            local, mesh, in_axes=(0, 1, None if errors is None else 1, 0),
+            out_axes=(1, 1, 1, 1, 0), n_dimms=table.n_dimms)
+        return ReplayResult(*run(table.oblivious_stack(), traces, errors, state))
     n_steps, n = traces.shape
     stack = table.oblivious_stack()
     timings = torch.empty((n_steps, n) + tuple(stack.shape[2:]), dtype=torch.float32,
@@ -505,16 +528,18 @@ def replay(
 
 def replay_stream(table: DimmTimingTable, traces, errors=None,
                   params: ControllerParams = ControllerParams(),
-                  state: Optional[ControllerState] = None, chunk_steps: Optional[int] = None):
+                  state: Optional[ControllerState] = None, chunk_steps: Optional[int] = None,
+                  mesh=None):
     """Streamed (chunked) replay: the same state machine with no
     materialized history. Delegates to
     :func:`repro_torch.core.stream.replay_stream` (stream imports this
-    module, so the import is deferred)."""
+    module, so the import is deferred); ``mesh`` splits the DIMM axis
+    there."""
     from repro_torch.core import stream as _stream
 
     kwargs = {} if chunk_steps is None else {"chunk_steps": chunk_steps}
     return _stream.replay_stream(table, traces, errors=errors, params=params, state=state,
-                                 **kwargs)
+                                 mesh=mesh, **kwargs)
 
 
 # ---------------------------------------------------------------------------
@@ -593,24 +618,36 @@ class ALDRAMController:
         self._streak = state.cool_streak.detach().cpu().numpy().astype(np.int32)
         self._fused = state.fused.detach().cpu().numpy().astype(bool)
 
-    def replay(self, traces, errors=None) -> ReplayResult:
+    def _absorb(self, state: ControllerState, switches: int, mesh) -> None:
+        """Take a replay's final registers (this rank's block under a mesh,
+        gathered whole here) and its switch total."""
+        if mesh is not None:
+            state = shard.gather_dimm(state, mesh, self.table.n_dimms)
+        self.load_state(state)
+        self.switch_count += switches
+
+    def replay(self, traces, errors=None, mesh=None) -> ReplayResult:
         """Advance this controller over whole traces with :func:`replay`,
-        then absorb the final registers and counters."""
+        then absorb the final registers and counters. ``mesh`` splits the
+        DIMM axis as in :func:`replay` (the result is this rank's block; the
+        registers absorbed are the whole fleet's)."""
         result = replay(self.table, traces, errors=errors, params=self.params,
-                        state=self.state())
-        self.load_state(result.state)
-        self.switch_count += result.total_switches
+                        state=self.state(), mesh=mesh)
+        switches = result.total_switches
+        if mesh is not None:
+            switches = int(shard.psum(result.switched.sum().to(torch.int64), mesh))
+        self._absorb(result.state, switches, mesh)
         if errors is not None:
             self.fallback_count += int(torch.as_tensor(errors).to(torch.bool).sum())
         return result
 
-    def replay_stream(self, traces, errors=None, chunk_steps: Optional[int] = None):
+    def replay_stream(self, traces, errors=None, chunk_steps: Optional[int] = None,
+                      mesh=None):
         """Advance this controller over a host-memory trace in chunks
         (:func:`replay_stream`) — the same absorption as :meth:`replay`
-        without a materialized history."""
+        without a materialized history; ``mesh`` as there."""
         result = replay_stream(self.table, traces, errors=errors, params=self.params,
-                               state=self.state(), chunk_steps=chunk_steps)
-        self.load_state(result.state)
-        self.switch_count += result.total_switches
+                               state=self.state(), chunk_steps=chunk_steps, mesh=mesh)
+        self._absorb(result.state, result.total_switches, mesh)
         self.fallback_count += result.errors_total
         return result

@@ -17,6 +17,11 @@ region classes of :func:`~repro_torch.core.charge.region_fracs`: the whole
 ``(T, P, R, N)`` grid is still one fused search (the region axis is one more
 leading axis of the cells; the search never knows it exists), and
 :class:`RegionSweepResult` hands ``(T, R, N, 2, 4)`` sets to a rank-5 table.
+
+Both take ``mesh=`` (:func:`~repro_torch.core.shard.fleet_mesh`): each rank
+sweeps its block of DIMMs, one launch of the search a rank, and the stacks
+are gathered, so every rank holds the same whole result, bitwise the
+single-device one.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ from typing import Dict, NamedTuple, Sequence, Tuple
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import charge, dimm, profiler
+from repro_torch.core import charge, dimm, profiler, shard
 from repro_torch.core.charge import CellParams, ChargeModelConstants, DEFAULT_CONSTANTS
 from repro_torch.core.timing import ACCESS_TYPES, PARAM_NAMES
 from repro_torch.kernels.charge_sweep import ops as charge_sweep
@@ -266,13 +271,15 @@ def sweep_regions(
     window_s: float = charge.REFRESH_WINDOW_S,
     consts: ChargeModelConstants = DEFAULT_CONSTANTS,
     write_tras: str = "profiled",
+    mesh=None,
 ) -> RegionSweepResult:
     """Characterize a fleet over the (T, P, R, N) grid on the fleet's own
     device: the cells take the pattern (:func:`charge.apply_pattern`) and
     then the region class (:func:`charge.apply_region`), and both stacks
     of the whole grid come out of ONE fused search. Stacks are
     ``(T, P, R, n_dimms, 4)`` ns; region R-1 is the anchor, bitwise the
-    region-free :func:`sweep`'s stacks, so ``n_regions=1`` reproduces them."""
+    region-free :func:`sweep`'s stacks, so ``n_regions=1`` reproduces them.
+    ``mesh`` splits the DIMM axis as in :func:`sweep`."""
     if write_tras not in profiler.WRITE_TRAS_MODES:
         raise ValueError(
             f"write_tras must be one of {profiler.WRITE_TRAS_MODES}, got {write_tras!r}")
@@ -281,13 +288,23 @@ def sweep_regions(
     t = torch.tensor([float(x) for x in temps_c], dtype=torch.float32, device=dev)
     p = torch.tensor([float(x) for x in patterns], dtype=torch.float32, device=dev)
     f = charge.region_fracs(int(n_regions), device=dev)
-    eff = charge.apply_pattern(
-        CellParams(*(a[None, None, None, :] for a in cells)), p[None, :, None, None]
-    )
-    eff = charge.apply_region(eff, f[None, None, :, None], consts)
-    read, write = charge_sweep.sweep_min_timings(eff, t[:, None, None, None], window_s, consts)
-    if write_tras == "untested":
-        write = profiler.untested_tras(write)
+
+    def stacks(c: CellParams):
+        eff = charge.apply_pattern(
+            CellParams(*(a[None, None, None, :] for a in c)), p[None, :, None, None]
+        )
+        eff = charge.apply_region(eff, f[None, None, :, None], consts)
+        read, write = charge_sweep.sweep_min_timings(eff, t[:, None, None, None], window_s,
+                                                     consts)
+        if write_tras == "untested":
+            write = profiler.untested_tras(write)
+        return read, write
+
+    if mesh is None:
+        read, write = stacks(cells)
+    else:
+        read, write = shard.sharded_dimm_map(stacks, mesh, in_axes=(0,), out_axes=(3, 3),
+                                             n_dimms=int(cells.r.shape[0]), gather=True)(cells)
     return RegionSweepResult(
         temps_c=t, patterns=p, region_fracs=f, read=read, write=write,
         temps_exact=tuple(float(x) for x in temps_c),
@@ -301,13 +318,23 @@ def sweep(
     window_s: float = charge.REFRESH_WINDOW_S,
     consts: ChargeModelConstants = DEFAULT_CONSTANTS,
     write_tras: str = "profiled",
+    mesh=None,
 ) -> SweepResult:
     """Characterize a whole fleet over the (T, P, N) grid, on the fleet's
     own device: the read and write stacks in one fused search, the joint
     stack once per temperature and broadcast over the patterns (it does not
     depend on the pattern). Every stack is ``(T, P, n_dimms, 4)`` ns.
     ``write_tras="untested"`` fills the write tRAS column with the refused
-    sentinel (for tests of the refusal, never for real tables)."""
+    sentinel (for tests of the refusal, never for real tables).
+
+    ``mesh`` — a 1-D ``"dimm"`` mesh (:func:`repro_torch.core.shard.fleet_mesh`):
+    each rank sweeps its contiguous block of DIMMs (edge-replication padding
+    where the shard count does not divide the fleet), one launch of the
+    search a rank, and the read, write and joint stacks are gathered. So
+    every rank returns the same whole :class:`SweepResult`, bitwise the
+    single-device one: the stacks are O(N·T·P), small beside a replay's
+    history, and every rank programs the whole table (:meth:`~SweepResult.to_table`)
+    that its replay and scores read."""
     if write_tras not in profiler.WRITE_TRAS_MODES:
         raise ValueError(
             f"write_tras must be one of {profiler.WRITE_TRAS_MODES}, got {write_tras!r}")
@@ -315,14 +342,22 @@ def sweep(
     dev = resolve_device(cells.r.device)
     t = torch.tensor([float(x) for x in temps_c], dtype=torch.float32, device=dev)
     p = torch.tensor([float(x) for x in patterns], dtype=torch.float32, device=dev)
-    eff = charge.apply_pattern(
-        CellParams(*(a[None, None, :] for a in cells)), p[None, :, None]
-    )
-    read, write = charge_sweep.sweep_min_timings(eff, t[:, None, None], window_s, consts)
-    if write_tras == "untested":
-        write = profiler.untested_tras(write)
-    joint = profiler.joint_min_timings(
-        CellParams(*(a[None, :] for a in cells)), t[:, None], 1.0, window_s, consts)
+
+    def stacks(c: CellParams):
+        eff = charge.apply_pattern(CellParams(*(a[None, None, :] for a in c)), p[None, :, None])
+        read, write = charge_sweep.sweep_min_timings(eff, t[:, None, None], window_s, consts)
+        if write_tras == "untested":
+            write = profiler.untested_tras(write)
+        joint = profiler.joint_min_timings(
+            CellParams(*(a[None, :] for a in c)), t[:, None], 1.0, window_s, consts)
+        return read, write, joint
+
+    if mesh is None:
+        read, write, joint = stacks(cells)
+    else:
+        read, write, joint = shard.sharded_dimm_map(
+            stacks, mesh, in_axes=(0,), out_axes=(2, 2, 1), n_dimms=int(cells.r.shape[0]),
+            gather=True)(cells)
     return SweepResult(
         temps_c=t, patterns=p, read=read, write=write,
         joint=joint[:, None].expand(read.shape),

@@ -8,8 +8,9 @@ once, and the trace scorer the streaming controller finalizes:
 counts, float32 sums of the realized cycle-quantized timings — exact
 under any chunking), :func:`trace_score_accumulate` (on a card, the fused
 CUDA kernel) and :func:`trace_score_finalize`, which weights each
-(DIMM, bin) register block's speedup over JEDEC by its time in that bin.
-With ``refresh=`` (a :class:`~repro_torch.core.refresh.BinRefresh`) the
+(DIMM, bin) register block's speedup over JEDEC by its time in that bin;
+with ``mesh=`` each rank finalizes its own DIMMs and the sums meet in one
+``all_reduce`` of each kind. With ``refresh=`` (a :class:`~repro_torch.core.refresh.BinRefresh`) the
 score adds the combined latency + refresh figures: refresh steals bank and
 bus capacity and adds blocking latency in :func:`evaluate`.
 
@@ -29,6 +30,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import shard
 from repro_torch.core.charge import div
 from repro_torch.core.timing import (
     ACCESS_TYPES,
@@ -418,31 +420,13 @@ def trace_score_accumulate_plain(partials: ScorePartials, timings: torch.Tensor,
     )
 
 
-def trace_score_finalize(
-    partials: ScorePartials,
-    stack: torch.Tensor,
-    cfg: SystemConfig = MULTI_CORE,
-    claim: float = PAPER_CLAIM_SPEEDUP,
-    workloads: Tuple[Workload, ...] = WORKLOADS,
-    refresh=None,
-) -> Dict[str, float]:
-    """Final score dict from accumulated partials + the table's
-    ``(n_dimms, n_bins, 2, 4)`` registers: realized latency reductions,
-    realized speedups (all workloads and the claim's cohort), switching
-    activity and time at JEDEC. ``refresh`` — an optional
-    :class:`~repro_torch.core.refresh.BinRefresh` — adds
-    ``refresh_occupancy_mean`` and ``speedup_combined_{mean, min,
-    intensive_mean, vs_claim}``; the latency-only figures do not change."""
-    stack = stack.to(torch.float32)
-    n_dimms, n_bins = stack.shape[0], stack.shape[1]
-    if tuple(partials.occupancy.shape) != (n_dimms, n_bins + 1):
-        raise ValueError(
-            f"partials occupancy shape {tuple(partials.occupancy.shape)} does "
-            f"not match a {n_dimms}-DIMM, {n_bins}-bin table"
-        )
-    n_steps = int(partials.n_steps)
-    if n_steps <= 0:
-        raise ValueError("cannot finalize a score over zero observations")
+def _score_figures(partials: ScorePartials, stack: torch.Tensor, cfg: SystemConfig,
+                   workloads: Tuple[Workload, ...], refresh=None):
+    """Per-DIMM score figures of ``partials`` against the ``(n, B, 2, 4)``
+    registers ``stack``: occupancy fractions, latency reductions, realized
+    speedups (all workloads and the memory-intensive cohort), the coolest
+    bin's tRAS flags, and with ``refresh`` the combined figures."""
+    n_dimms = stack.shape[0]
     steps = partials.n_steps.to(torch.float32)
     occ = partials.occupancy.to(torch.float32) / steps           # (N, B+1)
     sums = partials.timing_sums                                  # (N, 2, 4)
@@ -478,6 +462,53 @@ def trace_score_finalize(
             "combined_mem": (occ * sp_c_mem).sum(dim=-1),
             "refresh_occ": (occ * occ_bins[None, :]).sum(dim=-1),
         }
+    return occ, red, realized, realized_mem, tras_flags, extra
+
+
+def trace_score_finalize(
+    partials: ScorePartials,
+    stack: torch.Tensor,
+    cfg: SystemConfig = MULTI_CORE,
+    claim: float = PAPER_CLAIM_SPEEDUP,
+    workloads: Tuple[Workload, ...] = WORKLOADS,
+    refresh=None,
+    mesh=None,
+) -> Dict[str, float]:
+    """Final score dict from accumulated partials + the table's
+    ``(n_dimms, n_bins, 2, 4)`` registers: realized latency reductions,
+    realized speedups (all workloads and the claim's cohort), switching
+    activity and time at JEDEC. ``refresh`` — an optional
+    :class:`~repro_torch.core.refresh.BinRefresh` — adds
+    ``refresh_occupancy_mean`` and ``speedup_combined_{mean, min,
+    intensive_mean, vs_claim}``; the latency-only figures do not change.
+
+    ``mesh`` — a 1-D ``"dimm"`` mesh: ``partials`` are this rank's real
+    DIMMs ``[lo:hi]`` (:func:`~repro_torch.core.shard.local_range`, as a
+    sharded replay or stream leaves them) and ``stack`` is whole. Each rank
+    computes the figures of its own rows only, sums them (float64; the
+    switch count in int64) and takes minima (``+inf`` on an empty block),
+    and one ``all_reduce`` of each kind combines them
+    (:func:`_psum_score_partials`, :func:`_score_dict_from_sums`): every
+    rank returns the same dict; counts are exact and float means differ
+    from ``mesh=None`` by summation order only."""
+    stack = stack.to(torch.float32)
+    n_dimms, n_bins = stack.shape[0], stack.shape[1]
+    lo, hi = 0, n_dimms
+    if mesh is not None:
+        lo, hi = shard.local_range(n_dimms, mesh)
+    if tuple(partials.occupancy.shape) != (hi - lo, n_bins + 1):
+        raise ValueError(
+            f"partials occupancy shape {tuple(partials.occupancy.shape)} does "
+            f"not match {hi - lo} DIMMs of a {n_dimms}-DIMM, {n_bins}-bin table"
+        )
+    n_steps = int(partials.n_steps)
+    if n_steps <= 0:
+        raise ValueError("cannot finalize a score over zero observations")
+    if mesh is not None:
+        sums = _psum_score_partials(partials, stack[lo:hi], cfg, workloads, refresh, mesh)
+        return _score_dict_from_sums(sums, n_dimms, n_steps, claim, refresh)
+    occ, red, realized, realized_mem, tras_flags, extra = _score_figures(
+        partials, stack, cfg, workloads, refresh)
     switches = partials.switches.to(torch.int64)
     out = {
         "read_reduction_mean": float(red["read"].mean()),
@@ -509,18 +540,110 @@ def trace_score_finalize(
     return out
 
 
+#: The summed figures of a sharded finalize, in :func:`_psum_score_partials`'
+#: order (the refresh sums last, present only with a refresh policy), and the
+#: figures whose fleet minimum it takes.
+_SUMMED = ("read", "write", "realized", "realized_mem", "jedec", "coolest", "tras",
+           *(f"{a}_{p}" for a in ACCESS_TYPES for p in PARAM_NAMES))
+_SUMMED_REFRESH = ("combined", "combined_mem", "refresh_occ")
+
+
+def _psum_score_partials(partials: ScorePartials, stack_l: torch.Tensor, cfg: SystemConfig,
+                         workloads: Tuple[Workload, ...], refresh, mesh) -> Dict:
+    """This rank's score figures over its real rows ``stack_l`` →
+    cross-rank sums: one float64 ``all_reduce`` SUM of the 15 figure sums
+    (18 with refresh), one MIN of the realized (and combined) minima, and
+    one int64 SUM of the switch count. An empty block contributes zeros
+    and ``+inf``."""
+    names = _SUMMED + (_SUMMED_REFRESH if refresh is not None else ())
+    dev = stack_l.device
+    sums = torch.zeros((len(names),), dtype=torch.float64, device=dev)
+    mins = torch.full((1 if refresh is None else 2,), torch.inf, dtype=torch.float32,
+                      device=dev)
+    switches = partials.switches.to(torch.int64).sum()
+    if stack_l.shape[0]:
+        occ, red, realized, realized_mem, tras_flags, extra = _score_figures(
+            partials, stack_l, cfg, workloads, refresh)
+        n_bins = stack_l.shape[1]
+        cols = [red["read"], red["write"], realized, realized_mem, occ[:, n_bins], occ[:, 0],
+                tras_flags]
+        cols += [red[f"{a}_params"][:, pi] for a in ACCESS_TYPES
+                 for pi in range(len(PARAM_NAMES))]
+        mins[0] = realized.min()
+        if extra is not None:
+            cols += [extra[k] for k in _SUMMED_REFRESH]
+            mins[1] = extra["combined"].min()
+        sums = torch.stack([c.to(torch.float64).sum() for c in cols])
+    sums, mins = shard.psum(sums, mesh).tolist(), shard.pmin(mins, mesh).tolist()
+    out = dict(zip(names, sums))
+    out.update(realized_min=mins[0], switches=int(shard.psum(switches, mesh)))
+    if refresh is not None:
+        out["combined_min"] = mins[1]
+    return out
+
+
+def _score_dict_from_sums(sums: Dict, n_dimms: int, n_steps: int, claim: float,
+                          refresh=None) -> Dict[str, float]:
+    """The score dict of the cross-rank sums: each mean is its sum over
+    ``n_dimms``."""
+    n = float(n_dimms)
+    mean = {k: v / n for k, v in sums.items() if k not in ("realized_min", "switches",
+                                                           "combined_min")}
+    s_switch = float(sums["switches"])
+    out = {
+        "read_reduction_mean": mean["read"],
+        "write_reduction_mean": mean["write"],
+        "speedup_realized_mean": mean["realized"] - 1.0,
+        "speedup_realized_min": sums["realized_min"] - 1.0,
+        "speedup_realized_intensive_mean": mean["realized_mem"] - 1.0,
+        "speedup_vs_claim": (mean["realized_mem"] - 1.0) - claim,
+        "switches_total": s_switch,
+        "switches_per_dimm_mean": s_switch / n,
+        "switches_per_kstep": s_switch / (n_steps * n / 1000.0),
+        "time_at_jedec_frac": mean["jedec"],
+        "time_in_coolest_bin_frac": mean["coolest"],
+        "tras_below_jedec_coolest_frac": mean["tras"],
+    }
+    if refresh is not None:
+        out.update({
+            "refresh_occupancy_mean": mean["refresh_occ"],
+            "speedup_combined_mean": mean["combined"] - 1.0,
+            "speedup_combined_min": sums["combined_min"] - 1.0,
+            "speedup_combined_intensive_mean": mean["combined_mem"] - 1.0,
+            "speedup_combined_vs_claim": (mean["combined_mem"] - 1.0) - claim,
+        })
+    for access in ACCESS_TYPES:
+        for param in PARAM_NAMES:
+            out[f"{access}_{param}_reduction_mean"] = mean[f"{access}_{param}"]
+    return out
+
+
 def trace_score(stack: torch.Tensor, replay, cfg: SystemConfig = MULTI_CORE,
                 claim: float = PAPER_CLAIM_SPEEDUP,
-                workloads: Tuple[Workload, ...] = WORKLOADS, refresh=None) -> Dict[str, float]:
+                workloads: Tuple[Workload, ...] = WORKLOADS, refresh=None,
+                mesh=None) -> Dict[str, float]:
     """Score a materialized replay (duck-typed: ``timings`` (S, N, 2, 4),
     ``bin_idx`` and ``switched`` (S, N)): init → accumulate the whole trace
     as one block (on a card, one launch of the accumulate kernel) →
-    finalize, with the refresh figures when ``refresh`` is given."""
-    partials = trace_score_accumulate(
-        trace_score_init(stack.shape[0], stack.shape[1], stack.device),
-        replay.timings, replay.bin_idx, replay.switched,
-    )
-    return trace_score_finalize(partials, stack, cfg, claim, workloads, refresh)
+    finalize, with the refresh figures when ``refresh`` is given.
+
+    ``mesh`` — the replay is a sharded one's (this rank's real DIMMs, as
+    ``controller.replay(mesh=)`` returns it) and ``stack`` is whole: each
+    rank accumulates its block (one launch a rank; none on a rank whose
+    block is empty) and the sharded finalize combines the figures, the
+    same finalize a sharded stream runs, so the two agree bitwise."""
+    n_dimms, n_bins = stack.shape[0], stack.shape[1]
+    rows = n_dimms
+    if mesh is not None:
+        lo, hi = shard.local_range(n_dimms, mesh)
+        rows = hi - lo
+    partials = trace_score_init(rows, n_bins, stack.device)
+    if rows:
+        partials = trace_score_accumulate(partials, replay.timings, replay.bin_idx,
+                                          replay.switched)
+    else:
+        partials = partials._replace(n_steps=partials.n_steps + int(replay.timings.shape[0]))
+    return trace_score_finalize(partials, stack, cfg, claim, workloads, refresh, mesh)
 
 
 # ---------------------------------------------------------------------------

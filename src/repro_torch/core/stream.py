@@ -39,6 +39,17 @@ reuse of a buffer after that kernel, so while the card copies and scans
 chunk k the host fills the other buffer with chunk k+1. The buffers are
 allocated when the engine is built (``chunk_steps``) or at the first chunk
 that outgrows them; error buffers only once a chunk carries errors.
+
+Under a mesh (``mesh=``, :func:`~repro_torch.core.shard.fleet_mesh`) each rank
+holds its padded block of DIMMs (:func:`~repro_torch.core.shard.local_block`)
+of the state, the partials and the table, and the replay kernel runs on that
+block: telemetry chunks still arrive full width on every rank, and the
+ingestor stages only the rank's columns (padding on the host only for a block
+that reaches past the fleet). The state, partials, decisions and region counts
+a caller reads are the rank's real DIMMs; the switch total is summed across
+ranks, and the score is the sharded finalize
+(:func:`~repro_torch.core.perfmodel.trace_score_finalize` ``mesh=``), so a
+streamed sharded score is bitwise the materialized sharded one.
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ from typing import Iterator, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import shard
 from repro_torch.core.controller import (
     ControllerParams,
     ControllerState,
@@ -96,7 +108,15 @@ def _host_tensor(a, dtype: torch.dtype) -> torch.Tensor:
 
 class _Slot:
     """One staging pair for up to ``rows`` steps: pinned host memory and its
-    device twin. The error pair is added by :meth:`errors` when first needed."""
+    device twin. The error pair is added by :meth:`errors` when first needed.
+
+    The device buffers come from the caching allocator on the compute
+    stream, which may hand out a block that work still queued there (on
+    the tensor the block last held) reads or writes; the side stream that
+    fills the buffers is not ordered after that work. So ``consumed`` is
+    recorded on the compute stream at each allocation, and the first copy
+    into a new buffer waits for it, as every later copy waits for the
+    kernel that read the buffer last."""
 
     def __init__(self, rows: int, n_dimms: int, device: torch.device):
         self.rows = rows
@@ -105,21 +125,28 @@ class _Slot:
         self.host_errs: Optional[torch.Tensor] = None
         self.errs: Optional[torch.Tensor] = None
         self.copied = torch.cuda.Event()    # H2D done: device ready, host reusable
-        self.consumed = torch.cuda.Event()  # kernel done reading the device buffers
+        self.consumed = torch.cuda.Event()  # the compute stream is done with the device buffers
+        self.consumed.record(torch.cuda.current_stream(device))
 
     def errors(self) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.errs is None:
             shape, dev = self.temps.shape, self.temps.device
             self.host_errs = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
             self.errs = torch.empty(shape, dtype=torch.uint8, device=dev)
+            self.consumed.record(torch.cuda.current_stream(dev))
         return self.host_errs, self.errs
 
 
 class _Ingestor:
-    """Host → device chunk feeder (see the module docstring)."""
+    """Host → device chunk feeder (see the module docstring). ``cols`` —
+    ``(lo, hi, b)``: stage the block of ``b`` columns that starts with the
+    real columns ``lo:hi`` of each ``n_dimms``-wide chunk (default: all)."""
 
-    def __init__(self, n_dimms: int, device: torch.device, rows: int = 0):
+    def __init__(self, n_dimms: int, device: torch.device, rows: int = 0,
+                 cols: Optional[Tuple[int, int, int]] = None):
         self.n_dimms = n_dimms
+        self.cols = (0, n_dimms, n_dimms) if cols is None else cols
+        self.width = self.cols[2]
         self.device = device
         self.errors_seen = 0
         self._slots = [None, None]
@@ -139,15 +166,16 @@ class _Ingestor:
                 if slot is not None:
                     slot.consumed.synchronize()
                     slot.copied.synchronize()
-                self._slots[i] = _Slot(rows, self.n_dimms, self.device)
+                self._slots[i] = _Slot(rows, self.width, self.device)
         if self._no_errors is None or self._no_errors.shape[0] < rows:
-            self._no_errors = torch.zeros((rows, self.n_dimms), dtype=torch.uint8,
+            self._no_errors = torch.zeros((rows, self.width), dtype=torch.uint8,
                                           device=self.device)
 
     def stage(self, temps, errors) -> Tuple[torch.Tensor, torch.Tensor, Optional[_Slot]]:
-        """Validate one chunk and make it readable on the compute stream.
-        Returns ``(temps (c, N) float32, errs (c, N) uint8, slot)``; pass the
-        slot to :meth:`release` after launching the work that reads it."""
+        """Validate one full-width chunk and make its column block readable
+        on the compute stream. Returns ``(temps (c, b) float32, errs (c, b)
+        uint8, slot)``; pass the slot to :meth:`release` after launching the
+        work that reads it."""
         temps = _host_tensor(temps, torch.float32)
         if temps.dim() != 2 or temps.shape[1] != self.n_dimms:
             raise ValueError(f"chunk must be (chunk_steps, {self.n_dimms}), "
@@ -158,20 +186,22 @@ class _Ingestor:
                 raise ValueError(f"errors chunk shape {tuple(errors.shape)} != "
                                  f"temps {tuple(temps.shape)}")
             self.errors_seen += int(errors.sum())
+        lo, hi, b = self.cols
         if self._copy_stream is None:
-            errs = (torch.zeros(temps.shape, dtype=torch.uint8) if errors is None
-                    else errors.to(torch.uint8))
-            return temps.contiguous(), errs.contiguous(), None
+            errs = (torch.zeros((temps.shape[0], b), dtype=torch.uint8) if errors is None
+                    else shard.padded_block(errors, lo, hi, b, axis=1).to(torch.uint8))
+            return (shard.padded_block(temps, lo, hi, b, axis=1).contiguous(),
+                    errs.contiguous(), None)
 
         c = temps.shape[0]
         self.reserve(c)
         slot = self._slots[self._next]
         self._next ^= 1
         slot.copied.synchronize()  # the last copy out of this pinned buffer is done
-        slot.host_temps[:c].copy_(temps)
+        shard.padded_block(temps, lo, hi, b, axis=1, out=slot.host_temps[:c])
         if errors is not None:
             host_errs, errs = slot.errors()
-            host_errs[:c].copy_(errors)
+            shard.padded_block(errors, lo, hi, b, axis=1, out=host_errs[:c])
         with torch.cuda.stream(self._copy_stream):
             self._copy_stream.wait_event(slot.consumed)
             slot.temps[:c].copy_(slot.host_temps[:c], non_blocking=True)
@@ -198,6 +228,9 @@ class StreamResult(NamedTuple):
     #: (n_dimms, n_bins + 1, n_regions) int32 region-access counts, only when
     #: the stream carried a region mix (``replay_stream(region_mix=)``).
     region_counts: Optional[torch.Tensor] = None
+    #: The stream's ``"dimm"`` mesh: state, partials, switch and region counts
+    #: are then this rank's real DIMMs.
+    mesh: object = None
 
     @property
     def n_steps(self) -> int:
@@ -205,28 +238,39 @@ class StreamResult(NamedTuple):
 
     @property
     def switch_counts(self) -> torch.Tensor:
-        """(N,) int32 per-DIMM timing-set switches over the stream."""
+        """(N,) int32 per-DIMM timing-set switches over the stream (this
+        rank's DIMMs under a mesh)."""
         return self.partials.switches
 
     @property
     def total_switches(self) -> int:
-        return int(self.partials.switches.to(torch.int64).sum())
+        """Switches over the stream, all DIMMs (summed across ranks)."""
+        total = self.partials.switches.to(torch.int64).sum()
+        return int(total if self.mesh is None else shard.psum(total, self.mesh))
 
     def score(self, cfg=MULTI_CORE, claim: float = PAPER_CLAIM_SPEEDUP,
               workloads=WORKLOADS):
-        """The trace-score dict, with the table's refresh figures."""
+        """The trace-score dict, with the table's refresh figures; under a
+        mesh, the sharded finalize on the stream's own mesh (the partials
+        are this rank's block, so no other mesh can finalize them)."""
         return trace_score_finalize(self.partials, self.table.oblivious_stack(),
-                                    cfg, claim, workloads, self.table.bin_refresh())
+                                    cfg, claim, workloads, self.table.bin_refresh(),
+                                    mesh=self.mesh)
 
     def region_score(self, cfg=MULTI_CORE, claim: float = PAPER_CLAIM_SPEEDUP,
                      workloads=WORKLOADS):
         """The region-score dict of the streamed counts and the table's rank-5
-        registers, equal to the materialized ``region_trace_score``."""
+        registers, equal to the materialized ``region_trace_score``. Under a
+        mesh the counts are gathered (``(N, B+1, R)`` int32) and every rank
+        runs the single-device finalize."""
         if self.region_counts is None:
             raise ValueError("this stream carried no region mix; pass region_mix= to "
                              "replay_stream")
-        return region_score_finalize(self.region_counts, self.table.region_stack(), cfg,
-                                     claim, workloads)
+        counts = self.region_counts
+        if self.mesh is not None:
+            counts = shard.gather_dimm(counts, self.mesh, self.table.n_dimms)
+        return region_score_finalize(counts, self.table.region_stack(), cfg, claim,
+                                     workloads)
 
 
 class StreamingController:
@@ -234,36 +278,60 @@ class StreamingController:
     batched chunks (:meth:`ingest`), read the running score (:meth:`score`).
     It runs on the table's device and retains O(n_dimms) state. On a card,
     ``chunk_steps`` sizes the staging buffers up front and the replay kernel
-    is built and loaded here, so neither lands inside the first chunk."""
+    is built and loaded here, so neither lands inside the first chunk.
+    ``mesh`` splits the DIMM axis (see the module docstring); ``table`` and
+    ``state`` are whole on every rank."""
 
     def __init__(self, table: DimmTimingTable,
                  params: ControllerParams = ControllerParams(),
-                 state: Optional[ControllerState] = None, chunk_steps: int = 0):
+                 state: Optional[ControllerState] = None, chunk_steps: int = 0,
+                 mesh=None):
         self.table = table
         self.params = params
+        self.mesh = mesh
         dev = table.device
-        self._scal = replay_ops.replay_scalars(table.temp_bins, params)
-        self._stack_t = replay_ops.to_stack_t(table.oblivious_stack())
+        n = table.n_dimms
         if state is None:
-            state = init_state(table.n_dimms, table.n_bins, dev)
+            state = init_state(n, table.n_bins, dev)
+        cols = None
+        self._stack = table.oblivious_stack()
+        self._real = n
+        if mesh is not None:
+            lo, hi = shard.local_range(n, mesh)
+            cols, self._real = (lo, hi, shard.block_size(n, mesh)), hi - lo
+            self._stack, state = (shard.local_block(x, mesh, n)
+                                  for x in (self._stack, state))
+        width = self._stack.shape[0]
+        self._scal = replay_ops.replay_scalars(table.temp_bins, params)
+        self._stack_t = replay_ops.to_stack_t(self._stack)
         self._state3 = replay_ops.to_state3(state)
         self._occ, self._sw, self._sums = replay_ops.to_slot_partials(
-            trace_score_init(table.n_dimms, table.n_bins, dev)
+            trace_score_init(width, table.n_bins, dev)
         )
         self._n_steps = 0
         self._region_counts: Optional[torch.Tensor] = None
-        self._ingest = _Ingestor(table.n_dimms, dev, rows=chunk_steps)
+        self._ingest = _Ingestor(n, dev, rows=chunk_steps, cols=cols)
         if dev.type == "cuda":
             replay_ops.load_kernel()
         self.n_chunks = 0
 
+    def _block_state(self) -> ControllerState:
+        return replay_ops.from_state3(self._state3)
+
+    def _block_partials(self) -> ScorePartials:
+        return replay_ops.from_slot_partials(self._occ, self._sw, self._sums, self._n_steps)
+
     @property
     def state(self) -> ControllerState:
-        return replay_ops.from_state3(self._state3)
+        """The registers (this rank's real DIMMs under a mesh)."""
+        return shard.slice_dimm(self._block_state(), self._real)
 
     @property
     def partials(self) -> ScorePartials:
-        return replay_ops.from_slot_partials(self._occ, self._sw, self._sums, self._n_steps)
+        """The score partials (this rank's real DIMMs under a mesh)."""
+        p = self._block_partials()
+        return p._replace(occupancy=p.occupancy[:self._real], switches=p.switches[:self._real],
+                          timing_sums=p.timing_sums[:self._real])
 
     @property
     def n_steps(self) -> int:
@@ -278,8 +346,11 @@ class StreamingController:
         """Timing-set switches over the stream, all DIMMs: a 0-d int64 tensor
         on the engine's device, computed when read and never copied to the
         host here (``int()`` reads it), so reading it each chunk adds no
-        host sync to a serve loop."""
-        return self._sw.to(torch.int64).sum()
+        host sync to a serve loop. Under a mesh each rank sums its real DIMMs
+        and the ranks' sums are ``all_reduce``d (on cards an NCCL
+        collective queued on the device, still no host sync)."""
+        total = self._sw[:self._real].to(torch.int64).sum()
+        return total if self.mesh is None else shard.psum(total, self.mesh)
 
     def ingest(self, temps, errors=None, return_decisions: bool = False):
         """Absorb one ``(chunk_steps, n_dimms)`` chunk from host memory (a
@@ -289,9 +360,13 @@ class StreamingController:
         bin_idx (c, N) int32, switched (c, N) bool)`` on the engine's device
         — the realized rows, the effective bin (``n_bins`` = the JEDEC
         sentinel) and the switch flags — which the caller owns; otherwise
-        ``None``. State and partials advance the same either way."""
+        ``None``. State and partials advance the same either way. Under a
+        mesh the chunk is full width and the decisions are this rank's real
+        DIMMs, ``(c, hi - lo, ...)``."""
         dec = self._absorb(temps, errors, emit=return_decisions)
-        return None if dec is None else (dec.rows, dec.eff, dec.switched)
+        if dec is None:
+            return None
+        return dec.rows[:, :self._real], dec.eff[:, :self._real], dec.switched[:, :self._real]
 
     def _absorb(self, temps, errors, region_mix: Optional[torch.Tensor] = None,
                 emit: bool = False):
@@ -303,6 +378,8 @@ class StreamingController:
             temps = temps[None]
             errors = None if errors is None else errors[None]
         temps_d, errs_d, slot = self._ingest.stage(temps, errors)
+        if region_mix is not None and self.mesh is not None:
+            region_mix = shard.local_block(region_mix, self.mesh, self.table.n_dimms, axis=1)
         dec = None
         carry = (self._state3, self._occ, self._sw, self._sums, self._stack_t,
                  temps_d, errs_d, self._scal)
@@ -323,12 +400,12 @@ class StreamingController:
         """One chunk with the region-count carry (see the module docstring)."""
         table = self.table
         if self._region_counts is None:
-            self._region_counts = region_counts_init(table.n_dimms, table.n_bins,
+            self._region_counts = region_counts_init(self._stack.shape[0], table.n_bins,
                                                      table.n_regions, table.device)
         if table.device.type == "cpu":
             edges = torch.tensor(table.temp_bins, dtype=torch.float32)
             out = replay_ref.region_chunk_scan(
-                table.oblivious_stack(), edges, self.params, self.state, *self.partials,
+                self._stack, edges, self.params, self._block_state(), *self._block_partials(),
                 self._region_counts, temps_d, errs_d != 0, region_mix)
             self._state3 = replay_ops.to_state3(out[0])
             self._occ, self._sw, self._sums = replay_ops.to_slot_partials(
@@ -344,21 +421,23 @@ class StreamingController:
     def score(self, cfg=MULTI_CORE, claim: float = PAPER_CLAIM_SPEEDUP,
               workloads=WORKLOADS):
         """The running trace-score dict over everything ingested so far,
-        with the refresh figures when the table carries a refresh policy."""
-        return trace_score_finalize(self.partials, self.table.oblivious_stack(),
-                                    cfg, claim, workloads, self.table.bin_refresh())
+        with the refresh figures when the table carries a refresh policy
+        (under a mesh, the sharded finalize: the same dict on every rank)."""
+        return self.result().score(cfg, claim, workloads)
 
     def result(self) -> StreamResult:
+        counts = self._region_counts
         return StreamResult(state=self.state, partials=self.partials, table=self.table,
                             n_chunks=self.n_chunks, errors_total=self.errors_total,
-                            region_counts=self._region_counts)
+                            region_counts=None if counts is None else counts[:self._real],
+                            mesh=self.mesh)
 
 
 def replay_stream(table: DimmTimingTable, traces, errors=None,
                   params: ControllerParams = ControllerParams(),
                   state: Optional[ControllerState] = None,
                   chunk_steps: int = DEFAULT_CHUNK_STEPS,
-                  region_mix=None) -> StreamResult:
+                  region_mix=None, mesh=None) -> StreamResult:
     """Replay a host-memory ``(n_steps, n_dimms)`` trace in step-axis chunks
     through a :class:`StreamingController`.
 
@@ -367,7 +446,12 @@ def replay_stream(table: DimmTimingTable, traces, errors=None,
     table's device or on the host, or an array): the stream then carries the
     region counts (:attr:`StreamResult.region_counts`,
     :meth:`StreamResult.region_score`), chunked in lockstep with the trace,
-    equal to a materialized accumulation at every chunking."""
+    equal to a materialized accumulation at every chunking.
+
+    ``mesh`` — a 1-D ``"dimm"`` mesh: the trace (and mix) are whole on every
+    rank and each rank's engine runs its block of DIMMs (see the module
+    docstring); the result is that of :class:`StreamingController` under
+    the mesh."""
     if region_mix is not None:
         if not hasattr(traces, "shape"):
             raise ValueError("region_mix requires a materialized (n_steps, n_dimms) "
@@ -381,7 +465,7 @@ def replay_stream(table: DimmTimingTable, traces, errors=None,
                              f"traces shape {tuple(traces.shape)}")
     if traces.shape[1] != table.n_dimms:
         raise ValueError(f"trace has {traces.shape[1]} DIMMs, table has {table.n_dimms}")
-    engine = StreamingController(table, params, state)
+    engine = StreamingController(table, params, state, mesh=mesh)
     for s, (temps, errs) in zip(range(0, traces.shape[0], chunk_steps),
                                 iter_chunks(traces, errors, chunk_steps)):
         engine._absorb(temps, errs,

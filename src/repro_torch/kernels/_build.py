@@ -9,6 +9,12 @@ The flags are part of the kernels' numerics contract: no
 ``--use_fast_math`` (precise ``expf``, IEEE division) and ``-fmad=false``
 (no contraction of ``a * b + c`` into an FMA), so each float32 operation
 rounds once, exactly as a PyTorch elementwise op does.
+
+Each library links its own (static) CUDA runtime, which launches in the
+context current on the calling thread, not on the device of the pointers it
+is given. So every wrapper launches under ``torch.cuda.device`` of its
+tensors: a kernel on ``cuda:1`` runs in ``cuda:1``'s context and on its
+stream whatever the current device is.
 """
 
 from __future__ import annotations

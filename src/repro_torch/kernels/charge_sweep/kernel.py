@@ -156,8 +156,9 @@ def charge_sweep_cuda(
     params = _SweepParamsC(*dataclasses.astuple(scal),
                            (ctypes.c_int32 * N_SEARCHES)(*n_grid))
     lib = _lib()
-    rc = lib.charge_sweep_launch(_build.ptr(inv), _build.ptr(out), n,
-                                 ctypes.byref(params), _build.stream_ptr(inv.device))
+    with torch.cuda.device(inv.device):
+        rc = lib.charge_sweep_launch(_build.ptr(inv), _build.ptr(out), n,
+                                     ctypes.byref(params), _build.stream_ptr(inv.device))
     _build.check(lib, rc, "charge_sweep_launch")
     charge_sweep_cuda.launches += 1
     return out

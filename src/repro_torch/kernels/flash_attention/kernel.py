@@ -81,11 +81,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"heads {h} must be a multiple of KV heads {hk}")
     out = torch.empty((b, sq, h, dh), dtype=torch.float32, device=q.device)
     lib = _lib()
-    rc = lib.flash_attention_launch(
-        *tile, _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
-        b, sq, skv, h, hk, dh, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        int(causal), int(window), dh ** -0.5, _build.stream_ptr(q.device),
-    )
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_launch(
+            *tile, _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
+            b, sq, skv, h, hk, dh, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            int(causal), int(window), dh ** -0.5, _build.stream_ptr(q.device),
+        )
     _build.check(lib, rc, "flash_attention_launch")
     flash_attention_cuda.launches += 1
     return out

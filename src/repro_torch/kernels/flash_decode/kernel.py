@@ -102,11 +102,12 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, length:
     part_acc = torch.empty((b * h * splits, dh), dtype=torch.float32, device=q.device)
     out = torch.empty((b, h, dh), dtype=q.dtype, device=q.device)
     lib = _lib()
-    rc = lib.flash_decode_launch(
-        bk, dh, code, _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(part_ml),
-        _build.ptr(part_acc), _build.ptr(out), b, hk, h // hk, length, splits,
-        *q.stride()[:2], *k.stride()[:3], *v.stride()[:3], dh ** -0.5,
-        _build.stream_ptr(q.device))
+    with torch.cuda.device(q.device):
+        rc = lib.flash_decode_launch(
+            bk, dh, code, _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(part_ml),
+            _build.ptr(part_acc), _build.ptr(out), b, hk, h // hk, length, splits,
+            *q.stride()[:2], *k.stride()[:3], *v.stride()[:3], dh ** -0.5,
+            _build.stream_ptr(q.device))
     _build.check(lib, rc, "flash_decode_launch")
     flash_decode_cuda.launches += 1
     return out

@@ -74,9 +74,10 @@ def matmul_cuda(x: torch.Tensor, y: torch.Tensor, bm: int, bn: int, bk: int) -> 
     n = y.shape[1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = _lib()
-    rc = lib.latency_matmul_launch(bm, bn, bk, code, _build.ptr(x), _build.ptr(y),
-                                   _build.ptr(out), m, n, k, max(x.stride(0), 1),
-                                   max(y.stride(0), 1), _build.stream_ptr(x.device))
+    with torch.cuda.device(x.device):
+        rc = lib.latency_matmul_launch(bm, bn, bk, code, _build.ptr(x), _build.ptr(y),
+                                       _build.ptr(out), m, n, k, max(x.stride(0), 1),
+                                       max(y.stride(0), 1), _build.stream_ptr(x.device))
     _build.check(lib, rc, "latency_matmul_launch")
     matmul_cuda.launches += 1
     return out

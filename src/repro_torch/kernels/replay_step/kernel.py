@@ -196,11 +196,12 @@ def replay_chunk_cuda(state3, occ, sw, sums, stack_t, temps, errs,
     outs = tuple(torch.empty_like(t) for t in (state3, occ, sw, sums))
     params = _params(scal, n_bins)
     lib = _lib()
-    rc = lib.replay_chunk_launch(
-        *(_build.ptr(t) for t in (state3, occ, sw, sums, stack_t, temps, errs)),
-        *(_build.ptr(t) for t in outs),
-        n, chunk, ctypes.byref(params), _build.stream_ptr(state3.device),
-    )
+    with torch.cuda.device(state3.device):
+        rc = lib.replay_chunk_launch(
+            *(_build.ptr(t) for t in (state3, occ, sw, sums, stack_t, temps, errs)),
+            *(_build.ptr(t) for t in outs),
+            n, chunk, ctypes.byref(params), _build.stream_ptr(state3.device),
+        )
     _build.check(lib, rc, "replay_chunk_launch")
     replay_chunk_cuda.launches += 1
     return outs
@@ -243,11 +244,12 @@ def replay_chunk_emit_cuda(state3, occ, sw, sums, stack_t, temps, errs, scal: Re
     outs = tuple(torch.empty_like(t) for t in (state3, occ, sw, sums))
     params = _params(scal, n_bins)
     lib = _lib()
-    rc = lib.replay_chunk_emit_launch(
-        *(_build.ptr(t) for t in (state3, occ, sw, sums, stack_t, temps, errs)),
-        *(_build.ptr(t) for t in outs), *ptrs,
-        n, chunk, ctypes.byref(params), _build.stream_ptr(state3.device),
-    )
+    with torch.cuda.device(state3.device):
+        rc = lib.replay_chunk_emit_launch(
+            *(_build.ptr(t) for t in (state3, occ, sw, sums, stack_t, temps, errs)),
+            *(_build.ptr(t) for t in outs), *ptrs,
+            n, chunk, ctypes.byref(params), _build.stream_ptr(state3.device),
+        )
     _build.check(lib, rc, "replay_chunk_emit_launch")
     replay_chunk_cuda.launches += 1
     return outs + (out,)
@@ -307,11 +309,12 @@ def accumulate_cuda(occ, sw, sums, timings, bins, switched) -> Partials3:
         raise ValueError("timings must be 16-byte aligned for the kernel's float4 loads")
     outs = tuple(torch.empty_like(t) for t in (occ, sw, sums))
     lib = _accumulate_lib()
-    rc = lib.accumulate_launch(
-        *(_build.ptr(t) for t in (bins, switched, timings, occ, sw, sums)),
-        *(_build.ptr(t) for t in outs),
-        n, steps, n_bins1 - 1, _build.stream_ptr(occ.device),
-    )
+    with torch.cuda.device(occ.device):
+        rc = lib.accumulate_launch(
+            *(_build.ptr(t) for t in (bins, switched, timings, occ, sw, sums)),
+            *(_build.ptr(t) for t in outs),
+            n, steps, n_bins1 - 1, _build.stream_ptr(occ.device),
+        )
     _build.check(lib, rc, "accumulate_launch")
     accumulate_cuda.launches += 1
     return outs

@@ -52,8 +52,9 @@ def rglru_scan_cuda(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor, bd: int,
     _build.require(h0, "h0", a.dtype, (bsz, d))
     out = torch.empty_like(a)
     lib = _lib()
-    rc = lib.rglru_scan_launch(bd, bs, code, _build.ptr(a), _build.ptr(b), _build.ptr(h0),
-                               _build.ptr(out), bsz, s, d, _build.stream_ptr(a.device))
+    with torch.cuda.device(a.device):
+        rc = lib.rglru_scan_launch(bd, bs, code, _build.ptr(a), _build.ptr(b), _build.ptr(h0),
+                                   _build.ptr(out), bsz, s, d, _build.stream_ptr(a.device))
     _build.check(lib, rc, "rglru_scan_launch")
     rglru_scan_cuda.launches += 1
     return out

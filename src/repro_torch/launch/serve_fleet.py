@@ -12,6 +12,12 @@ every chunk runs through the replay-chunk CUDA kernel, its emitting entry
 for a chunk with decisions
 (:class:`~repro_torch.core.stream.StreamingController`).
 
+With a ``"dimm"`` mesh (``mesh=``, :func:`~repro_torch.core.shard.fleet_mesh`;
+``serve(sharded=True)``, ``--sharded``) the service is one process a device:
+each rank boots with the sharded sweep, takes every full-width chunk, stages
+and scans its own block of DIMMs, and answers with its own DIMMs' decisions;
+the switch total and the score are combined across ranks.
+
 Usage (demo driver feeding a synthetic day through the service;
 ``--decisions`` asks for each chunk's decisions and prints DIMM 0's last
 ones; ``--trace`` also records the streaming loop with ``torch.profiler``
@@ -19,19 +25,29 @@ as a Chrome trace):
   PYTHONPATH=src python -m repro_torch.launch.serve_fleet --device cuda \\
       --n-dimms 1048576 --n-steps 1440 --chunk 256 [--decisions] \\
       [--trace serve_trace.json]
+
+Sharded over every visible card (one spawned rank each), over N gloo ranks
+on the CPU, or over the ranks of ``torchrun``:
+  PYTHONPATH=src python -m repro_torch.launch.serve_fleet --device cuda --sharded \\
+      --n-dimms 1048576 --n-steps 1440
+  PYTHONPATH=src python -m repro_torch.launch.serve_fleet --device cpu --sharded \\
+      --shards 4 --n-dimms 513 --n-steps 300
+  PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \\
+      -m repro_torch.launch.serve_fleet --device cuda --sharded --n-dimms 1048576
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import os
 import time
 from typing import Dict, Optional
 
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import fleet, stream, traces
+from repro_torch.core import fleet, shard, stream, traces
 from repro_torch.core.controller import ControllerParams, DimmTimingTable
 from repro_torch.core.timing import ACCESS_TYPES, PARAM_NAMES
 from repro_torch.kernels.replay_step.kernel import Decisions
@@ -44,12 +60,15 @@ class FleetControllerService:
     """The request/response face of the streaming fleet controller: one
     instance per fleet; :meth:`submit` absorbs a chunk (and with
     ``decisions=True`` answers with its decisions), :meth:`running_score`
-    finalizes the partials without disturbing the stream."""
+    finalizes the partials without disturbing the stream. ``mesh`` splits
+    the DIMM axis (the engine's ``mesh=``): every rank submits the same
+    full-width chunks and gets its own DIMMs' decisions."""
 
     def __init__(self, table: DimmTimingTable,
-                 params: ControllerParams = ControllerParams(), chunk_steps: int = 0):
+                 params: ControllerParams = ControllerParams(), chunk_steps: int = 0,
+                 mesh=None):
         self.engine = stream.StreamingController(table, params=params,
-                                                 chunk_steps=chunk_steps)
+                                                 chunk_steps=chunk_steps, mesh=mesh)
 
     @property
     def table(self) -> DimmTimingTable:
@@ -62,7 +81,8 @@ class FleetControllerService:
         :attr:`~repro_torch.core.stream.StreamingController.total_switches`),
         so a serve loop on a card does not wait on the host each chunk. With
         ``decisions=True`` it also carries the chunk's ``timings`` (c, N, 2,
-        4), ``bin_idx`` (c, N) and ``switched`` (c, N) on that device."""
+        4), ``bin_idx`` (c, N) and ``switched`` (c, N) on that device (N:
+        this rank's DIMMs under a mesh; ``total_switches`` is the fleet's)."""
         out = self.engine.ingest(temps, errors, return_decisions=decisions)
         resp = {
             "n_steps": self.engine.n_steps,
@@ -82,11 +102,12 @@ class FleetControllerService:
 
 def bootstrap_table(generator: torch.Generator, n_dimms: int,
                     temp_bins=DEFAULT_TEMP_BINS,
-                    device: str | torch.device = "cuda") -> DimmTimingTable:
+                    device: str | torch.device = "cuda", mesh=None) -> DimmTimingTable:
     """Profile a synthetic fleet into the controller's timing registers
-    (the boot-time characterization pass a deployment runs once)."""
+    (the boot-time characterization pass a deployment runs once; ``mesh``:
+    the sharded sweep, the whole table on every rank)."""
     fl = fleet.synthesize(generator, n_dimms, device=device)
-    return fleet.sweep(fl, tuple(temp_bins), (1.0,)).to_table()
+    return fleet.sweep(fl, tuple(temp_bins), (1.0,), mesh=mesh).to_table()
 
 
 def _sync(dev: torch.device) -> None:
@@ -156,6 +177,7 @@ def serve(
     device: str | torch.device = "cuda",
     trace_path: Optional[str] = None,
     decisions: bool = False,
+    sharded: bool = False,
 ) -> Dict:
     """Demo driver: boot the service, stream a synthetic scenario through it
     chunk by chunk from host memory, return the score and the run's figures
@@ -168,16 +190,28 @@ def serve(
     ``loop_peak_device_bytes`` is the loop's own peak (the last two chunks'
     decisions are alive at once). With ``trace_path`` the loop runs under
     ``torch.profiler``, the Chrome trace is written there and
-    ``report["trace"]`` summarizes it (:func:`_trace_summary`)."""
+    ``report["trace"]`` summarizes it (:func:`_trace_summary`).
+
+    ``sharded`` — run as one rank of the process group
+    (:func:`~repro_torch.core.shard.fleet_mesh` over it; ``torchrun`` or
+    :func:`~repro_torch.core.shard.launch` made it): the sharded boot, every
+    rank generating the same whole trace from ``seed`` on its own device and
+    streaming its columns. The figures are this rank's but ``wall_s``, the
+    slowest rank's loop (``all_reduce`` MAX), over which ``obs_per_s``
+    counts the whole fleet; the report adds ``n_shards``, and only rank 0
+    prints (DIMM 0 is its own)."""
     dev = resolve_device(device)
+    mesh = shard.fleet_mesh(device=dev) if sharded else None
+    width = n_dimms if mesh is None else shard.block_size(n_dimms, mesh)
+    printer = mesh is None or mesh.get_local_rank(shard.DIMM_AXIS) == 0
     gen = torch.Generator(device=dev).manual_seed(seed)
     t0 = time.perf_counter()
     if table is None:
-        table = bootstrap_table(gen, n_dimms, device=dev)
+        table = bootstrap_table(gen, n_dimms, device=dev, mesh=mesh)
         _sync(dev)
     boot_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    service = FleetControllerService(table, chunk_steps=chunk)
+    service = FleetControllerService(table, chunk_steps=chunk, mesh=mesh)
     _sync(dev)
     setup_s = time.perf_counter() - t0
 
@@ -191,7 +225,7 @@ def serve(
             # The loop holds two chunks' decisions at once (the last response
             # and the one being made): their memory enters the allocator's
             # cache here, so that no cudaMalloc lands inside the loop.
-            reserved = [Decisions.empty(chunk, n_dimms, dev, ("rows", "eff", "switched"))
+            reserved = [Decisions.empty(chunk, width, dev, ("rows", "eff", "switched"))
                         for _ in range(2)]
             del reserved
         torch.cuda.reset_peak_memory_stats(dev)
@@ -207,12 +241,21 @@ def serve(
     with prof:
         loop = (record_function(_LOOP_RANGE) if trace_path is not None
                 else contextlib.nullcontext())
+        if mesh is not None:
+            # Every rank's loop starts together: the chunks' switch totals
+            # are collectives, so a rank that started early would time its
+            # wait for the others' set-up.
+            torch.distributed.barrier(group=mesh.get_group(shard.DIMM_AXIS))
+            _sync(dev)
         t0 = time.perf_counter()
         with loop:
             for temps_c, errs_c in stream.iter_chunks(trace, errors, chunk):
                 resp = service.submit(temps_c, errs_c, decisions=decisions)
             _sync(dev)
         wall = time.perf_counter() - t0
+    rank_wall = wall
+    if mesh is not None:
+        wall = float(shard.pmax(torch.tensor([wall], dtype=torch.float64, device=dev), mesh))
     loop_peak = (torch.cuda.max_memory_allocated(dev)
                  if decisions and dev.type == "cuda" else None)
     last = None
@@ -232,6 +275,7 @@ def serve(
         "total_switches": total_switches,
         "decisions": decisions,
         "wall_s": wall,
+        "n_shards": 1 if mesh is None else shard.n_shards(mesh),
         "obs_per_s": n_steps * n_dimms / max(wall, 1e-9),
         "boot_s": boot_s,
         "setup_s": setup_s,
@@ -240,11 +284,24 @@ def serve(
         "loop_peak_device_bytes": loop_peak,
     }
     if trace_path is not None:
+        if mesh is not None:  # one trace a rank
+            root, ext = os.path.splitext(trace_path)
+            trace_path = f"{root}.rank{mesh.get_local_rank(shard.DIMM_AXIS)}{ext}"
         prof.export_chrome_trace(trace_path)
         report["trace"] = _trace_summary(prof)
+    if mesh is not None:
+        mine = {"rank": mesh.get_local_rank(shard.DIMM_AXIS), "wall_s": rank_wall,
+                "score_s": score_s, "peak_device_bytes": peak,
+                "device_busy_frac": report.get("trace", {}).get("device_busy_frac")}
+        report["per_rank"] = [None] * report["n_shards"]
+        torch.distributed.all_gather_object(report["per_rank"], mine,
+                                            group=mesh.get_group(shard.DIMM_AXIS))
+    if not printer:
+        return report
     print(
         f"[serve_fleet] {scenario}: {n_dimms} DIMMs × {n_steps} steps "
-        f"(chunk {chunk}, device {dev}{', decisions' if decisions else ''}) | "
+        f"(chunk {chunk}, device {dev}{', decisions' if decisions else ''}"
+        f"{'' if mesh is None else ', %d shards' % report['n_shards']}) | "
         f"{report['n_chunks']} chunks in {wall:.3f} s ({report['obs_per_s']:,.0f} obs/s, "
         f"{n_steps * dt_s / max(wall, 1e-9):,.0f}× real time)"
     )
@@ -255,6 +312,13 @@ def serve(
         f"switches {report['total_switches']}, "
         f"time at JEDEC {score['time_at_jedec_frac'] * 100:.1f} %"
     )
+    for r in report.get("per_rank", ()):
+        peak_gib = "n/a" if r["peak_device_bytes"] is None else \
+            f"{r['peak_device_bytes'] / 2**30:.2f} GiB"
+        busy = ("" if r["device_busy_frac"] is None
+                else f", device busy {r['device_busy_frac'] * 100:.2f} %")
+        print(f"[serve_fleet] rank {r['rank']}: loop {r['wall_s']:.3f} s, score finalize "
+              f"{r['score_s']:.3f} s, peak device memory {peak_gib}{busy}")
     if last is not None:
         rows, last_bin = last
         for a, ai in (("read", 0), ("write", 1)):
@@ -279,10 +343,24 @@ def main() -> None:
                     help="return per-chunk timing rows / bin decisions")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace", default=None, help="write a Chrome trace of the loop here")
+    ap.add_argument("--sharded", action="store_true",
+                    help="split the DIMM axis: one rank a visible card (or --shards CPU "
+                         "ranks), or the ranks of torchrun")
+    ap.add_argument("--shards", type=int, default=None,
+                    help="ranks to spawn with --sharded (default: every visible card)")
     args = ap.parse_args()
-    serve(n_dimms=args.n_dimms, n_steps=args.n_steps, chunk=args.chunk,
-          scenario=args.scenario, error_rate=args.error_rate, seed=args.seed,
-          device=args.device, trace_path=args.trace, decisions=args.decisions)
+    kwargs = dict(n_dimms=args.n_dimms, n_steps=args.n_steps, chunk=args.chunk,
+                  scenario=args.scenario, error_rate=args.error_rate, seed=args.seed,
+                  device=args.device, trace_path=args.trace, decisions=args.decisions)
+    if args.sharded:
+        shard.run_ranks(sharded_serve, args.device, args.shards, kwargs)
+    else:
+        serve(**kwargs)
+
+
+def sharded_serve(kwargs: Dict) -> Dict:
+    """One rank of ``--sharded``: :func:`serve` with ``sharded=True``."""
+    return serve(**kwargs, sharded=True)
 
 
 if __name__ == "__main__":

@@ -34,8 +34,19 @@ JEDEC; with a refresh policy the combined speedups do not exceed the
 latency-only ones; the region table's max-over-regions registers equal the
 region-free table's bitwise (the anchor region), and on a ``near`` mix the
 region-aware speedup lies strictly above the oblivious one. Rows print as
-``name,value,reference`` lines; no file is written. The reference's sharded
-section is not ported.
+``name,value,reference`` lines; no file is written.
+
+With ``--sharded`` (``run(sharded=True)`` on the ranks of a process group;
+the command line spawns one rank a visible card, ``--shards`` CPU ranks, or
+joins ``torchrun``'s) the same trace is also replayed over the ``"dimm"``
+mesh (:func:`~repro_torch.core.controller.replay` ``mesh=``: each rank its
+block of DIMMs), timed, and held bitwise against the same rows of the
+single-device replay on the same device, and scored through the sharded
+``trace_score(mesh=)`` within ``1e-4`` relative of the single-device score
+(rows ``trace/sharded_*``; only rank 0 prints).
+
+  PYTHONPATH=src python -m repro_torch.launch.trace_eval --device cpu --tiny \\
+      --sharded --shards 4
 """
 
 from __future__ import annotations
@@ -48,7 +59,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import controller, fleet, perfmodel, traces
+from repro_torch.core import controller, fleet, perfmodel, shard, traces
 from repro_torch.core import refresh as rf
 
 #: --refresh choices -> table refresh policy.
@@ -116,11 +127,13 @@ def run(
     ``region_mix`` the ``(n_steps, n_dimms, regions)`` region-access mix;
     ``table``, ``trace`` and ``errors`` are moved to ``device``. With
     regions the report adds ``region_score``, ``region_table`` and
-    ``region_s`` (the section's seconds)."""
-    if sharded:
-        raise NotImplementedError(
-            "--sharded: the DIMM-axis split over torch.distributed is not ported yet "
-            "(ROADMAP queue 1 item 6, shard.py)")
+    ``region_s`` (the section's seconds).
+
+    ``sharded`` — this process is one rank of a process group
+    (:func:`~repro_torch.core.shard.fleet_mesh` over it): every rank runs the
+    whole single-device evaluation on its device, then the sharded section
+    (see the module docstring; the report adds ``sharded_replay``, this
+    rank's block, and ``sharded_score``). Only rank 0 prints."""
     if regions is None:
         regions = DEFAULT_N_REGIONS if scenario in traces.SCENARIO_REGION_PROFILES else 0
     if regions and fleet_in is None and table is not None:
@@ -129,6 +142,8 @@ def run(
     if scenario not in traces.SCENARIOS:
         raise ValueError(f"unknown scenario {scenario!r}; choose from {sorted(traces.SCENARIOS)}")
     dev = resolve_device(device)
+    mesh = shard.fleet_mesh(device=dev) if sharded else None
+    verbose = verbose and (mesh is None or mesh.get_local_rank(shard.DIMM_AXIS) == 0)
     gen = torch.Generator(device=dev).manual_seed(seed)
     policy = REFRESH_POLICIES[refresh]
 
@@ -188,6 +203,45 @@ def run(
     score = perfmodel.trace_score_finalize(partials, table.stack, refresh=table.bin_refresh())
     t_finalize = time.perf_counter() - t0
     fused_dimms = float(res.state.fused.sum())
+
+    # -- sharded section: each rank's block against the single-device rows --
+    shard_rows, sres, sscore = [], None, None
+    if mesh is not None:
+        sres = controller.replay(table, trace, errors, mesh=mesh)
+        _sync(dev)
+        sres = None  # the warm run's block, before the timed replay allocates its own
+        t0 = time.perf_counter()
+        sres = controller.replay(table, trace, errors, mesh=mesh)
+        _sync(dev)
+        t_sharded = time.perf_counter() - t0
+        lo, hi = shard.local_range(n_dimms, mesh)
+        mism, shard_err = sharded_replay_mismatches(res, sres, lo, hi)
+        mism = int(shard.psum(torch.tensor(mism, dtype=torch.int64, device=dev), mesh))
+        shard_err = float(shard.pmax(torch.tensor([shard_err], dtype=torch.float64,
+                                                  device=dev), mesh))
+        replay_exact = mism == 0
+        if not replay_exact:
+            raise AssertionError(f"sharded replay diverged from the single-device replay: "
+                                 f"{mism} mismatching words, max|err| = {shard_err} ns on "
+                                 f"{shard.n_shards(mesh)} ranks")
+        t0 = time.perf_counter()
+        sscore = perfmodel.trace_score(table.stack, sres, refresh=table.bin_refresh(),
+                                       mesh=mesh)
+        t_sharded_score = time.perf_counter() - t0
+        score_err = max(abs(sscore[k] - score[k]) / max(abs(score[k]), 1.0) for k in score)
+        if score_err > 1e-4:
+            raise AssertionError(f"sharded trace_score diverged: max rel err {score_err:.2e}")
+        shard_rows = [
+            ("trace/sharded_n_devices", float(shard.n_shards(mesh)), ""),
+            ("trace/sharded_replay_seconds", t_sharded, ""),
+            ("trace/sharded_vs_single_device_ratio", t_scan / t_sharded,
+             "scaling row; >1 = sharding wins"),
+            ("trace/sharded_replay_parity_exact", 1.0 if replay_exact else 0.0, "==1"),
+            ("trace/sharded_score_max_rel_err", score_err, "<=1e-4"),
+            ("trace/sharded_score_seconds", t_sharded_score,
+             f"accumulate + finalize of each rank's block (single device: "
+             f"{t_accumulate + t_finalize:.4g})"),
+        ]
 
     # -- region section: the same fleet's region registers, the same history --
     # The anchor region makes the region table's max-over-regions registers
@@ -280,6 +334,7 @@ def run(
              score["speedup_realized_intensive_mean"] - score["speedup_combined_intensive_mean"],
              ">= 0"),
         ])
+    rows.extend(shard_rows)
     rows.extend(region_rows)
 
     if verbose:
@@ -307,7 +362,32 @@ def run(
     return {"rows": rows, "score": score, "partials": partials, "replay": res,
             "table": table, "trace": trace, "errors": errors, "scan_s": t_scan,
             "loop_exact": exact, "region_score": region_score, "region_table": rtable,
-            "region_mix": region_mix, "region_s": t_region}
+            "region_mix": region_mix, "region_s": t_region, "sharded_replay": sres,
+            "sharded_score": sscore, "sharded_s": t_sharded if mesh is not None else None}
+
+
+#: Steps a block of the sharded parity comparison covers (bounds the
+#: comparison's temporaries on a card).
+_PARITY_STEPS = 1000
+
+
+def sharded_replay_mismatches(res, sres, lo: int, hi: int):
+    """Mismatching words between a sharded replay's block ``sres`` (this
+    rank's DIMMs ``lo:hi``) and those columns of the single-device replay
+    ``res`` — the timings as float32 bit patterns, bins, switch and fuse
+    flags, and the final state — and the largest timing difference (ns)."""
+    mism, err = 0, 0.0
+    for s in range(0, res.timings.shape[0], _PARITY_STEPS):
+        e = s + _PARITY_STEPS
+        a, b = res.timings[s:e, lo:hi], sres.timings[s:e]
+        mism += int((a.view(torch.int32) != b.view(torch.int32)).sum())
+        if a.numel():
+            err = max(err, float((a - b).abs().max()))
+        for name in ("bin_idx", "switched", "fused"):
+            mism += int((getattr(res, name)[s:e, lo:hi] != getattr(sres, name)[s:e]).sum())
+    for x, y in zip(res.state, sres.state):
+        mism += int((x[lo:hi] != y).sum())
+    return mism, err
 
 
 def main() -> None:
@@ -328,7 +408,11 @@ def main() -> None:
     ap.add_argument("--baseline-steps", type=int, default=None,
                     help="steps timed in the observe loop (default 500)")
     ap.add_argument("--tiny", action="store_true", help="64 DIMMs x 512 steps, loop 8 x 128")
-    ap.add_argument("--sharded", action="store_true", help="not ported yet (raises)")
+    ap.add_argument("--sharded", action="store_true",
+                    help="add the sharded section: one rank a visible card (or --shards CPU "
+                         "ranks), or the ranks of torchrun")
+    ap.add_argument("--shards", type=int, default=None,
+                    help="ranks to spawn with --sharded (default: every visible card)")
     ap.add_argument("--regions", type=int, default=None,
                     help=f"profile this many distance-from-sense-amp regions and add the "
                          f"region-aware vs -oblivious section (default {DEFAULT_N_REGIONS} "
@@ -345,11 +429,38 @@ def main() -> None:
         sizes = dict(n_dimms=64, n_steps=512, baseline_dimms=8, baseline_steps=128)
     defaults = dict(n_dimms=1000, n_steps=10_000, baseline_dimms=24, baseline_steps=500)
     sizes = {k: defaults[k] if v is None else v for k, v in sizes.items()}
-    report = run(scenario=args.scenario, dt_s=args.dt_s, error_rate=args.error_rate,
-                 seed=args.seed, sharded=args.sharded, refresh=args.refresh,
-                 regions=args.regions, device=args.device, **sizes)
-    for name, value, ref in report["rows"]:
+    kwargs = dict(scenario=args.scenario, dt_s=args.dt_s, error_rate=args.error_rate,
+                  seed=args.seed, refresh=args.refresh, regions=args.regions,
+                  device=args.device, **sizes)
+    if args.sharded:
+        rows = shard.run_ranks(sharded_rows, args.device, args.shards, kwargs)
+        if rows is None:  # a torchrun rank other than 0
+            return
+    else:
+        rows = run(**kwargs)["rows"]
+    for name, value, ref in rows:
         print(f"{name},{value:.6g},{ref}")
+
+
+def sharded_rows(kwargs: Dict):
+    """One rank of ``--sharded``: :func:`run` with ``sharded=True``; rank 0
+    prints each rank's sharded replay seconds and peak device memory and
+    returns the rows (no tensors: spawned ranks hand back only rank 0's
+    return value), the others ``None``."""
+    dev = resolve_device(kwargs.get("device", "cuda"))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    report = run(**kwargs, sharded=True)
+    mine = (torch.distributed.get_rank(), report["sharded_s"],
+            torch.cuda.max_memory_allocated() if dev.type == "cuda" else None)
+    per_rank = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(per_rank, mine)
+    if torch.distributed.get_rank() != 0:
+        return None
+    for rank, secs, peak in per_rank:
+        print(f"# rank {rank}: sharded replay {secs:.4f} s, peak device memory "
+              + ("n/a" if peak is None else f"{peak / 2**30:.2f} GiB"))
+    return report["rows"]
 
 
 if __name__ == "__main__":

@@ -586,3 +586,100 @@ def test_region_stream_on_card_matches_cpu(cuda_device):
     free = stream.replay_stream(table, temps, errors, chunk_steps=64)
     for a, b in zip(card.partials, free.partials):
         assert torch.equal(_bits(a), _bits(b))
+
+
+def test_kernels_on_second_card(cuda_device):
+    """Each of the seven kernels with its tensors on ``cuda:1`` while the
+    current device is 0 (what a rank other than 0, or torch ops on an
+    explicit device, leave behind), held against its plain version on
+    ``cuda:1`` as the one-card tests hold it: every wrapper launches in its
+    tensors' context and on their stream."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs two cards, this machine has {torch.cuda.device_count()}")
+    second = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    checks = (
+        lambda: test_charge_sweep_kernel_matches_plain(second, "mixed lanes"),
+        lambda: test_replay_kernel_matches_plain(second, 37, 4099),
+        lambda: test_replay_emit_kernel_matches_plain(second, 37, 4099),
+        lambda: test_accumulate_kernel_matches_plain(second),
+        lambda: test_flash_attention_kernel_matches_plain(second, "causal-g3-dh128"),
+        lambda: test_latency_matmul_kernel_matches_plain_on_every_tile(second, torch.float32),
+        lambda: test_rglru_scan_kernel_bitwise_equals_plain_on_every_tile(second,
+                                                                         torch.float32),
+        lambda: test_flash_decode_kernel_matches_plain_on_every_tile(second, torch.float32,
+                                                                     8, 128),
+    )
+    for check in checks:
+        check()
+        assert torch.cuda.current_device() == 0
+
+
+def _assert_shard_parity(got, sizes):
+    """``chip_smoke.shard_parity``'s results: every map output bitwise, the
+    switch totals exact, score floats within ``SHARD_SCORE_TOL``, the
+    streamed sharded score bitwise the materialized one."""
+    for n in sizes:
+        bad = {k: v for k, v in got[n].items() if k not in ("score", "region_score")
+               and (v > chip_smoke.SHARD_SCORE_TOL if k.endswith("_err") else v != 0)}
+        assert not bad, (n, bad)
+    assert got["launches"]["charge_sweep"] and got["launches"]["replay_chunk"]
+    assert got["launches"]["accumulate"]
+
+
+def test_shard_one_card_gloo(cuda_device):
+    """Phase 18(a) of chip_smoke: three gloo ranks sharing card 0, a fleet
+    that 3 does not divide (4,099 DIMMs) and one smaller than the mesh (2),
+    every sharded path against the unsharded card call."""
+    from repro_torch.core import shard
+
+    refused = shard.launch(chip_smoke.gloo_cuda_probe, chip_smoke.SHARD_GLOO_RANKS, "cuda:0")
+    if refused:
+        pytest.skip(f"gloo refuses CUDA tensors on this torch build: {refused}")
+    got = shard.launch(chip_smoke.shard_parity, chip_smoke.SHARD_GLOO_RANKS, "cuda:0", "cuda",
+                       chip_smoke.SHARD_GLOO_SIZES, chip_smoke.SHARD_STEPS,
+                       chip_smoke.SHARD_CHUNKINGS, chip_smoke.ERROR_RATE)
+    _assert_shard_parity(got, chip_smoke.SHARD_GLOO_SIZES)
+
+
+def test_shard_nccl_all_cards(cuda_device):
+    """One NCCL rank a card (kernels on ``cuda:0`` to ``cuda:k``), the same
+    checks at 65,537 DIMMs."""
+    from repro_torch.core import shard
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip(f"needs two or more cards, this machine has {cards}")
+    got = shard.launch(chip_smoke.shard_parity, cards, "cuda", "cuda", (65537,),
+                       chip_smoke.SHARD_STEPS, chip_smoke.SHARD_CHUNKINGS, chip_smoke.ERROR_RATE)
+    _assert_shard_parity(got, (65537,))
+
+
+def test_stream_staging_waits_for_queued_work(cuda_device):
+    """The engine built and fed while the card is still busy (a long sleep
+    kernel queued first, so the host runs ahead of the device): the staging
+    buffers come from the caching allocator on the compute stream, possibly
+    blocks that queued work still uses, and the side stream's first copies
+    into them must wait for that work. Decisions equal the replay's, and
+    state and partials those of a stream fed with the card idle."""
+    from repro_torch.core import stream
+
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    table, temps, errs = _card_replay(g, cuda_device, 5, 96, error_rate=0.02)
+    rep = controller.replay(table, temps, errs)
+    th, eh = temps.cpu(), errs.cpu()
+    for chunk in (1, 37):
+        idle = stream.StreamingController(table)
+        for a, b in stream.iter_chunks(th, eh, chunk):
+            idle.ingest(a, b)
+            torch.cuda.synchronize()
+        for _ in range(3):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(50_000_000)   # tens of ms of device time ahead of the host
+            busy = stream.StreamingController(table)
+            decs = [busy.ingest(a, b, return_decisions=True)
+                    for a, b in stream.iter_chunks(th, eh, chunk)]
+            assert torch.equal(_bits(torch.cat([d[0] for d in decs])), _bits(rep.timings))
+            assert torch.equal(torch.cat([d[1] for d in decs]), rep.bin_idx)
+            for a, b in zip((*busy.state, *busy.partials), (*idle.state, *idle.partials)):
+                assert torch.equal(_bits(a), _bits(b))

@@ -282,9 +282,11 @@ def test_trace_eval_cli_tiny_on_cpu(monkeypatch, capsys):
 
 
 def test_trace_eval_unported_sections(capsys):
-    """``--sharded`` still raises (item 6); ``design_skew`` adds its region
-    section by default (4 regions, near mix), with no note."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    """``sharded=True`` outside a process group raises (it never falls back
+    to one device; the sharded section runs on ranks, tests/test_torch_shard.py);
+    ``design_skew`` adds its region section by default (4 regions, near
+    mix), with no note."""
+    with pytest.raises(ValueError, match="torchrun"):
         trace_eval.run(sharded=True, device="cpu")
     rep = trace_eval.run(n_dimms=16, n_steps=48, scenario="design_skew", refresh="off",
                          baseline_dimms=4, baseline_steps=16, device="cpu")
