@@ -48,9 +48,10 @@ Phases, each of which exits non-zero on failure:
    peak device memory; a day through the service with and without
    decisions, state, partials and score equal, the last chunk's rows,
    bins and flags equal to ``controller.replay`` of its steps from the
-   state before them; four profiled days in turns (without, with, with,
-   without): the host's waits for the device equal, the mean busy share no
-   lower with decisions.
+   state before them; eight profiled days in turns (without, with, with,
+   without, twice): the host's waits for the device equal in every day, the
+   mean busy share with decisions no lower than without by more than twice
+   the standard error of the difference.
 5. Accumulate kernel vs plain at the trace-eval path's full width (65,536
    DIMMs × 10,000 steps of cycle-quantized rows, bins over every column,
    running partials to fold into) and on a ragged real history (4,096 DIMMs
@@ -75,25 +76,44 @@ Phases, each of which exits non-zero on failure:
    ``controller.replay``, each under ``torch.profiler`` for µs a step and
    the device's busy share; then ``controller.replay``'s launch size, the
    whole trace against 256 steps, timed in turns at 65,536 × 10,000.
-9. Flash attention, kernel vs plain on every instantiated tile and six
-   cases — the LM serve shape (B 4, H 24, Hk 8, S 1,024, dh 128, causal), a
-   long causal 8,192, a ragged 1,000, a 512-token window, SmolLM's heads
-   (H 9, Hk 3, dh 64) and a non-causal ragged cross shape:
+9. Flash attention, kernel vs plain on every tile instantiated at the
+   case's head width and nine cases — the LM serve shape (B 4, H 24, Hk 8,
+   S 1,024, dh 128, causal), a long causal 8,192, a ragged 1,000, a
+   512-token window, SmolLM's heads (H 9, Hk 3, dh 64), a non-causal
+   ragged cross shape, and the three new head widths at their main paths'
+   shapes: gemma3-4b's (dh 320, H 8 / Hk 4, S 2,048, window 1,024),
+   recurrentgemma-9b's (dh 256, MQA 16 / 1, S 2,560, window 2,048) and
+   hubert-xlarge's (dh 80, 16 / 16, 1,500 frames, non-causal):
    ``max|kernel - plain| <= 1e-5 * max|plain| + 1e-6``. Every tile timed at
-   the serve shape and at altune's (B 8, S 4,096, H 32, Hk 8, dh 128,
-   causal), each against its bound and beside
+   the serve shape, at altune's (B 8, S 4,096, H 32, Hk 8, dh 128,
+   causal) and at the three wide cases, each against its bound and beside
    ``scaled_dot_product_attention`` on KV heads repeated to H (the
-   yardstick); the plain version at
-   the serve shape.
-10. LM serve, card vs CPU: reduced Llama-3.2-3B with the same weights and
-   prompts, prefill and 8 teacher-forced decode steps: logits within 1e-4,
-   greedy ids equal wherever the CPU's top-2 gap exceeds 2e-4.
+   yardstick; a boolean mask for a window); the plain version at the serve
+   shape.
+10. LM serve, card vs CPU: reduced Llama-3.2-3B, gemma3-4b, chatglm3-6b,
+   qwen2-vl-72b (embeddings and three M-RoPE position streams),
+   recurrentgemma-9b and xlstm-125m with the same weights and inputs,
+   prefill and 8 teacher-forced decode steps, and hubert-xlarge's forward
+   of embeddings (encoder-only): logits and caches within 1e-4, greedy ids
+   equal wherever the CPU's top-2 gap exceeds 2e-4, one flash-attention
+   launch per attention layer in the prefill (recurrentgemma 1 of 5,
+   xlstm 0), none in decode.
 11. LM serve main path: ``launch.serve.serve`` on Llama-3.2-3B at full
    width (28 layers, d_model 3,072, random weights from a seed), 4 prompts
    of 1,024 tokens, 32 new tokens: one flash-attention launch per layer in
    the prefill, none elsewhere; prefill ms, decode ms a token, peak device
    memory. Then one prefill and a few decode steps of the same model under
    ``torch.profiler`` for the device's busy share and where the time goes.
+   (b) The same for gemma3-4b at full width and depth (34 layers, 4 ×
+   2,048-token prompts; 34 flash-attention launches) and recurrentgemma-9b
+   (38 layers, 2 × 2,560-token prompts, longer than its 2,048 window; 12
+   launches), both profiled, and xlstm-125m (4 × 1,024 tokens, no
+   attention); the RG-LRU doubling scan's and the sLSTM time loop's shares
+   of a prefill (each call timed between synchronizations). (c)
+   hubert-xlarge's encoder forward at full width (4 × 1,500 frames of
+   embeddings, 48 launches, non-causal). (d) chatglm3-6b at full width and
+   qwen2-vl-72b at 4 of its 80 layers, card vs CPU as in phase 10 (weights
+   drawn on the card and copied to the host), logits within 1e-4.
 12. The altune kernels against their plain versions on every instantiated
    tile: the latency matmul at 4096³ float32 (timed beside ``torch.matmul``)
    and ragged (1000, 3000, 700) in float32 and bfloat16 (1,400-byte rows,
@@ -164,7 +184,9 @@ Phases, each of which exits non-zero on failure:
    finalize seconds and peak device memory; every kernel's launch counter
    read around both on each rank and summed.
 17. One JSON line describing each kernel (``launches_by_path`` with
-   ``"sharded"``: phase 18(b)'s launches); the card's name and power limit;
+   ``"sharded"``: phase 18(b)'s launches, and ``"lm_serve/<arch>"``: phase
+   11b–c's; flash attention's ``by_head_dim``: the wide cases' times); the
+   card's name and power limit;
    the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -211,7 +233,15 @@ FA_CASES = (
     ("window 512", 2, 2048, 2048, 24, 8, 128, True, 512),
     ("smollm heads", 4, 1024, 1024, 9, 3, 64, True, 0),
     ("non-causal", 2, 1000, 777, 24, 8, 128, False, 0),
+    ("gemma3 dh 320", 4, 2048, 2048, 8, 4, 320, True, 1024),
+    ("recurrentgemma dh 256", 2, 2560, 2560, 16, 1, 256, True, 2048),
+    ("hubert dh 80", 4, 1500, 1500, 16, 16, 80, False, 0),
 )
+#: The FA_CASES at the head widths 80, 256 and 320 (gemma3-4b's,
+#: recurrentgemma-9b's and hubert-xlarge's main-path shapes: the window
+#: shorter than the prompt, MQA, non-causal and ragged): each tile timed
+#: there beside the bound and SDPA.
+FA_WIDE_TIMED = ("gemma3 dh 320", "recurrentgemma dh 256", "hubert dh 80")
 #: Flash-attention timing shapes (B, S, H, Hk, dh), causal: the LM serve
 #: path's prefill and altune's production shape.
 FA_SERVE_SHAPE = (4, 1024, 24, 8, 128)
@@ -221,6 +251,21 @@ LM_BATCH, LM_PROMPT, LM_GEN = 4, 1024, 32
 LM_SMALL_BATCH, LM_SMALL_PROMPT, LM_SMALL_STEPS = 2, 40, 8
 LM_TOL = 1e-4
 LM_PROFILED_DECODE = 4
+#: The LM families without experts beside Llama: each reduced config card
+#: vs CPU (phase 10).
+LM_FAMILIES = ("gemma3-4b", "chatglm3-6b", "qwen2-vl-72b", "hubert-xlarge",
+               "recurrentgemma-9b", "xlstm-125m")
+#: Their full-width main paths (phase 11b): (arch, batch, prompt, new tokens,
+#: profiled). The prompts outrun the local windows (1,024 and 2,048).
+LM_FULL_PATHS = (("gemma3-4b", 4, 2048, 32, True), ("recurrentgemma-9b", 2, 2560, 32, True),
+                 ("xlstm-125m", 4, 1024, 32, False))
+#: hubert-xlarge's encoder forward at full width: 4 clips of 1,500 frames
+#: (30 s at its 50 frames a second; no multiple of a tile).
+HUBERT_BATCH, HUBERT_FRAMES = 4, 1500
+#: Full-width card-vs-CPU checks (phase 11d, at ``LM_TOL`` as the reduced
+#: ones): (arch, layers; None: all). qwen2-vl-72b (72.7e9 parameters, 291 GB
+#: in float32) is cut to 4 layers.
+LM_FULL_COMPARE = (("chatglm3-6b", None), ("qwen2-vl-72b", 4))
 
 #: Latency-matmul checks: (name, m, k, n, dtype); the first is timed.
 MM_CASES = (("production", 4096, 4096, 4096, "float32"),
@@ -1316,19 +1361,57 @@ def regions_phase(torch, dev, zero_counts, read_counts) -> dict:
             "regions_bound_by": region_by, "regions_cells": cells}
 
 
+def attention_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """Visible (query, key) pairs of one head under the kernel's masks."""
+    return sum(max((min(qp + 1, skv) if causal else skv)
+                   - (max(qp - window + 1, 0) if window > 0 else 0), 0) for qp in range(sq))
+
+
+def wide_timing(torch, fa_k, q, k, v, causal: bool, window: int) -> dict:
+    """Every tile instantiated at q's head width timed on (q, k, v), beside
+    the bound, the plain version and ``scaled_dot_product_attention`` on
+    head-major copies with the KV heads repeated to H (a boolean mask for a
+    window)."""
+    b, sq, h, dh = q.shape
+    skv, hk = k.shape[1], k.shape[2]
+    by_tile = {t: cuda_ms(torch, lambda t=t: fa_k.flash_attention_cuda(
+        q, k, v, causal=causal, window=window, tile=t), 5) for t in fa_k.tiles(dh)}
+    best = min(by_tile, key=by_tile.get)
+    qh = q.transpose(1, 2).contiguous()
+    kh, vh = (x.transpose(1, 2).repeat_interleave(h // hk, dim=1).contiguous() for x in (k, v))
+    mask = None
+    if window > 0:
+        dpos = (torch.arange(sq, device=q.device)[:, None]
+                - torch.arange(skv, device=q.device)[None, :])
+        mask = (dpos < window) & ((dpos >= 0) if causal else True)
+    sdpa_ms = cuda_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask, is_causal=causal and mask is None), 3)
+    del qh, kh, vh, mask
+    plain_ms = cuda_ms(torch, lambda: fa_k.flash_attention_plain(
+        q, k, v, causal=causal, window=window), 3)
+    pairs = b * h * attention_pairs(sq, skv, causal, window)
+    bound, by = bound_ms(4 * (2 * b * sq * h * dh + 2 * b * skv * hk * dh),
+                         ATTENTION_OPS_PER_PAIR_DIM * dh * pairs)
+    return {"ms": by_tile[best], "tile": str(best),
+            "ms_by_tile": {str(t): round(v_, 4) for t, v_ in by_tile.items()},
+            "bound_ms": bound, "bound_by": by, "library_ms": sdpa_ms, "plain_ms": plain_ms,
+            "pairs": pairs}
+
+
 def flash_attention_phase(torch, dev, gen, fa_k):
-    """Phase 9: the kernel against its plain version on every case and
-    instantiated tile, then every tile timed at the serve shape and at
-    altune's. Returns the kernel's figures (the serve shape's at the top
-    level, altune's under ``"altune"``)."""
-    max_err = 0.0
+    """Phase 9: the kernel against its plain version on every case and every
+    tile instantiated at its head width (the wide cases also timed), then
+    every tile timed at the serve shape and at altune's. Returns the
+    kernel's figures (the serve shape's at the top level, altune's under
+    ``"altune"``, the wide cases' under ``"by_head_dim"``)."""
+    max_err, wide = 0.0, {}
     for name, b, sq, skv, h, hk, dh, causal, window in FA_CASES:
         q = torch.randn((b, sq, h, dh), generator=gen, device=dev)
         k, v = (torch.randn((b, skv, hk, dh), generator=gen, device=dev) for _ in range(2))
         want = fa_k.flash_attention_plain(q, k, v, causal=causal, window=window)
         tol = fa_k.tolerance(want)
         errs = {}
-        for tile in fa_k.TILES:
+        for tile in fa_k.tiles(dh):
             got = fa_k.flash_attention_cuda(q, k, v, causal=causal, window=window, tile=tile)
             torch.cuda.synchronize()
             errs[tile] = float((got - want).abs().max())
@@ -1340,10 +1423,20 @@ def flash_attention_phase(torch, dev, gen, fa_k):
             f"causal {causal}, window {window}: max|kernel - plain| by tile "
             f"{[(t, f'{e:.3e}') for t, e in errs.items()]} (tolerance {tol:.3e})")
         max_err = max([max_err] + list(errs.values()))
+        if name in FA_WIDE_TIMED:
+            wide[dh] = wide_timing(torch, fa_k, q, k, v, causal, window)
+            log(f"flash attention at {name} (B {b}, Sq {sq}, Skv {skv}, H {h}, Hk {hk}, dh {dh}, "
+                f"causal {causal}, window {window}): kernel by tile {wide[dh]['ms_by_tile']} ms, "
+                f"best {wide[dh]['tile']} {wide[dh]['ms']:.4f} ms "
+                f"({wide[dh]['bound_ms'] / wide[dh]['ms'] * 100:.1f} % of its bound), "
+                f"plain {wide[dh]['plain_ms']:.3f} ms, "
+                f"scaled_dot_product_attention {wide[dh]['library_ms']:.4f} ms, bound "
+                f"{wide[dh]['bound_ms']:.4f} ms ({wide[dh]['bound_by']}), "
+                f"{wide[dh]['pairs']:,} visible pairs")
         del q, k, v, want
     torch.cuda.empty_cache()
 
-    out = {"max_abs_err": max_err}
+    out = {"max_abs_err": max_err, "by_head_dim": wide}
     for label, (b, s, h, hk, dh), reps in (("serve", FA_SERVE_SHAPE, 20),
                                            ("altune", FA_ALTUNE_SHAPE, 3)):
         q = torch.randn((b, s, h, dh), generator=gen, device=dev)
@@ -1387,68 +1480,84 @@ def flash_attention_phase(torch, dev, gen, fa_k):
 
 
 def lm_card_vs_cpu_phase(dev):
-    """Phase 10: reduced Llama on the card and on the CPU, same weights and
-    prompts; the decode is teacher-forced with the CPU's ids."""
+    """Phase 10: each reduced LM on the card and on the CPU, same weights and
+    inputs; the decode is teacher-forced with the CPU's ids (hubert-xlarge,
+    encoder-only: one forward of embeddings, every position compared)."""
     from repro_torch.launch import serve as lm_launch
 
-    r = lm_launch.compare_card_to_cpu(LM_ARCH, dev, LM_SMALL_BATCH, LM_SMALL_PROMPT,
-                                      LM_SMALL_STEPS, LM_TOL)
-    log(f"LM serve card vs CPU, reduced {LM_ARCH} ({r['n_layers']} layers, d_model "
-        f"{r['d_model']}, dh {r['d_head']}), {LM_SMALL_BATCH} × {LM_SMALL_PROMPT}-token "
-        f"prompts + {LM_SMALL_STEPS} decode steps: max logit difference {r['logit_err']:.3e}, "
-        f"max cache difference {r['cache_err']:.3e} (tolerance {LM_TOL:g}); greedy ids equal "
-        f"at {r['agree']} of {r['sure']} positions whose top-2 gap exceeds {2 * LM_TOL:g}; "
-        f"flash-attention launches in the card's prefill {r['prefill_launches']}, in its "
-        f"decode {r['decode_launches']}")
-    if (r["logit_err"] > LM_TOL or r["cache_err"] > LM_TOL or not r["sure"]
+    for arch in (LM_ARCH,) + LM_FAMILIES:
+        r = lm_launch.compare_card_to_cpu(arch, dev, LM_SMALL_BATCH, LM_SMALL_PROMPT,
+                                          LM_SMALL_STEPS, LM_TOL)
+        log_compare(f"reduced {arch}", r, LM_TOL)
+
+
+def log_compare(label: str, r: dict, tol: float) -> None:
+    """Log one ``compare_card_to_cpu`` result and fail unless it holds:
+    logits and caches within ``tol``, greedy ids equal where the CPU is sure,
+    one flash-attention launch per attention layer in the prefill, none in
+    decode."""
+    log(f"LM card vs CPU, {label} ({r['n_layers']} layers, {r['attn_layers']} of them "
+        f"attention, d_model {r['d_model']}, dh {r['d_head']}), {LM_SMALL_BATCH} × "
+        f"{LM_SMALL_PROMPT}-position inputs + {LM_SMALL_STEPS} decode steps (none if "
+        f"encoder-only): max logit difference {r['logit_err']:.3e}, max cache difference "
+        f"{r['cache_err']:.3e} (tolerance {tol:g}); greedy ids equal at {r['agree']} of "
+        f"{r['sure']} rows whose top-2 gap exceeds {2 * tol:g}; flash-attention launches in "
+        f"the card's prefill {r['prefill_launches']}, in its decode {r['decode_launches']}")
+    if (r["logit_err"] > tol or r["cache_err"] > tol or not r["sure"]
             or r["agree"] != r["sure"]
-            or r["prefill_launches"] != r["n_layers"] or r["decode_launches"]):
-        fail("LM serve on the card disagrees with the CPU reference")
+            or r["prefill_launches"] != r["attn_layers"] or r["decode_launches"]):
+        fail(f"LM serve of {label} on the card disagrees with the CPU reference")
 
 
-def lm_main_path_phase(torch, dev, zero_counts, read_counts):
-    """Phase 11: the main path, every kernel's count read around it, then a
-    profiled prefill and a few decode steps of the same model."""
+def lm_main_path_phase(torch, dev, zero_counts, read_counts, arch=LM_ARCH, batch=LM_BATCH,
+                       prompt=LM_PROMPT, gen=LM_GEN, profiled=True):
+    """Phases 11 and 11b: ``serve`` of ``arch`` at full width, every kernel's
+    count read around it (one flash-attention launch per attention layer),
+    then, if ``profiled``, a profiled prefill and a few decode steps of the
+    same model. Returns the launches and the serve report."""
     import repro_torch.configs as lm_configs
     from repro_torch.launch import serve as lm_launch
     from repro_torch.launch import serve_fleet
     from repro_torch.models import model as lm
+    from repro_torch.models import stack as lm_stack
     from repro_torch.train import serve as lm_serve
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    cfg = lm_configs.get(LM_ARCH)
+    cfg = lm_configs.get(arch)
     torch.cuda.empty_cache()
     zero_counts()
-    ids, rep = lm_launch.serve(LM_ARCH, batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN,
+    ids, rep = lm_launch.serve(arch, batch=batch, prompt_len=prompt, gen=gen,
                                reduced=False, device=dev, return_report=True)
     launches = read_counts()
     torch.cuda.synchronize()
     n_params = cfg.param_count()
-    log(f"LM serve main path: {LM_ARCH} at full width ({cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, dh {cfg.d_head}, vocab "
-        f"{cfg.vocab_size:,}, {n_params / 1e9:.3f}e9 parameters, float32), {LM_BATCH} × "
-        f"{LM_PROMPT}-token prompts, {LM_GEN} new tokens: prefill "
-        f"{rep['prefill_s'] * 1e3:.3f} ms, decode {rep['decode_s_per_token'] * 1e3:.3f} ms a "
-        f"token, peak device memory {rep['peak_device_bytes'] / 2**30:.2f} GiB, launches "
-        f"{launches}")
+    log(f"LM serve main path: {arch} at full width ({cfg.n_layers} layers, "
+        f"{lm_stack.attention_layers(cfg)} of them attention, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, dh {cfg.d_head}, vocab {cfg.vocab_size:,}, "
+        f"{n_params / 1e9:.3f}e9 parameters, float32), {batch} × {prompt}-token prompts, "
+        f"{gen} new tokens: prefill {rep['prefill_s'] * 1e3:.3f} ms, decode "
+        f"{rep['decode_s_per_token'] * 1e3:.3f} ms a token, peak device memory "
+        f"{rep['peak_device_bytes'] / 2**30:.2f} GiB, launches {launches}")
     log(f"  generated ids[0, :16]: {ids[0, :16].tolist()}")
     want = {name: 0 for name in launches}
-    want["flash_attention"] = cfg.n_layers
+    want["flash_attention"] = lm_stack.attention_layers(cfg)
     if launches != want:
-        fail(f"LM serve main path launched {launches}, expected {want} (one flash-attention "
-             f"launch per layer in the prefill)")
-    if (tuple(ids.shape) != (LM_BATCH, LM_GEN) or not rep["logits_finite"]
+        fail(f"LM serve main path of {arch} launched {launches}, expected {want} (one "
+             f"flash-attention launch per attention layer in the prefill)")
+    if (tuple(ids.shape) != (batch, gen) or not rep["logits_finite"]
             or int(ids.min()) < 0 or int(ids.max()) >= cfg.vocab_size):
-        fail("LM serve main path: malformed ids or non-finite logits")
+        fail(f"LM serve main path of {arch}: malformed ids or non-finite logits")
     del ids
+    if not profiled:
+        return {"launches": launches, "report": rep}
 
     # Where the time goes: one prefill and a few decode steps, profiled.
+    torch.cuda.empty_cache()
     cfg = dataclasses.replace(cfg, attn_impl="pallas")
     params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
-    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT), dtype=torch.int32,
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt), dtype=torch.int32,
                             generator=torch.Generator(device=dev).manual_seed(1), device=dev)
-    sc = lm_serve.ServeConfig(max_len=LM_PROMPT + LM_PROFILED_DECODE + 1,
-                              cache_dtype="float32")
+    sc = lm_serve.ServeConfig(max_len=prompt + LM_PROFILED_DECODE + 1, cache_dtype="float32")
     prefill, decode = lm_serve.make_prefill_step(cfg, sc), lm_serve.make_decode_step(cfg, sc)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1458,20 +1567,122 @@ def lm_main_path_phase(torch, dev, zero_counts, read_counts):
             torch.cuda.synchronize()
         with record_function("lm_decode"):
             for i in range(LM_PROFILED_DECODE):
-                nxt, _, caches = decode(params, caches, nxt, LM_PROMPT + i)
+                nxt, _, caches = decode(params, caches, nxt, prompt + i)
             torch.cuda.synchronize()
     for name in ("lm_prefill", "lm_decode"):
         tr = serve_fleet._trace_summary(prof, top=8, range_name=name)
         steps = 1 if name == "lm_prefill" else LM_PROFILED_DECODE
-        log(f"{name} under torch.profiler ({steps} call(s)): span {tr['loop_s']:.4f} s "
+        log(f"{arch} {name} under torch.profiler ({steps} call(s)): span {tr['loop_s']:.4f} s "
             f"({tr['loop_s'] / steps * 1e3:.3f} ms a call), device busy "
             f"{tr['device_busy_s'] * 1e3:.3f} ms ({tr['device_busy_frac'] * 100:.2f} %)")
         top = dict(list(tr["device_s_by_name"].items())[:8])
         log("  device time by activity (s): " + json.dumps(top))
+        rep[f"{name}_busy_frac"] = tr["device_busy_frac"]
     log("  host ops by self time (both ranges): " + json.dumps(tr["host_self_s_top"]))
-    del params, caches, prompts, prof
+    del params, caches, prompts, prof, last
     torch.cuda.empty_cache()
     return {"launches": launches, "report": rep}
+
+
+def recurrence_share(torch, dev, arch: str, batch: int, prompt: int, module, fn_name: str):
+    """One prefill of ``arch`` at full width (random weights) with
+    ``module.fn_name`` timed around each call (synchronized): that
+    function's seconds, the prefill's, and the share."""
+    import repro_torch.configs as lm_configs
+    from repro_torch.models import model as lm
+
+    cfg = dataclasses.replace(lm_configs.get(arch), attn_impl="pallas")
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt), dtype=torch.int32,
+                            generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    inner, spent = getattr(module, fn_name), [0.0, 0]
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner(*args, **kw)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t
+        spent[1] += 1
+        return out
+
+    setattr(module, fn_name, timed)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm.prefill(params, cfg, cache_len=prompt, tokens=prompts, last_logits=True)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        setattr(module, fn_name, inner)
+    del params, prompts
+    torch.cuda.empty_cache()
+    log(f"{arch} prefill ({batch} × {prompt} tokens) with {module.__name__}.{fn_name} timed "
+        f"around each of its {spent[1]} calls: {spent[0] * 1e3:.3f} ms of {total * 1e3:.3f} ms "
+        f"({spent[0] / total * 100:.2f} %)")
+    return {"s": spent[0], "prefill_s": total, "share": spent[0] / total, "calls": spent[1]}
+
+
+def lm_families_phase(torch, dev, zero_counts, read_counts) -> dict:
+    """Phase 11b–d: the LM families' full-width main paths, hubert-xlarge's
+    encoder forward, the recurrences' shares of their prefills, and the
+    full-width card-vs-CPU checks. Returns each path's launches and figures."""
+    import repro_torch.configs as lm_configs
+    from repro_torch.launch import serve as lm_launch
+    from repro_torch.models import model as lm
+    from repro_torch.models import rglru, xlstm
+
+    out = {}
+    for arch, batch, prompt, gen, profiled in LM_FULL_PATHS:
+        out[arch] = lm_main_path_phase(torch, dev, zero_counts, read_counts, arch, batch,
+                                       prompt, gen, profiled)
+    out["recurrentgemma-9b"]["rglru_scan"] = recurrence_share(
+        torch, dev, "recurrentgemma-9b", *LM_FULL_PATHS[1][1:3], rglru, "linear_scan")
+    out["xlstm-125m"]["slstm_scan"] = recurrence_share(
+        torch, dev, "xlstm-125m", *LM_FULL_PATHS[2][1:3], xlstm, "slstm_scan")
+
+    # hubert-xlarge: the encoder forward of embeddings (no serving: encoder-only).
+    cfg = dataclasses.replace(lm_configs.get("hubert-xlarge"), attn_impl="pallas")
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    embeds = torch.randn((HUBERT_BATCH, HUBERT_FRAMES, cfg.d_model),
+                         generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    lm.forward(params, cfg, embeds=embeds[:, :64])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    logits, _, _ = lm.forward(params, cfg, embeds=embeds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"hubert-xlarge encoder forward at full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads, dh {cfg.d_head}, {cfg.param_count() / 1e9:.3f}e9 "
+        f"parameters, float32, non-causal), {HUBERT_BATCH} × {HUBERT_FRAMES} frames: "
+        f"{wall * 1e3:.3f} ms, peak device memory {peak / 2**30:.2f} GiB, launches {launches}")
+    want = {name: 0 for name in launches}
+    want["flash_attention"] = cfg.n_layers
+    if (launches != want or tuple(logits.shape) != (HUBERT_BATCH, HUBERT_FRAMES, cfg.vocab_size)
+            or not bool(torch.isfinite(logits).all())):
+        fail(f"hubert-xlarge forward: launches {launches} (expected {want}), logits "
+             f"{tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+    out["hubert-xlarge"] = {"launches": launches, "report": {"forward_s": wall,
+                                                              "peak_device_bytes": peak}}
+    del params, embeds, logits
+    torch.cuda.empty_cache()
+
+    # Full width card vs CPU (weights drawn on the card, copied to the host).
+    for arch, layers in LM_FULL_COMPARE:
+        t0 = time.perf_counter()
+        r = lm_launch.compare_card_to_cpu(arch, dev, LM_SMALL_BATCH, LM_SMALL_PROMPT,
+                                          LM_SMALL_STEPS, LM_TOL, reduced=False,
+                                          n_layers=layers)
+        full = lm_configs.get(arch).n_layers
+        cut = "" if layers is None else f", cut from {full} layers to {layers}"
+        log_compare(f"{arch} at full width{cut}", r, LM_TOL)
+        log(f"  {time.perf_counter() - t0:.1f} s with the host's share")
+        torch.cuda.empty_cache()
+    return out
 
 
 def words(torch, t):
@@ -1655,7 +1866,7 @@ def gate_phase(torch):
                     c.smem_bytes(dh, itemsize))
                    for c in fd_ops.CANDIDATES for dh in fd_k.HEAD_DIMS]
     checks += [(f"flash_attention dh {dh}", c, (dh,), fa_k.attributes(dh, (c.bq, c.bk)))
-               for c in fa_ops.CANDIDATES for dh in fa_k.HEAD_DIMS]
+               for dh in fa_k.HEAD_DIMS for c in fa_ops.candidates(dh)]
     table = []
     for label, cfg, args, at, *smem in checks:
         smem = smem[0] if smem else cfg.smem_bytes(*args)
@@ -1681,6 +1892,15 @@ def gate_phase(torch):
     log("  the reference's TPU tiles through the gate: " + json.dumps({
         str(c): cm.gate(c.smem_bytes(*a), c.threads(*a), c.registers(*a))[1]
         for c, a in refused}))
+    # The tiles of the widths up to 128 not instantiated at 256 or 320: the
+    # gate must refuse each, for its shared memory.
+    skipped = {f"{c} dh {dh}": cm.gate(c.smem_bytes(dh), c.threads(dh), c.registers(dh))
+               for dh in fa_k.HEAD_DIMS for c in fa_ops.CANDIDATES
+               if c not in fa_ops.candidates(dh)}
+    log("  attention tiles not instantiated at a head width, through the gate: "
+        + json.dumps({k: v[1] for k, v in skipped.items()}))
+    if any(ok or "shared memory" not in note for ok, note in skipped.values()):
+        fail(f"the gate admits an attention tile the kernel does not instantiate: {skipped}")
 
 
 def launch_overheads(torch, dev):
@@ -2172,12 +2392,19 @@ def main() -> None:
     if any(dec_same.values()):
         fail(f"serve with decisions disagrees with the day without them: {dec_same}")
     del svc, free, resp, last, before, day, chk_table
-    # No host sync added to the loop: four profiled days in turns (without,
-    # with, with, without decisions), the host's waits for the device equal
-    # and the device's mean busy share no lower with decisions.
+    # No host sync added to the loop. Its exact sign is the host's waits for
+    # the device, counted in every profiled day and equal in all of them. The
+    # device's busy share is the second sign: a sync a chunk would serialize
+    # the host's staging copy with the device's work and cut the share by
+    # about the device's part of the loop. The share moves from day to day
+    # with the host's copy rate (the loop's span and its pinned copies both
+    # follow it), so with decisions it may fall below the share without by
+    # no more than twice the standard error of the difference of the means,
+    # over eight profiled days in turns (without, with, with, without, twice).
     torch.cuda.empty_cache()
     traced_by = {False: [], True: []}
-    for i, with_dec in enumerate((False, True, True, False)):
+    turns = (False, True, True, False) * 2
+    for i, with_dec in enumerate(turns):
         rep = serve_fleet.serve(n_dimms=FULL_DIMMS, n_steps=SERVE_STEPS, chunk=CHUNK,
                                 scenario="diurnal", error_rate=0.0, device=dev,
                                 decisions=with_dec, trace_path=os.path.join(
@@ -2185,21 +2412,31 @@ def main() -> None:
         t = rep["trace"]
         traced_by[with_dec].append(t)
         log(f"serve {'with' if with_dec else 'without'} decisions under torch.profiler (turn "
-            f"{i + 1} of 4): wall {rep['wall_s']:.3f} s, loop span {t['loop_s']:.3f} s, device "
-            f"busy {t['device_busy_s'] * 1e3:.3f} ms ({t['device_busy_frac'] * 100:.2f} %), "
-            f"host waits {t['host_syncs']}, setup {rep['setup_s']:.3f} s")
+            f"{i + 1} of {len(turns)}): wall {rep['wall_s']:.3f} s, loop span "
+            f"{t['loop_s']:.3f} s, device busy {t['device_busy_s'] * 1e3:.3f} ms "
+            f"({t['device_busy_frac'] * 100:.2f} %), host waits {t['host_syncs']}, setup "
+            f"{rep['setup_s']:.3f} s")
         log("  device time by activity (s): " + json.dumps(t["device_s_by_name"]))
         log("  host ops by self time: " + json.dumps(t["host_self_s_top"]))
-    busy = {d: sum(t["device_busy_frac"] for t in ts) / len(ts) for d, ts in traced_by.items()}
+    fracs = {d: [t["device_busy_frac"] for t in ts] for d, ts in traced_by.items()}
+    busy = {d: sum(v) / len(v) for d, v in fracs.items()}
+    se = math.sqrt(sum(sum((x - busy[d]) ** 2 for x in v) / (len(v) - 1) / len(v)
+                       for d, v in fracs.items()))
     waits = {d: [t["host_syncs"] for t in ts] for d, ts in traced_by.items()}
     spans = {d: sum(t["loop_s"] for t in ts) / len(ts) for d, ts in traced_by.items()}
     log(f"serve loop in turns, mean device busy share without / with decisions: "
-        f"{busy[False] * 100:.2f} / {busy[True] * 100:.2f} %; mean loop span {spans[False]:.3f} "
-        f"/ {spans[True]:.3f} s ({spans[True] / spans[False]:.2f}×); host waits for the device "
+        f"{busy[False] * 100:.2f} / {busy[True] * 100:.2f} % (standard error of the "
+        f"difference {se * 100:.2f} points, least share allowed with decisions "
+        f"{(busy[False] - 2 * se) * 100:.2f} %); mean loop span {spans[False]:.3f} / "
+        f"{spans[True]:.3f} s ({spans[True] / spans[False]:.2f}×); host waits for the device "
         f"{waits[False]} / {waits[True]}")
-    if busy[True] < busy[False] or len(set(waits[False] + waits[True])) != 1:
-        fail("the serve loop with decisions waits on the device more, or keeps it busy less "
-             "of the time, than without: a host sync in the loop?")
+    if len(set(waits[False] + waits[True])) != 1:
+        fail("the serve loop with decisions waits on the device more often than without: "
+             "a host sync in the loop")
+    if busy[True] < busy[False] - 2 * se:
+        fail("the serve loop with decisions keeps the device busy a smaller share of the "
+             "time than without, by more than twice the standard error: a host sync in "
+             "the loop?")
     del rep, traced_by
 
     # ---- 5. accumulate: kernel vs plain ---------------------------------------
@@ -2407,11 +2644,12 @@ def main() -> None:
         f"REPLAY_CHUNK_STEPS = {replay_ops.REPLAY_CHUNK_STEPS}")
     del hist, ch_temps, st0
 
-    # ---- 9-11. flash attention and the LM serving path ---------------------------
+    # ---- 9-11. flash attention and the LM serving paths --------------------------
     torch.cuda.empty_cache()
     fa = flash_attention_phase(torch, dev, gen, fa_k)
     lm_card_vs_cpu_phase(dev)
     lm = lm_main_path_phase(torch, dev, zero_counts, read_counts)
+    families = lm_families_phase(torch, dev, zero_counts, read_counts)
     if {m.split(".")[0] for m in sys.modules} & {"jax", "jaxlib", "repro"}:
         fail("the port imported JAX or the JAX package")
 
@@ -2444,7 +2682,9 @@ def main() -> None:
     # ---- 17. summary -----------------------------------------------------------
     by_path = {"serve": launches, "serve_decisions": dec_launches, "trace_eval": {
         k: sum(v[k] for v in eval_launches.values()) for k in counters},
-        "lm_serve": lm["launches"], "altune": alt_launches, "profile": prof_launches,
+        "lm_serve": lm["launches"],
+        **{f"lm_serve/{arch}": fam["launches"] for arch, fam in families.items()},
+        "altune": alt_launches, "profile": prof_launches,
         "regions": reg["launches"], "sharded": shard_launches}
 
     def counted(name: str) -> dict:

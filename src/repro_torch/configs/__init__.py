@@ -1,9 +1,10 @@
 """Architecture registry: ``get(name)`` → ModelConfig, ``reduced(name)`` →
 the CPU-test-sized config of the same family.
 
-The port carries the configs of the architectures its layer stack runs
-(the attention-only dense models); the reference's other architectures
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+The port carries the configs of every architecture its layer stack runs:
+the dense, local/global, M-RoPE, encoder-only, RG-LRU and xLSTM models.
+The two with experts raise ``NotImplementedError`` naming the ROADMAP
+item that ports them.
 """
 
 from __future__ import annotations
@@ -26,20 +27,14 @@ ARCH_IDS: Tuple[str, ...] = (
     "recurrentgemma-9b",
 )
 
-#: Ported architectures → their module under ``repro_torch.configs``.
-_MODULES = {"smollm-135m": "smollm_135m", "llama3.2-3b": "llama3_2_3b"}
-
 #: Architectures not ported yet → the ROADMAP item that ports them.
 _ROADMAP = {
-    "gemma3-4b": "queue 1 item 9f (the other dense configs)",
-    "chatglm3-6b": "queue 1 item 9f (the other dense configs)",
     "deepseek-moe-16b": "queue 1 item 9a (experts)",
     "kimi-k2-1t-a32b": "queue 1 item 9a (experts)",
-    "qwen2-vl-72b": "queue 1 item 9e (M-RoPE and embedding inputs)",
-    "hubert-xlarge": "queue 1 item 9e (M-RoPE and embedding inputs)",
-    "xlstm-125m": "queue 1 item 9b (xLSTM)",
-    "recurrentgemma-9b": "queue 1 item 9c (RG-LRU)",
 }
+
+#: Ported architectures → their module under ``repro_torch.configs``.
+_MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS if a not in _ROADMAP}
 
 
 def _module(name: str):

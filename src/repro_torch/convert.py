@@ -4,7 +4,8 @@ The fleet controller carries state: the fleet's cell parameters and vendor
 index, a timing table (bin edges, ``(N, B, 2, 4)`` stack — or a rank-5
 ``(N, B, R, 2, 4)`` region stack — and refresh policy), a region sweep's
 stacks, the controller registers, the score partials and a materialized
-replay history. The LM serving path carries weights and KV caches.
+replay history. The LM serving path carries weights and per-layer caches:
+KV caches, and the RG-LRU, mLSTM and sLSTM states.
 The ``*_from_numpy`` functions take them as numpy arrays — as
 ``np.asarray`` gives them from the reference package's objects, which use
 the same field names and layouts — and return this package's objects on a
@@ -30,6 +31,8 @@ from repro_torch.core.refresh import RefreshPolicy
 from repro_torch.models import stack as lm_stack
 from repro_torch.models.blocks import KVCache
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.rglru import RGLRUCache
+from repro_torch.models.xlstm import MLSTMCache, MLSTMState, SLSTMState
 
 
 def _t(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -188,14 +191,34 @@ def lm_params_to_numpy(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, An
     return out
 
 
-def lm_cache_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
-                        device="cuda") -> List[KVCache]:
-    """The reference's serving caches (a stack of ``KVCache(k, v)``, as
-    named tuples or ``{"k", "v"}`` dictionaries of numpy arrays) → the
-    port's per-layer list of :class:`KVCache` on ``device``."""
-    def kv(c):
-        k, v = (c.k, c.v) if hasattr(c, "_fields") else (c["k"], c["v"])
-        return KVCache(k=torch.tensor(np.asarray(k), device=device),
-                       v=torch.tensor(np.asarray(v), device=device))
+#: The port's cache type of each token mixer; the reference's has the same
+#: fields (``MLSTMCache.state`` an ``MLSTMState``).
+_CACHE_TYPES = {"global": KVCache, "local": KVCache, "rglru": RGLRUCache,
+                "mlstm": MLSTMCache, "slstm": SLSTMState}
 
-    return [kv(c) for c in _unstack(tree, cfg)]
+
+def lm_cache_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, device="cuda") -> List[Any]:
+    """The reference's serving caches (a stack of per-layer caches — named
+    tuples or dictionaries of numpy arrays with the reference's field names)
+    → the port's per-layer list on ``device``: :class:`KVCache`,
+    :class:`RGLRUCache`, :class:`MLSTMCache` or :class:`SLSTMState` by the
+    layer's mixer. Values are copied as they are (the stabilizers' −inf
+    included)."""
+    def field(c, name):
+        return getattr(c, name) if hasattr(c, "_fields") else c[name]
+
+    def one(c, typ):
+        if typ is MLSTMCache:
+            return MLSTMCache(state=one(field(c, "state"), MLSTMState),
+                              conv=torch.tensor(np.asarray(field(c, "conv")), device=device))
+        return typ(*(torch.tensor(np.asarray(field(c, n)), device=device) for n in typ._fields))
+
+    return [one(c, _CACHE_TYPES[cfg.mixer_of(i)])
+            for i, c in enumerate(_unstack(tree, cfg))]
+
+
+def lm_cache_to_numpy(caches: List[Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """The port's per-layer caches → the reference's prefix / groups / suffix
+    stack of named tuples (the port's types, the reference's field names)
+    of numpy arrays."""
+    return _restack([_zip_map(_np, [c]) for c in caches], cfg)

@@ -15,23 +15,32 @@
 //
 // Design. The (BQ, BK) query x key tile is the kernel's timing parameter
 // set, as on the TPU: the kernel is a template over (BQ, BK, dh), one
-// instantiation for each member of kernels/flash_attention/ops.CANDIDATES
-// (FA_TILES below) and each head width. One block per (batch * head,
+// instantiation for each tile of kernels/flash_attention/ops.candidates(dh)
+// at each head width (FA_INSTANCES below). One block per (batch * head,
 // BQ-query tile) walks the BK-key tiles its queries can see (the causal
 // diagonal and the window bound its range: a fully masked tile leaves m, l
 // and acc as they were, so skipping it changes no result).
 // - A block has BQ * BK / 32 threads, 16 lanes tx across keys and output
 //   columns and TY = threads / 16 rows ty. Each thread owns 32 scores of a
 //   tile, rows ty + TY i and keys tx + 16 j (8 x 4; 4 x 8 at BK 128), and
-//   dh / 16 output columns of those rows, so a row's max and sum reduce over
-//   the 16 lanes that hold it with shuffles (at dh 32 the output has 8
-//   float4 slots: lanes tx >= 8 mirror lanes tx - 8 and do not write).
+//   output float4 slots tx + 16 g of those rows, so a row's max and sum
+//   reduce over the 16 lanes that hold it with shuffles (at dh 32 the
+//   output has 8 float4 slots: lanes tx >= 8 mirror lanes tx - 8 and do not
+//   write; at dh 80, 20 slots: slot tx + 16 of lanes tx >= 4 lies past the
+//   row, reads the next V row's slots, which lie inside the block's shared
+//   memory, and is not written).
+// - At dh 256 and 320 a thread owns 16 scores (4 x 4; kScoresWide), twice
+//   the threads a tile, so its share of the output accumulator (4 rows x
+//   dh / 16 columns) stays in registers.
 //   At 8 x 4 a thread, Q K^T does 128 FMAs for 12 LDS.128 and P V 256 for
 //   16 (64 for 8 and 128 for 12 at 4 x 4).
 // - The Q tile, one K tile, one V tile and the P tile live in shared
 //   memory, (BQ + 2 BK) dh + BQ BK floats and a float4 of padding a K row:
 //   113 KB at (64, 64) and dh 128, so two 128-thread blocks share an SM;
 //   161 and 194 KB at (128, 64) and (64, 128), one 256-thread block an SM.
+//   A tile is instantiated at a head width only where this fits the 227 KB
+//   a block may have: at dh 256 only (64, 64) (209 KB), at dh 320 only
+//   (32, 64) (209 KB; (64, 64) would need 257 KB).
 //   K rows are padded by one float4, and Q's and P's float4 slots swizzled
 //   by row parity, so the inner loops' shared loads are free of bank
 //   conflicts and address their operands from a few base registers with
@@ -39,7 +48,9 @@
 //
 // Loads overlap the products: Q, K and V are copied by cp.async (16 bytes,
 // zero-filled past the end; each thread copies one float4 column of every
-// (threads / (dh / 4))-th row from one base address) in a staggered order
+// (threads / (dh / 4))-th row from one base address, or, where dh / 4 does
+// not divide the threads (dh 80, 320), the tile's float4 slots tid +
+// threads * i in row-major order) in a staggered order
 // with single buffers and two barriers a tile. V(t) is in flight while the
 // block computes S = Q K(t)^T and the softmax; K(t + 1) is in flight while
 // it computes P V(t). Key tiles that lie wholly inside every mask skip the
@@ -65,10 +76,14 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr int kScores = 32;  // scores of a tile a thread owns (ops.SCORES_PER_THREAD)
+constexpr int kScoresWide = 16;  // ... at dh >= 256 (ops.SCORES_PER_THREAD_WIDE)
+
+template <int DH>
+__host__ __device__ constexpr int scores_of() { return DH >= 256 ? kScoresWide : kScores; }
 
 // 16 lanes tx across key / output columns, threads / 16 rows ty.
-template <int BQ, int BK>
-__host__ __device__ constexpr int threads_of() { return BQ * BK / kScores; }
+template <int BQ, int BK, int DH>
+__host__ __device__ constexpr int threads_of() { return BQ * BK / scores_of<DH>(); }
 
 struct Args {
   int sq, skv;
@@ -86,8 +101,18 @@ __host__ __device__ constexpr size_t smem_bytes() {
 }
 
 // Two blocks an SM where the 64 x 64 tile's shared memory allows it.
-template <int BQ, int BK>
-__host__ __device__ constexpr int min_blocks() { return BQ * BK <= 64 * 64 ? 2 : 1; }
+template <int BQ, int BK, int DH>
+__host__ __device__ constexpr int min_blocks() {
+  return BQ * BK <= 64 * 64 && 2 * smem_bytes<BQ, BK, DH>() <= 232448 ? 2 : 1;
+}
+
+// Whether each thread copies one float4 column of whole rows (every
+// (threads / (dh / 4))-th row, all of one parity); else the tile's float4
+// slots are copied in row-major order.
+template <int NT, int D4, int BQ, int BK>
+__host__ __device__ constexpr bool row_copy() {
+  return NT % D4 == 0 && BQ % (NT / D4) == 0 && BK % (NT / D4) == 0 && (NT / D4) % 2 == 0;
+}
 
 __device__ __forceinline__ float comp(const float4& a, int e) {
   return e == 0 ? a.x : e == 1 ? a.y : e == 2 ? a.z : a.w;
@@ -104,14 +129,15 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 template <int BQ, int BK, int DH>
-__global__ void __launch_bounds__(threads_of<BQ, BK>(), min_blocks<BQ, BK>())
+__global__ void __launch_bounds__(threads_of<BQ, BK, DH>(), min_blocks<BQ, BK, DH>())
 fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ out, const Args a) {
   constexpr int D4 = DH / 4;                  // float4 slots per row
-  constexpr int OG = DH >= 64 ? DH / 64 : 1;  // output float4 slots per thread: tx + 16 g
-  constexpr int NT = threads_of<BQ, BK>(), TY = NT / 16;
-  static_assert(NT % D4 == 0 && BQ % (NT / D4) == 0 && BK % (NT / D4) == 0 &&
-                (NT / D4) % 2 == 0, "whole rows of one parity a copy pass");
+  constexpr int OG = (D4 + 15) / 16;          // output float4 slots per thread: tx + 16 g
+  constexpr int NT = threads_of<BQ, BK, DH>(), TY = NT / 16;
+  constexpr bool ROW_COPY = row_copy<NT, D4, BQ, BK>();
+  static_assert(DH % 16 == 0 && TY % 2 == 0 && BK % 64 == 0,
+                "even float4 slots a row, rows of one parity a thread, P slots swizzled by 4");
   constexpr int RQ = BQ / TY, RK = BK / 16;   // S rows and keys per thread
   constexpr int P4 = BK / 4;                  // float4 slots per row of P
   constexpr int KS = D4 + 1;                  // row stride of K, float4
@@ -132,26 +158,49 @@ fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* vb = v + b * a.v_sb + kvh * a.v_sh;
 
   // Thread tid copies float4 slot tid % D4 of rows tid / D4 + ROWS i (ROWS
-  // is even, so those rows share a parity).
-  constexpr int ROWS = NT / D4;
+  // is even, so those rows share a parity); without ROW_COPY, slots tid +
+  // NT i of the tile in row-major order.
+  constexpr int ROWS = ROW_COPY ? NT / D4 : 1;
   const int c0 = tid / D4, d4 = tid % D4;
   auto load_q = [&]() {
-    const float* src = qb + (q0 + c0) * a.q_ss + 4 * d4;
-    float4* d = s_q + c0 * D4 + (d4 ^ (c0 & 1));
+    if constexpr (ROW_COPY) {
+      const float* src = qb + (q0 + c0) * a.q_ss + 4 * d4;
+      float4* d = s_q + c0 * D4 + (d4 ^ (c0 & 1));
 #pragma unroll
-    for (int i = 0; i < BQ / ROWS; ++i) {
-      const bool in = q0 + c0 + ROWS * i < a.sq;
-      cp_async16(d + ROWS * i * D4, in ? src + ROWS * i * a.q_ss : q, in ? 16 : 0);
+      for (int i = 0; i < BQ / ROWS; ++i) {
+        const bool in = q0 + c0 + ROWS * i < a.sq;
+        cp_async16(d + ROWS * i * D4, in ? src + ROWS * i * a.q_ss : q, in ? 16 : 0);
+      }
+    } else {
+#pragma unroll 4
+      for (int i = 0; i < (BQ * D4 + NT - 1) / NT; ++i) {
+        const int e = tid + NT * i, r = e / D4, c = e - r * D4;
+        const bool in = q0 + r < a.sq;
+        if ((BQ * D4) % NT == 0 || e < BQ * D4)
+          cp_async16(s_q + r * D4 + (c ^ (r & 1)), in ? qb + (q0 + r) * a.q_ss + 4 * c : q,
+                     in ? 16 : 0);
+      }
     }
   };
   auto load_kv = [&](float4* dst, int row_stride, const float* base, int64_t stride, int k0) {
-    const float* src = base + (k0 + c0) * stride + 4 * d4;
-    float4* d = dst + c0 * row_stride + d4;
     const bool full = k0 + BK <= a.skv;
+    if constexpr (ROW_COPY) {
+      const float* src = base + (k0 + c0) * stride + 4 * d4;
+      float4* d = dst + c0 * row_stride + d4;
 #pragma unroll
-    for (int i = 0; i < BK / ROWS; ++i) {
-      const bool in = full || k0 + c0 + ROWS * i < a.skv;
-      cp_async16(d + ROWS * i * row_stride, in ? src + ROWS * i * stride : base, in ? 16 : 0);
+      for (int i = 0; i < BK / ROWS; ++i) {
+        const bool in = full || k0 + c0 + ROWS * i < a.skv;
+        cp_async16(d + ROWS * i * row_stride, in ? src + ROWS * i * stride : base, in ? 16 : 0);
+      }
+    } else {
+#pragma unroll 4
+      for (int i = 0; i < (BK * D4 + NT - 1) / NT; ++i) {
+        const int e = tid + NT * i, r = e / D4, c = e - r * D4;
+        const bool in = full || k0 + r < a.skv;
+        if ((BK * D4) % NT == 0 || e < BK * D4)
+          cp_async16(dst + r * row_stride + c, in ? base + (k0 + r) * stride + 4 * c : base,
+                     in ? 16 : 0);
+      }
     }
   };
   // Shared-memory bases of this thread's fragments; every offset added to
@@ -162,7 +211,10 @@ fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float4* q_even = s_q + ty * D4 + par;
   const float4* q_odd = s_q + ty * D4 - par;
   const float4* k_row = s_k + tx * KS;
-  const float4* v_col = s_v + (tx & (D4 - 1));
+  // Lanes past a row's slots mirror lanes tx - D4 where D4 is a power of
+  // two under 16 (dh 32); at dh 80 slot tx + 16 of lanes tx >= 4 runs on
+  // into the next row (never written).
+  const float4* v_col = s_v + ((D4 & (D4 - 1)) == 0 ? (tx & (D4 - 1)) : tx);
   float* p_st_even = s_p + ty * BK + tx + 16 * par;  // P[r][tx + 16 j] at j ^ par
   float* p_st_odd = s_p + ty * BK + tx - 16 * par;
   const float4* p_lo = reinterpret_cast<const float4*>(s_p) + ty * P4 + 4 * par;
@@ -324,9 +376,10 @@ fa_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float* o = out + ((static_cast<int64_t>(b) * a.sq + qp) * a.heads + h) * DH;
 #pragma unroll
       for (int g = 0; g < OG; ++g) {
-        *reinterpret_cast<float4*>(o + 4 * (tx + 16 * g)) =
-            make_float4(acc[i][g][0] / den, acc[i][g][1] / den, acc[i][g][2] / den,
-                        acc[i][g][3] / den);
+        if (D4 % 16 == 0 || tx + 16 * g < D4)
+          *reinterpret_cast<float4*>(o + 4 * (tx + 16 * g)) =
+              make_float4(acc[i][g][0] / den, acc[i][g][1] / den, acc[i][g][2] / den,
+                          acc[i][g][3] / den);
       }
     }
   }
@@ -347,7 +400,7 @@ int launch(const float* q, const float* k, const float* v, float* out, int64_t b
   const int64_t n_heads = batch * a.heads;
   if (n_q_tiles > 65535 || n_heads > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned int>(n_heads), static_cast<unsigned int>(n_q_tiles));
-  fa_kernel<BQ, BK, DH><<<grid, threads_of<BQ, BK>(), smem, stream>>>(q, k, v, out, a);
+  fa_kernel<BQ, BK, DH><<<grid, threads_of<BQ, BK, DH>(), smem, stream>>>(q, k, v, out, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -360,16 +413,17 @@ int attributes(int32_t* out) {
   out[1] = static_cast<int32_t>(fa.sharedSizeBytes + smem_bytes<BQ, BK, DH>());
   out[2] = fa.maxThreadsPerBlock;
   out[3] = static_cast<int32_t>(fa.localSizeBytes);
-  out[4] = threads_of<BQ, BK>();
+  out[4] = threads_of<BQ, BK, DH>();
   return 0;
 }
 
-// The instantiated (bq, bk) tiles: kernels/flash_attention/kernel.TILES, in
-// order; each for head widths 32, 64 and 128.
-#define FA_TILES(X) \
-  X(64, 64)         \
-  X(128, 64)        \
-  X(64, 128)
+// The instantiated (bq, bk, head width) triples: kernels/flash_attention/
+// kernel.TILES_BY_DH, every tile whose shared memory fits a block.
+#define FA_INSTANCES(X)                                     \
+  X(64, 64, 32) X(64, 64, 64) X(64, 64, 80) X(64, 64, 128)  \
+  X(128, 64, 32) X(128, 64, 64) X(128, 64, 80) X(128, 64, 128) \
+  X(64, 128, 32) X(64, 128, 64) X(64, 128, 80) X(64, 128, 128) \
+  X(64, 64, 256) X(32, 64, 320)
 
 }  // namespace
 
@@ -382,8 +436,8 @@ const char* error_string(int code) {
 // q: (B, Sq, H, dh), k and v: (B, Skv, Hk, dh) float32 device tensors given
 // by their element strides over (batch, position, head), the head dim
 // contiguous and every row 16-byte aligned (the wrapper checks); out is a
-// contiguous (B, Sq, H, dh) float32 tensor. head_dim must be 32, 64 or 128,
-// (bq, bk) an instantiated tile, Sq and Skv < 2^31.
+// contiguous (B, Sq, H, dh) float32 tensor. (bq, bk, head_dim) must be
+// instantiated (FA_INSTANCES), Sq and Skv < 2^31.
 int flash_attention_launch(int32_t bq, int32_t bk, const float* q, const float* k,
                            const float* v, float* out, int64_t batch, int64_t sq, int64_t skv,
                            int32_t heads, int32_t kv_heads, int32_t head_dim, int64_t q_sb,
@@ -395,20 +449,9 @@ int flash_attention_launch(int32_t bq, int32_t bk, const float* q, const float* 
   if (batch == 0 || sq == 0 || heads == 0) return static_cast<int>(cudaGetLastError());
   const Args a{static_cast<int>(sq), static_cast<int>(skv), q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                v_sb, v_ss, v_sh, heads, heads / kv_heads, causal, window, scale};
-#define FA_LAUNCH(BQ, BK)                                               \
-  if (bq == BQ && bk == BK) {                                           \
-    switch (head_dim) {                                                 \
-      case 32:                                                          \
-        return launch<BQ, BK, 32>(q, k, v, out, batch, a, stream);      \
-      case 64:                                                          \
-        return launch<BQ, BK, 64>(q, k, v, out, batch, a, stream);      \
-      case 128:                                                         \
-        return launch<BQ, BK, 128>(q, k, v, out, batch, a, stream);     \
-      default:                                                          \
-        return static_cast<int>(cudaErrorInvalidValue);                 \
-    }                                                                   \
-  }
-  FA_TILES(FA_LAUNCH)
+#define FA_LAUNCH(BQ, BK, DH) \
+  if (bq == BQ && bk == BK && head_dim == DH) return launch<BQ, BK, DH>(q, k, v, out, batch, a, stream);
+  FA_INSTANCES(FA_LAUNCH)
 #undef FA_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -417,20 +460,9 @@ int flash_attention_launch(int32_t bq, int32_t bk, const float* q, const float* 
 // thread, shared memory a block (static plus the dynamic amount the launcher
 // requests), max threads a block, local (spill) bytes, threads.
 int flash_attention_attributes(int32_t bq, int32_t bk, int32_t head_dim, int32_t* out) {
-#define FA_ATTR(BQ, BK)                                   \
-  if (bq == BQ && bk == BK) {                             \
-    switch (head_dim) {                                   \
-      case 32:                                            \
-        return attributes<BQ, BK, 32>(out);               \
-      case 64:                                            \
-        return attributes<BQ, BK, 64>(out);               \
-      case 128:                                           \
-        return attributes<BQ, BK, 128>(out);              \
-      default:                                            \
-        return static_cast<int>(cudaErrorInvalidValue);   \
-    }                                                     \
-  }
-  FA_TILES(FA_ATTR)
+#define FA_ATTR(BQ, BK, DH) \
+  if (bq == BQ && bk == BK && head_dim == DH) return attributes<BQ, BK, DH>(out);
+  FA_INSTANCES(FA_ATTR)
 #undef FA_ATTR
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -13,21 +13,31 @@ from __future__ import annotations
 import ctypes
 import functools
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
-__all__ = ["HEAD_DIMS", "TILES", "attributes", "flash_attention_cuda",
-           "flash_attention_plain", "tolerance"]
+__all__ = ["HEAD_DIMS", "TILES", "TILES_BY_DH", "attributes", "flash_attention_cuda",
+           "flash_attention_plain", "tiles", "tolerance"]
 
 #: Head widths the CUDA kernel is instantiated for.
-HEAD_DIMS = (32, 64, 128)
-#: The (bq, bk) query × key tiles it is instantiated for (``FA_TILES`` in the
-#: source), in the order of ``ops.CANDIDATES``; the first is the smallest.
+HEAD_DIMS = (32, 64, 80, 128, 256, 320)
+#: The (bq, bk) query × key tiles it is instantiated for at head widths up to
+#: 128, in the order of ``ops.CANDIDATES``; the first is the smallest.
 TILES = ((64, 64), (128, 64), (64, 128))
+#: The tiles instantiated at each head width (``FA_INSTANCES`` in the
+#: source), smallest first: those whose shared memory fits a block
+#: (232,448 bytes). At dh 256 only 64 × 64 fits (214,016 bytes); at dh 320
+#: none of ``TILES`` does (64 × 64 needs 263,168), so it has 32 × 64.
+TILES_BY_DH = {32: TILES, 64: TILES, 80: TILES, 128: TILES, 256: ((64, 64),), 320: ((32, 64),)}
+
+
+def tiles(dh: int) -> Tuple[Tuple[int, int], ...]:
+    """The tiles instantiated at head width ``dh`` (none for another width)."""
+    return TILES_BY_DH.get(dh, ())
 
 
 @functools.lru_cache(maxsize=None)
@@ -62,21 +72,24 @@ def _check(t: torch.Tensor, name: str, device: torch.device) -> None:
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: int = 0,
-                         tile: Tuple[int, int] = TILES[0]) -> torch.Tensor:
+                         tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Launch ``csrc/flash_attention.cu``'s ``tile = (bq, bk)`` instantiation
-    on PyTorch's current stream. Counts its launches in
-    ``flash_attention_cuda.launches``."""
-    if tuple(tile) not in TILES:
-        raise ValueError(f"tile {tuple(tile)} is not instantiated; the kernel has {TILES}")
+    at q's head width (``None``: the smallest tile instantiated there) on
+    PyTorch's current stream. A tile not instantiated at that width raises
+    ``ValueError``. Counts its launches in ``flash_attention_cuda.launches``."""
     b, sq, h, dh = q.shape
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes dh in {HEAD_DIMS}, got {dh}")
+    tile = tiles(dh)[0] if tile is None else tuple(tile)
+    if tile not in tiles(dh):
+        raise ValueError(f"tile {tile} is not instantiated at dh {dh}; the kernel has "
+                         f"{tiles(dh)} there")
     skv, hk = k.shape[1], k.shape[2]
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(t, name, q.device)
     if tuple(k.shape) != (b, skv, hk, dh) or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"k and v must be (B, Skv, Hk, dh) = {(b, skv, hk, dh)}, "
                          f"got {tuple(k.shape)} and {tuple(v.shape)}")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel takes dh in {HEAD_DIMS}, got {dh}")
     if hk == 0 or h % hk:
         raise ValueError(f"heads {h} must be a multiple of KV heads {hk}")
     out = torch.empty((b, sq, h, dh), dtype=torch.float32, device=q.device)
@@ -95,7 +108,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention_cuda.launches = 0
 
 
-def attributes(dh: int, tile: Tuple[int, int] = TILES[0]) -> Dict[str, int]:
+def attributes(dh: int, tile: Optional[Tuple[int, int]] = None) -> Dict[str, int]:
     """``cudaFuncGetAttributes`` of the ``(tile, dh)`` instantiation (see
-    ``_build.attributes``)."""
-    return _build.attributes(_lib(), "flash_attention_attributes", *tile, dh)
+    ``_build.attributes``; ``None``: the smallest tile at ``dh``)."""
+    return _build.attributes(_lib(), "flash_attention_attributes",
+                             *(tiles(dh)[0] if tile is None else tile), dh)

@@ -20,12 +20,14 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
+from typing import Optional
 
 import torch
 
 import repro_torch.configs as C
 from repro_torch import resolve_device
 from repro_torch.models import model as lm
+from repro_torch.models import stack as lm_stack
 from repro_torch.train.serve import ServeConfig, make_decode_step, make_prefill_step
 
 
@@ -101,55 +103,104 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 32, gen: int = 32,
     return gen_ids, report
 
 
+def mrope_positions(batch: int, seq: int, device=None) -> torch.Tensor:
+    """M-RoPE's (3, B, S) temporal / height / width streams for a sequence
+    laid out as frames of an 8-wide patch grid: t = s // 64, y = s // 8 % 8,
+    x = s % 8 (three streams that differ, unlike text positions)."""
+    s = torch.arange(seq, dtype=torch.int32, device=device)
+    return torch.stack([s // 64, s // 8 % 8, s % 8])[:, None].expand(3, batch, seq)
+
+
+def cache_tensors(cache) -> list:
+    """A layer cache's tensors in field order (an ``MLSTMCache``'s state first)."""
+    if isinstance(cache, torch.Tensor):
+        return [cache]
+    return [t for f in cache for t in cache_tensors(f)]
+
+
+def max_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a − b| over entries, equal entries (equal infinities too) 0."""
+    d = torch.where(a == b, torch.zeros((), dtype=a.dtype), (a - b).abs())
+    return float(d.max()) if d.numel() else 0.0
+
+
 def compare_card_to_cpu(arch: str, device: str | torch.device = "cuda", batch: int = 2,
                         prompt_len: int = 40, steps: int = 8, tol: float = 1e-4,
-                        seed: int = 0) -> dict:
-    """Serve reduced ``arch`` on ``device`` (prefill attention through the
-    flash-attention kernel) and on the CPU (plain versions) with the same
-    weights and prompts: the prefill, then ``steps`` decode steps
-    teacher-forced with the CPU's greedy ids.
+                        seed: int = 0, reduced: bool = True,
+                        n_layers: Optional[int] = None) -> dict:
+    """Serve ``arch`` (the reduced config unless ``reduced`` is False;
+    ``n_layers`` cuts its depth) on ``device`` (prefill attention through
+    the flash-attention kernel) and on the CPU (plain versions) with the
+    same weights and inputs: the prefill, then ``steps`` decode steps
+    teacher-forced with the CPU's greedy ids. A config with embedding inputs
+    is fed random embeddings (and, with M-RoPE, :func:`mrope_positions`); an
+    encoder-only one runs one forward and no decode, every position's logits
+    compared. Reduced weights go to the card through ``convert``; full-width
+    ones are drawn on the card and copied to the host.
 
-    Returns ``logit_err`` (the largest last-position logit difference over
-    the prefill and every step), ``cache_err`` (the prefill's caches),
-    ``sure`` (rows, over the prefill and every step, whose CPU top-2 logit
-    gap exceeds ``2 * tol``), ``agree`` (how many of those have equal greedy
-    ids on both) and the flash-attention launches of the card's prefill and
-    of its decode steps."""
+    Returns ``logit_err`` (the largest logit difference over the rows
+    compared: the last position of the prefill and every step, or every
+    position of a forward), ``cache_err`` (the prefill's caches), ``sure``
+    (rows whose CPU top-2 logit gap exceeds ``2 * tol``), ``agree`` (how
+    many of those have equal greedy ids on both), ``attn_layers`` and the
+    flash-attention launches of the card's prefill and of its decode steps."""
     from repro_torch import convert
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
 
     dev = resolve_device(device)
-    cfg = dataclasses.replace(C.reduced(arch), attn_impl="pallas")
-    host = lm.init_params(torch.Generator().manual_seed(seed), cfg)
-    card = convert.lm_params_from_numpy(convert.lm_params_to_numpy(host, cfg), cfg, device=dev)
-    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), dtype=torch.int32,
-                            generator=torch.Generator().manual_seed(seed + 1))
+    cfg = C.reduced(arch) if reduced else C.get(arch)
+    cfg = dataclasses.replace(cfg, attn_impl="pallas", n_layers=n_layers or cfg.n_layers)
+    if reduced:
+        host = lm.init_params(torch.Generator().manual_seed(seed), cfg)
+        card = convert.lm_params_from_numpy(convert.lm_params_to_numpy(host, cfg), cfg,
+                                            device=dev)
+    else:
+        card = lm.init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
+        host = convert._zip_map(lambda t: t.cpu(), [card])
+    gen = torch.Generator().manual_seed(seed + 1)
+    if cfg.embeds_input:
+        inputs = {"embeds": torch.randn((batch, prompt_len, cfg.d_model), generator=gen)}
+        if cfg.rope_variant == "mrope":
+            inputs["positions"] = mrope_positions(batch, prompt_len)
+    else:
+        inputs = {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                                          dtype=torch.int32, generator=gen)}
+    card_inputs = {k: t.to(dev) for k, t in inputs.items()}
+    out = {"n_layers": cfg.n_layers, "d_model": cfg.d_model, "d_head": cfg.d_head,
+           "attn_layers": lm_stack.attention_layers(cfg), "logit_err": 0.0, "cache_err": 0.0,
+           "sure": 0, "agree": 0, "decode_launches": 0}
+
+    def compare(lc: torch.Tensor, lh: torch.Tensor) -> None:
+        lc, lh = lc.cpu().reshape(-1, lh.shape[-1]), lh.reshape(-1, lh.shape[-1])
+        out["logit_err"] = max(out["logit_err"], float((lc - lh).abs().max()))
+        top2 = torch.topk(lh, 2, dim=-1).values
+        gap = (top2[:, 0] - top2[:, 1]) > 2 * tol
+        out["sure"] += int(gap.sum())
+        out["agree"] += int((torch.argmax(lc, -1) == torch.argmax(lh, -1))[gap].sum())
+
+    before = fa_kernel.flash_attention_cuda.launches
+    if not cfg.causal:
+        lc, _, _ = lm.forward(card, cfg, **card_inputs)
+        out["prefill_launches"] = fa_kernel.flash_attention_cuda.launches - before
+        compare(lc, lm.forward(host, cfg, **inputs)[0])
+        return out
     sc = ServeConfig(max_len=prompt_len + steps, cache_dtype="float32")
     prefill, decode = make_prefill_step(cfg, sc), make_decode_step(cfg, sc)
-    before = fa_kernel.flash_attention_cuda.launches
-    lc, cc = prefill(card, {"tokens": prompts.to(dev)})
-    prefill_launches = fa_kernel.flash_attention_cuda.launches - before
-    lh, ch = prefill(host, {"tokens": prompts})
-    cache_err = max(float((a.cpu() - b).abs().max()) for x, y in zip(cc, ch)
-                    for a, b in zip(x, y))
-    logit_err, sure, agree = 0.0, 0, 0
+    lc, cc = prefill(card, card_inputs)
+    out["prefill_launches"] = fa_kernel.flash_attention_cuda.launches - before
+    lh, ch = prefill(host, inputs)
+    out["cache_err"] = max(max_diff(a.cpu(), b) for x, y in zip(cc, ch)
+                           for a, b in zip(cache_tensors(x), cache_tensors(y)))
     nxt = torch.argmax(lh, -1)[:, None].to(torch.int32)
     before = fa_kernel.flash_attention_cuda.launches
     for i in range(steps + 1):
-        lc_host = lc.cpu()
-        logit_err = max(logit_err, float((lc_host - lh).abs().max()))
-        top2 = torch.topk(lh, 2, dim=-1).values
-        gap = (top2[:, 0] - top2[:, 1]) > 2 * tol
-        sure += int(gap.sum())
-        agree += int((torch.argmax(lc_host, -1) == torch.argmax(lh, -1))[gap].sum())
+        compare(lc, lh)
         if i == steps:
             break
         _, lc, cc = decode(card, cc, nxt.to(dev), prompt_len + i)
         nxt, lh, ch = decode(host, ch, nxt, prompt_len + i)
-    return {"n_layers": cfg.n_layers, "d_model": cfg.d_model, "d_head": cfg.d_head,
-            "logit_err": logit_err, "cache_err": cache_err, "sure": sure, "agree": agree,
-            "prefill_launches": prefill_launches,
-            "decode_launches": fa_kernel.flash_attention_cuda.launches - before}
+    out["decode_launches"] = fa_kernel.flash_attention_cuda.launches - before
+    return out
 
 
 def main():

@@ -6,7 +6,9 @@ Attention comes in three executable forms, as in the reference
 * ``attn_impl == "pallas"`` — :func:`repro_torch.kernels.flash_attention.ops.flash_attention`:
   the CUDA kernel on a card, its plain version on the CPU.
 * :func:`chunked_attention` — online softmax over KV chunks in plain torch
-  (a Python loop over chunks where the reference scans).
+  (a Python loop over chunks where the reference scans), and
+  :func:`chunked_attention_skip` (``attn_block_skip``), which visits only
+  the KV chunks each query chunk can see.
 * :func:`decode_attention` — one-token step over a (possibly rolling) KV
   cache, plain torch.
 
@@ -23,7 +25,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.flash_attention.ops import WORST_CASE, flash_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention, worst_case
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.rope import apply_rope
 
@@ -145,6 +147,78 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.transpose(1, 2).to(q.dtype)
 
 
+def chunked_attention_skip(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                           q_offset: int = 0, causal: bool = True, window: int = 0,
+                           chunk: int = 256, static: bool = False) -> torch.Tensor:
+    """Block-skipping online-softmax attention.
+
+    For each query chunk, online softmax over only the KV chunks it can see
+    (the causal upper bound, the sliding window's lower bound), with the
+    (m, l, acc) accumulators at query-chunk size. ``static`` is the
+    reference's differentiable form (each query chunk's KV range sliced
+    once, then its chunks in order); the default its prefill form (each KV
+    chunk sliced where it is visited). Both compute the same values.
+    Falls back to :func:`chunked_attention` unless ``chunk`` divides Sq and
+    Skv. Shapes as :func:`chunked_attention`.
+    """
+    b, sq, h, dh = q.shape
+    skv, hk = k.shape[1], k.shape[2]
+    g = h // hk
+    if sq % chunk or skv % chunk:
+        return chunked_attention(q, k, v, q_offset=q_offset, causal=causal, window=window,
+                                 chunk=chunk)
+    nq, nkv = sq // chunk, skv // chunk
+    scale = dh ** -0.5
+    if g > 1:
+        k = k.repeat_interleave(g, dim=2)
+        v = v.repeat_interleave(g, dim=2)
+    qh = q.to(torch.float32).transpose(1, 2)      # (B,H,Sq,dh)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    dev = q.device
+    offs = torch.arange(chunk, dtype=torch.int32, device=dev)
+
+    def kv_update(carry, q_blk, q_pos, k_j, v_j, k_pos):
+        m, l, acc = carry
+        s = torch.einsum("bhqd,bhcd->bhqc", q_blk, k_j) * scale
+        dpos = q_pos[:, None] - k_pos[None, :]
+        mask = torch.ones_like(dpos, dtype=torch.bool)
+        if causal:
+            mask = mask & (dpos >= 0)
+        if window > 0:
+            mask = mask & (dpos < window)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        return (m_new, l * corr + p.sum(dim=-1),
+                acc * corr[..., None] + torch.einsum("bhqc,bhcd->bhqd", p, v_j))
+
+    o_blocks = []
+    for qi in range(nq):
+        hi = min((q_offset + (qi + 1) * chunk + chunk - 1) // chunk, nkv) if causal else nkv
+        lo = max((q_offset + qi * chunk - window + 1) // chunk, 0) if window > 0 else 0
+        q_blk = qh[:, :, qi * chunk:(qi + 1) * chunk]
+        q_pos = q_offset + qi * chunk + offs
+        carry = (torch.full((b, h, chunk), NEG_INF, dtype=torch.float32, device=dev),
+                 torch.zeros((b, h, chunk), dtype=torch.float32, device=dev),
+                 torch.zeros((b, h, chunk, dh), dtype=torch.float32, device=dev))
+        if static:
+            kc = kt[:, :, lo * chunk:hi * chunk].to(torch.float32).reshape(b, h, hi - lo, chunk, dh)
+            vc = vt[:, :, lo * chunk:hi * chunk].to(torch.float32).reshape(b, h, hi - lo, chunk, dh)
+            for j in range(hi - lo):
+                carry = kv_update(carry, q_blk, q_pos, kc[:, :, j], vc[:, :, j],
+                                  (lo + j) * chunk + offs)
+        else:
+            for j in range(lo, hi):
+                carry = kv_update(carry, q_blk, q_pos,
+                                  kt[:, :, j * chunk:(j + 1) * chunk].to(torch.float32),
+                                  vt[:, :, j * chunk:(j + 1) * chunk].to(torch.float32),
+                                  j * chunk + offs)
+        _, l, acc = carry
+        o_blocks.append((acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype))
+    return torch.cat(o_blocks, dim=2).transpose(1, 2)
+
+
 class KVCache(NamedTuple):
     """Per-layer KV cache. For ``local`` layers the buffer is the window
     (rolling index, slot = pos % window); for ``global`` it is the maximum
@@ -163,11 +237,15 @@ def attention_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str,
     q, k, v = _qkv(p, x, cfg, positions, _theta(cfg, kind))
     window = cfg.window if kind == "local" else 0
     if cfg.attn_impl == "pallas":
-        out = flash_attention(q, k, v, causal=cfg.causal, window=window, config=WORST_CASE)
+        # The smallest tile instantiated at this head width, as the
+        # reference calls its WORST_CASE config.
+        out = flash_attention(q, k, v, causal=cfg.causal, window=window,
+                              config=worst_case(cfg.d_head))
     elif cfg.attn_block_skip and (cfg.causal or window > 0):
-        raise NotImplementedError(
-            "attn_block_skip (chunked_attention_skip) is not ported yet: "
-            "ROADMAP queue 1 item 9d")
+        # The reference's training form (static KV bounds) without a cache,
+        # its prefill form with one.
+        out = chunked_attention_skip(q, k, v, causal=cfg.causal, window=window,
+                                     chunk=cfg.chunk_len, static=(cache_len == 0))
     else:
         out = chunked_attention(q, k, v, causal=cfg.causal, window=window,
                                 chunk=cfg.chunk_len)

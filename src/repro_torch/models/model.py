@@ -14,7 +14,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.models import blocks, stack
+from repro_torch.models import blocks, rglru, stack, xlstm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.rope import default_positions
 
@@ -45,10 +45,11 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
 def forward(params: Dict[str, Any], cfg: ModelConfig,
             tokens: Optional[torch.Tensor] = None, embeds: Optional[torch.Tensor] = None,
             positions=None, mode: str = "forward",
-            caches: Optional[List[blocks.KVCache]] = None, pos: int = 0,
-            cache_len: int = 0) -> Tuple[torch.Tensor, torch.Tensor,
-                                         Optional[List[blocks.KVCache]]]:
-    """Returns (logits, aux_loss, caches_out); aux_loss is 0 (no experts)."""
+            caches: Optional[List[Any]] = None, pos: int = 0,
+            cache_len: int = 0,
+            last_logits: bool = False) -> Tuple[torch.Tensor, torch.Tensor, Optional[List[Any]]]:
+    """Returns (logits, aux_loss, caches_out); aux_loss is 0 (no experts).
+    ``last_logits``: the head at the last position only, logits (B, 1, V)."""
     if embeds is not None:
         x = embeds.to(params["embed"].dtype)
         b, s = x.shape[:2]
@@ -62,6 +63,8 @@ def forward(params: Dict[str, Any], cfg: ModelConfig,
         positions = default_positions(cfg, b, s, offset, device=x.device)
     x, caches_out = stack.apply_stack(params["stack"], x, cfg, positions, mode=mode,
                                       caches=caches, pos=pos, cache_len=cache_len)
+    if last_logits:
+        x = x[:, -1:]
     x = blocks.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     head = params["embed"].t() if cfg.tie_embeddings else params["head"]
     logits = x @ head
@@ -69,40 +72,63 @@ def forward(params: Dict[str, Any], cfg: ModelConfig,
     return logits, aux, caches_out
 
 
-def prefill(params, cfg: ModelConfig, cache_len: int, tokens=None, embeds=None):
-    """Full-sequence forward that also builds serving caches."""
-    return forward(params, cfg, tokens=tokens, embeds=embeds, mode="prefill",
-                   cache_len=cache_len)
+def prefill(params, cfg: ModelConfig, cache_len: int, tokens=None, embeds=None,
+            positions=None, last_logits: bool = False):
+    """Full-sequence forward that also builds serving caches. ``positions``:
+    (B, S), or M-RoPE's (3, B, S) streams (default: text positions);
+    ``last_logits`` as in :func:`forward`."""
+    return forward(params, cfg, tokens=tokens, embeds=embeds, positions=positions,
+                   mode="prefill", cache_len=cache_len, last_logits=last_logits)
 
 
-def decode_step(params, cfg: ModelConfig, caches: List[blocks.KVCache],
-                tokens: torch.Tensor, pos: int):
+def decode_step(params, cfg: ModelConfig, caches: List[Any], tokens: torch.Tensor,
+                pos: int):
     """One-token step. tokens: (B, 1) int; pos: the number of tokens already
-    in the cache (a Python int). Returns (logits (B,1,V), caches), the
-    caches updated in place."""
+    in the cache (a Python int). Returns (logits (B,1,V), caches): KV caches
+    updated in place, recurrent states replaced."""
     logits, _, caches_out = forward(params, cfg, tokens=tokens, mode="decode",
                                     caches=caches, pos=pos)
     return logits, caches_out
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
-               device=None) -> List[blocks.KVCache]:
+               device=None) -> List[Any]:
     return stack.init_stack_cache(cfg, batch, max_len, dtype, device)
 
 
 # ---------------------------------------------------------------------------
 # Parameter counting
 # ---------------------------------------------------------------------------
+def _mixer_params(cfg: ModelConfig, kind: str) -> int:
+    """Parameters of one token mixer (the block under ``attn``, ``rglru``,
+    ``mlstm`` or ``slstm``), from the shapes its init draws."""
+    d, h, hk, dh, w = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.conv_width
+    if kind in stack.ATTN_KINDS:
+        return d * h * dh + 2 * d * hk * dh + h * dh * d + (2 * dh if cfg.qk_norm else 0)
+    if kind == "rglru":
+        dr = rglru._d_rnn(cfg)
+        # branches, conv, w_a / w_i (block-diagonal), b_a / b_i / lam, w_out
+        return 2 * d * dr + w * dr + 2 * dr * (dr // h) + 3 * dr + dr * d
+    if kind == "mlstm":
+        di = xlstm._d_inner_m(cfg)
+        # w_up, conv, wq / wk / wv, w_gates, b_gates, skip, w_down
+        return d * 2 * di + w * di + 3 * di * di + di * 2 * h + 2 * h + di + di * d
+    ds, dff = xlstm._d_inner_s(cfg), xlstm._d_ff_s(cfg)
+    # w_x, r (per head), b, gn, w_up, w_down
+    return ds * 4 * ds + 4 * ds * (ds // h) + 4 * ds + ds + d * 2 * dff + dff * d
+
+
 def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
     """Exact parameter count from the shapes :func:`init_params` draws
-    (``active_only`` equals the total: no experts in this slice)."""
-    d, h, hk, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    attn = d * h * dh + 2 * d * hk * dh + h * dh * d + (2 * dh if cfg.qk_norm else 0)
-    ffn = (2 if cfg.ffn_variant == "gelu" else 3) * d * cfg.d_ff
+    (``active_only`` equals the total: no experts are ported)."""
+    d = cfg.d_model
+    ffn = d + (2 if cfg.ffn_variant == "gelu" else 3) * d * cfg.d_ff  # ln2, mix
     total = cfg.vocab_size * d + d  # embed, ln_f
     if not cfg.tie_embeddings:
         total += d * cfg.vocab_size
     for i in range(cfg.n_layers):
-        stack._check_layer(cfg, i)
-        total += d + attn + ((d + ffn) if cfg.ffn_variant != "none" else 0)
+        kind = stack._check_layer(cfg, i)
+        total += d + _mixer_params(cfg, kind)  # ln1, the mixer
+        if kind not in ("mlstm", "slstm") and cfg.ffn_variant != "none":
+            total += ffn
     return total

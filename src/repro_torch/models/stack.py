@@ -8,11 +8,14 @@ of per-layer caches. :mod:`repro_torch.convert` maps between the two.
 Three execution modes share the layer dispatch, as in the reference:
   forward  — full sequence, no cache.
   prefill  — full sequence, emits per-layer caches (serving).
-  decode   — one token against per-layer caches (updated in place).
+  decode   — one token against per-layer caches.
 
-This slice ports the attention layers (``global`` / ``local``) with a
-dense FFN; the recurrent mixers and experts raise ``NotImplementedError``
-naming their ROADMAP items.
+Every token mixer is ported: attention (``global`` / ``local``, a KV
+cache written in place in decode), ``rglru`` (an :class:`RGLRUCache`),
+``mlstm`` (an :class:`MLSTMCache`) and ``slstm`` (an :class:`SLSTMState`);
+the recurrent caches are replaced by new ones each step. The mLSTM and
+sLSTM blocks own their projections and have no FFN sublayer. Experts
+(``moe``) raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -21,18 +24,13 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.models import blocks
+from repro_torch.models import blocks, rglru, xlstm
 from repro_torch.models.config import ModelConfig
 
 ATTN_KINDS = ("global", "local")
 
-#: Layer kinds and channel mixers not ported yet → their ROADMAP items.
-UNPORTED = {
-    "mlstm": "queue 1 item 9b (xLSTM)",
-    "slstm": "queue 1 item 9b (xLSTM)",
-    "rglru": "queue 1 item 9c (RG-LRU)",
-    "moe": "queue 1 item 9a (experts)",
-}
+#: Channel mixers not ported yet → their ROADMAP items.
+UNPORTED = {"moe": "queue 1 item 9a (experts)"}
 
 
 def _unported(what: str) -> NotImplementedError:
@@ -41,11 +39,15 @@ def _unported(what: str) -> NotImplementedError:
 
 def _check_layer(cfg: ModelConfig, layer_idx: int) -> str:
     kind = cfg.mixer_of(layer_idx)
-    if kind not in ATTN_KINDS:
-        raise _unported(kind)
-    if cfg.uses_moe(layer_idx) and cfg.ffn_variant != "none":
+    if cfg.uses_moe(layer_idx) and cfg.ffn_variant != "none" and kind not in ("mlstm", "slstm"):
         raise _unported("moe")
     return kind
+
+
+def attention_layers(cfg: ModelConfig) -> int:
+    """Layers whose token mixer is attention (one flash-attention call each
+    in a prefill through the kernel)."""
+    return sum(cfg.mixer_of(i) in ATTN_KINDS for i in range(cfg.n_layers))
 
 
 # ---------------------------------------------------------------------------
@@ -53,9 +55,18 @@ def _check_layer(cfg: ModelConfig, layer_idx: int) -> str:
 # ---------------------------------------------------------------------------
 def init_layer(gen: torch.Generator, cfg: ModelConfig, layer_idx: int,
                dtype=torch.float32) -> Dict[str, Any]:
-    _check_layer(cfg, layer_idx)
-    p: Dict[str, Any] = {"ln1": blocks.init_rmsnorm(cfg.d_model, gen.device),
-                         "attn": blocks.init_attention(gen, cfg, dtype)}
+    kind = _check_layer(cfg, layer_idx)
+    p: Dict[str, Any] = {"ln1": blocks.init_rmsnorm(cfg.d_model, gen.device)}
+    if kind in ATTN_KINDS:
+        p["attn"] = blocks.init_attention(gen, cfg, dtype)
+    elif kind == "mlstm":
+        p["mlstm"] = xlstm.init_mlstm_block(gen, cfg, dtype)
+        return p  # self-contained block, no separate channel mixer
+    elif kind == "slstm":
+        p["slstm"] = xlstm.init_slstm_block(gen, cfg, dtype)
+        return p
+    else:
+        p["rglru"] = rglru.init_rglru_block(gen, cfg, dtype)
     if cfg.ffn_variant != "none":
         p["ln2"] = blocks.init_rmsnorm(cfg.d_model, gen.device)
         p["mix"] = blocks.init_ffn(gen, cfg, cfg.d_ff, dtype)
@@ -63,28 +74,59 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, layer_idx: int,
 
 
 def init_layer_cache(cfg: ModelConfig, layer_idx: int, batch: int, max_len: int,
-                     dtype, device=None) -> blocks.KVCache:
+                     dtype, device=None):
     kind = _check_layer(cfg, layer_idx)
-    return blocks.init_kv_cache(cfg, kind, batch, max_len, dtype, device)
+    if kind in ATTN_KINDS:
+        return blocks.init_kv_cache(cfg, kind, batch, max_len, dtype, device)
+    if kind == "mlstm":
+        return xlstm.init_mlstm_cache(cfg, batch, dtype, device)
+    if kind == "slstm":
+        di = xlstm._d_inner_s(cfg)
+        return xlstm.slstm_zero_state(batch, cfg.n_heads, di // cfg.n_heads, device)
+    return rglru.init_rglru_cache(cfg, batch, dtype, device)
 
 
 def apply_layer(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, kind: str,
                 positions, mode: str = "forward", cache=None, pos: int = 0,
-                cache_len: int = 0) -> Tuple[torch.Tensor, Optional[blocks.KVCache]]:
+                cache_len: int = 0) -> Tuple[torch.Tensor, Any]:
     """Returns (x, new_cache). new_cache is None in forward mode."""
-    if kind not in ATTN_KINDS:
-        raise _unported(kind)
+    if mode not in ("forward", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
     new_cache = None
     h = blocks.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    if mode == "decode":
-        y, new_cache = blocks.decode_attention(p["attn"], h, cache, pos, cfg, kind)
-    elif mode == "prefill":
-        y, new_cache = blocks.attention_forward(p["attn"], h, cfg, kind, positions,
-                                                cache_len=cache_len)
-    elif mode == "forward":
-        y = blocks.attention_forward(p["attn"], h, cfg, kind, positions)
+    if kind in ATTN_KINDS:
+        if mode == "decode":
+            y, new_cache = blocks.decode_attention(p["attn"], h, cache, pos, cfg, kind)
+        elif mode == "prefill":
+            y, new_cache = blocks.attention_forward(p["attn"], h, cfg, kind, positions,
+                                                    cache_len=cache_len)
+        else:
+            y = blocks.attention_forward(p["attn"], h, cfg, kind, positions)
+    elif kind == "mlstm":
+        if mode == "decode":
+            y, new_cache = xlstm.mlstm_block_step(p["mlstm"], h, cfg, cache)
+        elif mode == "prefill":
+            y, new_cache = xlstm.mlstm_block_forward(p["mlstm"], h, cfg, return_cache=True)
+        else:
+            y = xlstm.mlstm_block_forward(p["mlstm"], h, cfg)
+        return x + y, new_cache
+    elif kind == "slstm":
+        if mode == "forward":
+            y = xlstm.slstm_block_forward(p["slstm"], h, cfg)
+        else:
+            y, new_cache = xlstm.slstm_block_forward(
+                p["slstm"], h, cfg, state=cache if mode == "decode" else None,
+                return_cache=True)
+        return x + y, new_cache
+    elif kind == "rglru":
+        if mode == "decode":
+            y, new_cache = rglru.rglru_block_step(p["rglru"], h, cfg, cache)
+        elif mode == "prefill":
+            y, new_cache = rglru.rglru_block_forward(p["rglru"], h, cfg, return_cache=True)
+        else:
+            y = rglru.rglru_block_forward(p["rglru"], h, cfg)
     else:
-        raise ValueError(f"unknown mode {mode!r}")
+        raise ValueError(f"unknown mixer kind {kind!r}")
     x = x + y
     if "mix" in p:
         h2 = blocks.rmsnorm(p["ln2"], x, cfg.norm_eps)
@@ -101,15 +143,14 @@ def init_stack(gen: torch.Generator, cfg: ModelConfig,
 
 
 def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                     device=None) -> List[blocks.KVCache]:
+                     device=None) -> List[Any]:
     return [init_layer_cache(cfg, i, batch, max_len, dtype, device)
             for i in range(cfg.n_layers)]
 
 
 def apply_stack(params: List[Dict[str, Any]], x: torch.Tensor, cfg: ModelConfig,
-                positions, mode: str = "forward",
-                caches: Optional[List[blocks.KVCache]] = None, pos: int = 0,
-                cache_len: int = 0) -> Tuple[torch.Tensor, Optional[List[blocks.KVCache]]]:
+                positions, mode: str = "forward", caches: Optional[List[Any]] = None,
+                pos: int = 0, cache_len: int = 0) -> Tuple[torch.Tensor, Optional[List[Any]]]:
     """Run the full stack. Returns (x, new_caches | None)."""
     new_caches = []
     for i, p in enumerate(params):

@@ -26,10 +26,15 @@ class ServeConfig:
 
 def make_prefill_step(cfg: ModelConfig, sc: ServeConfig):
     def prefill_step(params, batch: Dict[str, torch.Tensor]):
-        """Returns (last-position logits (B, V), caches)."""
+        """batch: ``tokens`` (B, S) or ``embeds`` (B, S, d), and optionally
+        ``positions`` (B, S) or M-RoPE's (3, B, S). Returns (last-position
+        logits (B, V), caches). The head runs at the last position only:
+        a long prompt's (B, S, V) float32 logits are GiBs that serving never
+        reads."""
         logits, _, caches = lm.prefill(params, cfg, cache_len=sc.max_len,
                                        tokens=batch.get("tokens"),
-                                       embeds=batch.get("embeds"))
+                                       embeds=batch.get("embeds"),
+                                       positions=batch.get("positions"), last_logits=True)
         return logits[:, -1], caches
 
     return prefill_step

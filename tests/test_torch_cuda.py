@@ -333,13 +333,16 @@ def test_trace_eval_card_matches_cpu(cuda_device):
 
 
 #: (b, sq, skv, h, hk, dh, causal, window): causal, windowed, ragged (no
-#: multiple of the 64-row tile) and non-causal, GQA groups 1 to 3, every
+#: multiple of the 64-row tile) and non-causal, GQA groups 1 to 16, every
 #: head width the kernel is built for.
 FA_CASES = {
     "causal-g3-dh128": (2, 200, 200, 24, 8, 128, True, 0),
     "window-g2-dh64": (1, 300, 300, 8, 4, 64, True, 100),
     "noncausal-ragged-g3-dh64": (2, 130, 77, 9, 3, 64, False, 0),
     "causal-g1-dh32": (2, 97, 97, 4, 4, 32, True, 0),
+    "window-g2-dh320": (1, 300, 300, 8, 4, 320, True, 100),
+    "window-mqa-dh256": (1, 333, 333, 16, 1, 256, True, 128),
+    "noncausal-ragged-dh80": (2, 150, 150, 16, 16, 80, False, 0),
 }
 
 
@@ -350,7 +353,8 @@ def test_flash_attention_kernel_matches_plain(cuda_device, case):
     q = torch.randn((b, sq, h, dh), generator=g, device=cuda_device)
     k, v = (torch.randn((b, skv, hk, dh), generator=g, device=cuda_device) for _ in range(2))
     want = fa_kernel.flash_attention_plain(q, k, v, causal=causal, window=window)
-    for cfg in fa_ops.CANDIDATES:
+    assert fa_ops.worst_case(dh) == fa_ops.candidates(dh)[0]
+    for cfg in fa_ops.candidates(dh):
         before = fa_kernel.flash_attention_cuda.launches
         got = fa_ops.flash_attention(q, k, v, causal=causal, window=window, config=cfg)
         assert fa_kernel.flash_attention_cuda.launches == before + 1
@@ -386,6 +390,20 @@ def test_lm_serve_on_card_matches_cpu(cuda_device):
     assert r["logit_err"] <= tol and r["cache_err"] <= tol
     assert r["sure"] > 0 and r["agree"] == r["sure"]
     assert r["prefill_launches"] == r["n_layers"] and r["decode_launches"] == 0
+
+
+@pytest.mark.parametrize("arch", ["gemma3-4b", "chatglm3-6b", "qwen2-vl-72b", "hubert-xlarge",
+                                  "recurrentgemma-9b", "xlstm-125m"])
+def test_lm_family_on_card_matches_cpu(cuda_device, arch):
+    """Each reduced LM family card vs CPU as above: qwen2-vl fed embeddings
+    and three M-RoPE position streams, hubert-xlarge one forward of
+    embeddings (encoder-only); one kernel launch per attention layer."""
+    tol = 1e-4
+    r = lm_launch.compare_card_to_cpu(arch, cuda_device, batch=2, prompt_len=40, steps=8,
+                                      tol=tol)
+    assert r["logit_err"] <= tol and r["cache_err"] <= tol
+    assert r["sure"] > 0 and r["agree"] == r["sure"]
+    assert r["prefill_launches"] == r["attn_layers"] and r["decode_launches"] == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -478,6 +496,13 @@ def test_uninstantiated_configs_raise_on_the_card(cuda_device):
     qa = torch.randn((1, 64, 1, 64), device=cuda_device)
     with pytest.raises(ValueError, match="not instantiated"):
         fa_ops.flash_attention(qa, qa, qa, config=fa_ops.FAConfig(128, 128))
+    # Tiles whose shared memory does not fit a block at dh 256 and 320.
+    for dh, tile in ((256, (128, 64)), (256, (64, 128)), (320, (64, 64))):
+        qw = torch.randn((1, 64, 1, dh), device=cuda_device)
+        with pytest.raises(ValueError, match="not instantiated at dh"):
+            fa_kernel.flash_attention_cuda(qw, qw, qw, tile=tile)
+    with pytest.raises(ValueError, match="takes dh in"):
+        fa_kernel.flash_attention_cuda(*(torch.randn((1, 64, 1, 96), device=cuda_device),) * 3)
 
 
 def test_altune_margin_small_on_the_card(cuda_device, tmp_path):

@@ -13,7 +13,7 @@ both packages:
 * then 8 greedy decode steps with equal ids and logits within 1e-5;
 * ``launch.serve.serve`` end to end on the CPU with the reference's weights,
   rope variants against the reference, parameter counts, and the paths that
-  are not ported yet.
+  are not ported yet (experts).
 
 Reduced Llama-3.2-3B (GQA group 2, dh 32) and reduced SmolLM-135M (tied
 embeddings, GQA group 3) as the reference's configs give them, plus one
@@ -40,8 +40,8 @@ from repro.train import serve as jserve
 import repro_torch.configs as tconfigs
 from repro_torch import convert
 from repro_torch.launch import serve as tlaunch
-from repro_torch.models import blocks, rope
-from repro_torch.models.config import ModelConfig
+from repro_torch.models import blocks, model, rope
+from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.train import serve as tserve
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -172,6 +172,21 @@ def test_params_round_trip_through_numpy(run):
     assert all(np.array_equal(a, b) for a, b in zip(want[0], got[0]))
 
 
+def test_prefill_last_logits_match_full_head(run):
+    """The serving prefill's head at the last position only gives the last
+    row of the full head's logits, and the same caches."""
+    arch, r = run
+    cfg = tconfigs.reduced(arch)
+    tokens = torch.tensor(r["prompts"])
+    full, _, fcache = model.prefill(r["tparams"], cfg, PROMPT + 1, tokens=tokens)
+    last, _, lcache = model.prefill(r["tparams"], cfg, PROMPT + 1, tokens=tokens,
+                                    last_logits=True)
+    assert tuple(last.shape) == (BATCH, 1, cfg.vocab_size)
+    np.testing.assert_allclose(last[:, 0].numpy(), full[:, -1].numpy(), rtol=0, atol=TOL)
+    for f, c in zip(fcache, lcache):
+        assert torch.equal(f.k, c.k) and torch.equal(f.v, c.v)
+
+
 def test_local_window_cache_matches_reference():
     """Local (sliding-window) and global layers, qk-norm, GeGLU: prefill
     past the window fills the rolling slots, decode wraps them. Both of the
@@ -219,18 +234,20 @@ def test_param_count_matches_reference(arch):
 
 
 def test_unported_paths_raise():
-    for arch in set(tconfigs.ARCH_IDS) - set(ARCHS):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tconfigs.get(arch)
-    cfg = dataclasses.replace(tconfigs.reduced("llama3.2-3b"), attn_block_skip=True)
-    x = torch.zeros((1, 4, cfg.d_model))
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9d"):
-        blocks.attention_forward(blocks.init_attention(gen, cfg), x, cfg, "global",
-                                 rope.default_positions(cfg, 1, 4))
-    rec = dataclasses.replace(cfg, layer_pattern=("rglru", "global"))
-    with pytest.raises(NotImplementedError, match="RG-LRU"):
-        rec.param_count()
+    """Only experts are not ported: the two MoE architectures and ``moe``
+    layers raise, naming ROADMAP item 9a; every other architecture loads."""
+    experts = {"deepseek-moe-16b", "kimi-k2-1t-a32b"}
+    for arch in experts:
+        for get in (tconfigs.get, tconfigs.reduced):
+            with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9a"):
+                get(arch)
+    assert all(tconfigs.get(a).name == a for a in set(tconfigs.ARCH_IDS) - experts)
+    cfg = dataclasses.replace(tconfigs.reduced("llama3.2-3b"),
+                              moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=16))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9a"):
+        cfg.param_count()
+    with pytest.raises(NotImplementedError, match="experts"):
+        model.init_params(torch.Generator().manual_seed(0), cfg)
 
 
 def test_serve_refuses_cuda_without_a_card():
