@@ -83,21 +83,29 @@ Phases, each of which exits non-zero on failure:
    ragged cross shape, and the three new head widths at their main paths'
    shapes: gemma3-4b's (dh 320, H 8 / Hk 4, S 2,048, window 1,024),
    recurrentgemma-9b's (dh 256, MQA 16 / 1, S 2,560, window 2,048) and
-   hubert-xlarge's (dh 80, 16 / 16, 1,500 frames, non-causal):
+   hubert-xlarge's (dh 80, 16 / 16, 1,500 frames, non-causal), and
+   kimi-k2-1t-a32b's (dh 112, 64 / 8, 2 × 256, causal) with a ragged
+   non-causal dh 112 cross shape, and dh 16 at the reduced Kimi's heads
+   (8 / 2, 4 × 1,024, causal; and a ragged 300 window):
    ``max|kernel - plain| <= 1e-5 * max|plain| + 1e-6``. Every tile timed at
    the serve shape, at altune's (B 8, S 4,096, H 32, Hk 8, dh 128,
-   causal) and at the three wide cases, each against its bound and beside
+   causal) and at the five cases of other widths (Kimi's dh 112 and the dh
+   16 causal one besides the three above), each against its bound and beside
    ``scaled_dot_product_attention`` on KV heads repeated to H (the
    yardstick; a boolean mask for a window); the plain version at the serve
    shape.
 10. LM serve, card vs CPU: reduced Llama-3.2-3B, gemma3-4b, chatglm3-6b,
    qwen2-vl-72b (embeddings and three M-RoPE position streams),
-   recurrentgemma-9b and xlstm-125m with the same weights and inputs,
-   prefill and 8 teacher-forced decode steps, and hubert-xlarge's forward
-   of embeddings (encoder-only): logits and caches within 1e-4, greedy ids
-   equal wherever the CPU's top-2 gap exceeds 2e-4, one flash-attention
-   launch per attention layer in the prefill (recurrentgemma 1 of 5,
-   xlstm 0), none in decode.
+   recurrentgemma-9b, xlstm-125m, deepseek-moe-16b and kimi-k2-1t-a32b
+   (dh 16) with the same weights and inputs, prefill and 8 teacher-forced
+   decode steps, and hubert-xlarge's forward of embeddings (encoder-only):
+   logits and caches within 1e-4, greedy ids equal wherever the CPU's
+   top-2 gap exceeds 2e-4, one flash-attention launch per attention layer
+   in the prefill (recurrentgemma 1 of 5, xlstm 0), none in decode. With
+   experts every routing is compared too: a token routed to other experts
+   on the card must be a near-tie on the CPU (its k-th and (k+1)-th
+   probabilities within ``serve.FLIP_EPS``), and the rows after the first
+   such flip are left out and counted.
 11. LM serve main path: ``launch.serve.serve`` on Llama-3.2-3B at full
    width (28 layers, d_model 3,072, random weights from a seed), 4 prompts
    of 1,024 tokens, 32 new tokens: one flash-attention launch per layer in
@@ -111,9 +119,10 @@ Phases, each of which exits non-zero on failure:
    attention); the RG-LRU doubling scan's and the sLSTM time loop's shares
    of a prefill (each call timed between synchronizations). (c)
    hubert-xlarge's encoder forward at full width (4 × 1,500 frames of
-   embeddings, 48 launches, non-causal). (d) chatglm3-6b at full width and
-   qwen2-vl-72b at 4 of its 80 layers, card vs CPU as in phase 10 (weights
-   drawn on the card and copied to the host), logits within 1e-4.
+   embeddings, 48 launches, non-causal). (d) chatglm3-6b at full width,
+   qwen2-vl-72b at 4 of its 80 layers and deepseek-moe-16b at 2 of its 28,
+   card vs CPU as in phase 10 (weights drawn on the card and copied to the
+   host), logits within 1e-4.
 12. The altune kernels against their plain versions on every instantiated
    tile: the latency matmul at 4096³ float32 (timed beside ``torch.matmul``)
    and ragged (1000, 3000, 700) in float32 and bfloat16 (1,400-byte rows,
@@ -183,10 +192,19 @@ Phases, each of which exits non-zero on failure:
    (diurnal, ddr3) with its sharded replay bitwise; each rank's wall,
    finalize seconds and peak device memory; every kernel's launch counter
    read around both on each rank and summed.
+19. The experts' main paths (run after 18, where the process holds least
+   device memory; their card-vs-CPU checks are in phases 10 and 11d):
+   deepseek-moe-16b served at full width and depth (4 × 1,024-token
+   prompts, 32 new tokens, 28 flash-attention launches) and
+   kimi-k2-1t-a32b at full width on its dense first layer and one MoE
+   layer (2 × 256, 32 new, 2 launches at dh 112; 74.26 GiB of weights),
+   each profiled as in phase 11, and each prefill split: the MoE layers'
+   share, and the routed experts' router/top-k, sort and tables, gather,
+   three batched products and scatter-add.
 17. One JSON line describing each kernel (``launches_by_path`` with
    ``"sharded"``: phase 18(b)'s launches, and ``"lm_serve/<arch>"``: phase
-   11b–c's; flash attention's ``by_head_dim``: the wide cases' times); the
-   card's name and power limit;
+   11b–c's and 19's; flash attention's ``by_head_dim``: the timed cases of
+   other widths); the card's name and power limit;
    the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -236,12 +254,18 @@ FA_CASES = (
     ("gemma3 dh 320", 4, 2048, 2048, 8, 4, 320, True, 1024),
     ("recurrentgemma dh 256", 2, 2560, 2560, 16, 1, 256, True, 2048),
     ("hubert dh 80", 4, 1500, 1500, 16, 16, 80, False, 0),
+    ("kimi dh 112", 2, 256, 256, 64, 8, 112, True, 0),
+    ("dh 112 ragged", 2, 1000, 777, 64, 8, 112, False, 0),
+    ("kimi reduced heads dh 16", 4, 1024, 1024, 8, 2, 16, True, 0),
+    ("dh 16 ragged window", 2, 1000, 1000, 8, 2, 16, True, 300),
 )
-#: The FA_CASES at the head widths 80, 256 and 320 (gemma3-4b's,
-#: recurrentgemma-9b's and hubert-xlarge's main-path shapes: the window
-#: shorter than the prompt, MQA, non-causal and ragged): each tile timed
+#: The FA_CASES timed at each head width other than 128 (gemma3-4b's,
+#: recurrentgemma-9b's, hubert-xlarge's and kimi-k2-1t-a32b's main-path
+#: shapes: the window shorter than the prompt, MQA, non-causal and ragged,
+#: GQA 8; and the reduced Kimi's heads, dh 16, at 4 × 1,024): each tile timed
 #: there beside the bound and SDPA.
-FA_WIDE_TIMED = ("gemma3 dh 320", "recurrentgemma dh 256", "hubert dh 80")
+FA_WIDE_TIMED = ("gemma3 dh 320", "recurrentgemma dh 256", "hubert dh 80", "kimi dh 112",
+                 "kimi reduced heads dh 16")
 #: Flash-attention timing shapes (B, S, H, Hk, dh), causal: the LM serve
 #: path's prefill and altune's production shape.
 FA_SERVE_SHAPE = (4, 1024, 24, 8, 128)
@@ -254,7 +278,7 @@ LM_PROFILED_DECODE = 4
 #: The LM families without experts beside Llama: each reduced config card
 #: vs CPU (phase 10).
 LM_FAMILIES = ("gemma3-4b", "chatglm3-6b", "qwen2-vl-72b", "hubert-xlarge",
-               "recurrentgemma-9b", "xlstm-125m")
+               "recurrentgemma-9b", "xlstm-125m", "deepseek-moe-16b", "kimi-k2-1t-a32b")
 #: Their full-width main paths (phase 11b): (arch, batch, prompt, new tokens,
 #: profiled). The prompts outrun the local windows (1,024 and 2,048).
 LM_FULL_PATHS = (("gemma3-4b", 4, 2048, 32, True), ("recurrentgemma-9b", 2, 2560, 32, True),
@@ -264,8 +288,18 @@ LM_FULL_PATHS = (("gemma3-4b", 4, 2048, 32, True), ("recurrentgemma-9b", 2, 2560
 HUBERT_BATCH, HUBERT_FRAMES = 4, 1500
 #: Full-width card-vs-CPU checks (phase 11d, at ``LM_TOL`` as the reduced
 #: ones): (arch, layers; None: all). qwen2-vl-72b (72.7e9 parameters, 291 GB
-#: in float32) is cut to 4 layers.
-LM_FULL_COMPARE = (("chatglm3-6b", None), ("qwen2-vl-72b", 4))
+#: in float32) is cut to 4 layers, deepseek-moe-16b (61.0 GiB) to 2 (4.07 GiB).
+LM_FULL_COMPARE = (("chatglm3-6b", None), ("qwen2-vl-72b", 4), ("deepseek-moe-16b", 2))
+#: The experts' main paths (phase 19): (arch, batch, prompt, new tokens,
+#: layers; None: all). deepseek-moe-16b whole (28 layers, 61.0 GiB);
+#: kimi-k2-1t-a32b (3,827 GiB in float32) at its dense first layer and one
+#: MoE layer (74.26 GiB).
+MOE_FULL_PATHS = (("deepseek-moe-16b", 4, 1024, 32, None), ("kimi-k2-1t-a32b", 2, 256, 32, 2))
+#: The routed experts' parts, each timed in a prefill: (``models.moe``
+#: function, part).
+MOE_PARTS = (("_route", "router/top-k"), ("_tables", "sort and tables"),
+             ("_gather", "gather"), ("_experts", "three batched products"),
+             ("_combine", "scatter-add"))
 
 #: Latency-matmul checks: (name, m, k, n, dtype); the first is timed.
 MM_CASES = (("production", 4096, 4096, 4096, "float32"),
@@ -1494,8 +1528,9 @@ def lm_card_vs_cpu_phase(dev):
 def log_compare(label: str, r: dict, tol: float) -> None:
     """Log one ``compare_card_to_cpu`` result and fail unless it holds:
     logits and caches within ``tol``, greedy ids equal where the CPU is sure,
-    one flash-attention launch per attention layer in the prefill, none in
-    decode."""
+    every routing flip a near-tie on the CPU (rows after the first flip left
+    out), one flash-attention launch per attention layer in the prefill,
+    none in decode."""
     log(f"LM card vs CPU, {label} ({r['n_layers']} layers, {r['attn_layers']} of them "
         f"attention, d_model {r['d_model']}, dh {r['d_head']}), {LM_SMALL_BATCH} × "
         f"{LM_SMALL_PROMPT}-position inputs + {LM_SMALL_STEPS} decode steps (none if "
@@ -1503,18 +1538,27 @@ def log_compare(label: str, r: dict, tol: float) -> None:
         f"{r['cache_err']:.3e} (tolerance {tol:g}); greedy ids equal at {r['agree']} of "
         f"{r['sure']} rows whose top-2 gap exceeds {2 * tol:g}; flash-attention launches in "
         f"the card's prefill {r['prefill_launches']}, in its decode {r['decode_launches']}")
-    if (r["logit_err"] > tol or r["cache_err"] > tol or not r["sure"]
-            or r["agree"] != r["sure"]
+    if r["moe_calls"] or r["route_flips"]:
+        from repro_torch.launch.serve import FLIP_EPS
+
+        log(f"  routes: {r['moe_calls']} routings compared, {r['route_flips']} tokens with "
+            f"another expert set on the card ({r['flips_not_near_tie']} of them with a CPU "
+            f"gap between the k-th and (k+1)-th probability above {FLIP_EPS:g}; largest gap "
+            f"{r['flip_max_gap']:.3e}); logit rows left out after the first flip "
+            f"{r['excluded_rows']}, caches compared {r['cache_compared']}")
+    if (r["logit_err"] > tol or r["cache_err"] > tol or not (r["sure"] or r["excluded_rows"])
+            or r["agree"] != r["sure"] or r["flips_not_near_tie"]
             or r["prefill_launches"] != r["attn_layers"] or r["decode_launches"]):
         fail(f"LM serve of {label} on the card disagrees with the CPU reference")
 
 
 def lm_main_path_phase(torch, dev, zero_counts, read_counts, arch=LM_ARCH, batch=LM_BATCH,
-                       prompt=LM_PROMPT, gen=LM_GEN, profiled=True):
-    """Phases 11 and 11b: ``serve`` of ``arch`` at full width, every kernel's
-    count read around it (one flash-attention launch per attention layer),
-    then, if ``profiled``, a profiled prefill and a few decode steps of the
-    same model. Returns the launches and the serve report."""
+                       prompt=LM_PROMPT, gen=LM_GEN, profiled=True, layers=None):
+    """Phases 11, 11b and 19: ``serve`` of ``arch`` at full width (cut to
+    its first ``layers`` layers unless None), every kernel's count read
+    around it (one flash-attention launch per attention layer), then, if
+    ``profiled``, a profiled prefill and a few decode steps of the same
+    model. Returns the launches and the serve report."""
     import repro_torch.configs as lm_configs
     from repro_torch.launch import serve as lm_launch
     from repro_torch.launch import serve_fleet
@@ -1524,14 +1568,16 @@ def lm_main_path_phase(torch, dev, zero_counts, read_counts, arch=LM_ARCH, batch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     cfg = lm_configs.get(arch)
+    cut = "" if layers is None else f", cut from {cfg.n_layers} layers to {layers}"
+    cfg = dataclasses.replace(cfg, n_layers=layers or cfg.n_layers)
     torch.cuda.empty_cache()
     zero_counts()
     ids, rep = lm_launch.serve(arch, batch=batch, prompt_len=prompt, gen=gen,
-                               reduced=False, device=dev, return_report=True)
+                               reduced=False, device=dev, return_report=True, n_layers=layers)
     launches = read_counts()
     torch.cuda.synchronize()
     n_params = cfg.param_count()
-    log(f"LM serve main path: {arch} at full width ({cfg.n_layers} layers, "
+    log(f"LM serve main path: {arch} at full width{cut} ({cfg.n_layers} layers, "
         f"{lm_stack.attention_layers(cfg)} of them attention, d_model {cfg.d_model}, "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads, dh {cfg.d_head}, vocab {cfg.vocab_size:,}, "
         f"{n_params / 1e9:.3f}e9 parameters, float32), {batch} × {prompt}-token prompts, "
@@ -1682,6 +1728,68 @@ def lm_families_phase(torch, dev, zero_counts, read_counts) -> dict:
         log_compare(f"{arch} at full width{cut}", r, LM_TOL)
         log(f"  {time.perf_counter() - t0:.1f} s with the host's share")
         torch.cuda.empty_cache()
+    return out
+
+
+def moe_split(torch, dev, arch: str, batch: int, prompt: int, layers=None) -> dict:
+    """One prefill of ``arch`` at full width (random weights; cut to
+    ``layers`` unless None) with each MoE layer (``moe.moe_forward``) and,
+    inside it, the routed experts' parts (``MOE_PARTS``) timed, every call
+    synchronized. Returns the seconds by part and the MoE layers' share of
+    the prefill."""
+    import repro_torch.configs as lm_configs
+    from repro_torch.models import model as lm
+    from repro_torch.models import moe
+
+    cfg = lm_configs.get(arch)
+    cfg = dataclasses.replace(cfg, attn_impl="pallas", n_layers=layers or cfg.n_layers)
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt), dtype=torch.int32,
+                            generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+
+    def run():
+        lm.prefill(params, cfg, cache_len=prompt, tokens=prompts, last_logits=True)
+
+    run()  # warm-up
+    # The parts run inside the MoE layers: time_split's remainder counts
+    # them twice, so the layers' rest is taken from the same run here.
+    split = time_split(torch, f"{arch} MoE layers", run,
+                       ((moe, "moe_forward", "moe layers"),)
+                       + tuple((moe, name, part) for name, part in MOE_PARTS), "rest")
+    del params, prompts
+    torch.cuda.empty_cache()
+    parts = {part: split[part] for _, part in MOE_PARTS}
+    out = {"prefill_s": split["total"], "moe_layers_s": split["moe layers"],
+           "moe_share": split["moe layers"] / split["total"], "parts_s": parts,
+           "shared_and_rest_s": split["moe layers"] - sum(parts.values())}
+    log(f"{arch} prefill ({batch} × {prompt} tokens, each call synchronized): "
+        f"{split['total'] * 1e3:.3f} ms, of which the MoE layers {split['moe layers'] * 1e3:.3f} "
+        f"ms ({out['moe_share'] * 100:.2f} %), in ms: "
+        + json.dumps({part: round(v * 1e3, 3) for part, v in parts.items()})
+        + f", shared experts and the rest {out['shared_and_rest_s'] * 1e3:.3f}")
+    return out
+
+
+def moe_phase(torch, dev, zero_counts, read_counts) -> dict:
+    """Phase 19: the experts' main paths, ``MOE_FULL_PATHS``, each served
+    (``lm_main_path_phase``, profiled) and its prefill split
+    (:func:`moe_split`), the cached blocks of every earlier phase released
+    first. Returns each path's launches and figures."""
+    import repro_torch.configs as lm_configs
+
+    out = {}
+    for arch, batch, prompt, gen, layers in MOE_FULL_PATHS:
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info(dev)
+        cfg = dataclasses.replace(lm_configs.get(arch), n_layers=layers or
+                                  lm_configs.get(arch).n_layers)
+        log(f"{arch}: {cfg.param_count() * 4 / 2**30:.2f} GiB of float32 parameters "
+            f"({cfg.active_param_count() / 1e9:.3f}e9 active of {cfg.param_count() / 1e9:.3f}e9); "
+            f"the card has {free / 2**30:.2f} of {total / 2**30:.2f} GiB free, this process "
+            f"holds {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+        out[arch] = lm_main_path_phase(torch, dev, zero_counts, read_counts, arch, batch,
+                                       prompt, gen, True, layers)
+        out[arch]["moe_split"] = moe_split(torch, dev, arch, batch, prompt, layers)
     return out
 
 
@@ -2679,11 +2787,17 @@ def main() -> None:
     if {m.split(".")[0] for m in sys.modules} & {"jax", "jaxlib", "repro"}:
         fail("the port imported JAX or the JAX package")
 
+    # ---- 19. the experts ---------------------------------------------------------
+    experts = moe_phase(torch, dev, zero_counts, read_counts)
+    if {m.split(".")[0] for m in sys.modules} & {"jax", "jaxlib", "repro"}:
+        fail("the port imported JAX or the JAX package")
+
     # ---- 17. summary -----------------------------------------------------------
     by_path = {"serve": launches, "serve_decisions": dec_launches, "trace_eval": {
         k: sum(v[k] for v in eval_launches.values()) for k in counters},
         "lm_serve": lm["launches"],
-        **{f"lm_serve/{arch}": fam["launches"] for arch, fam in families.items()},
+        **{f"lm_serve/{arch}": fam["launches"] for arch, fam in
+           {**families, **experts}.items()},
         "altune": alt_launches, "profile": prof_launches,
         "regions": reg["launches"], "sharded": shard_launches}
 

@@ -1,10 +1,9 @@
 """Architecture registry: ``get(name)`` → ModelConfig, ``reduced(name)`` →
 the CPU-test-sized config of the same family.
 
-The port carries the configs of every architecture its layer stack runs:
-the dense, local/global, M-RoPE, encoder-only, RG-LRU and xLSTM models.
-The two with experts raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+The port carries the configs of all ten architectures: the dense,
+local/global, M-RoPE, encoder-only, RG-LRU, xLSTM and expert (MoE)
+models, each a copy of the reference's ``CONFIG`` and ``REDUCED``.
 """
 
 from __future__ import annotations
@@ -27,19 +26,11 @@ ARCH_IDS: Tuple[str, ...] = (
     "recurrentgemma-9b",
 )
 
-#: Architectures not ported yet → the ROADMAP item that ports them.
-_ROADMAP = {
-    "deepseek-moe-16b": "queue 1 item 9a (experts)",
-    "kimi-k2-1t-a32b": "queue 1 item 9a (experts)",
-}
-
-#: Ported architectures → their module under ``repro_torch.configs``.
-_MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS if a not in _ROADMAP}
+#: Architectures → their module under ``repro_torch.configs``.
+_MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 
 
 def _module(name: str):
-    if name in _ROADMAP:
-        raise NotImplementedError(f"{name} is not ported yet: ROADMAP {_ROADMAP[name]}")
     if name not in _MODULES:
         raise KeyError(f"unknown architecture {name!r}; known: {ARCH_IDS}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")

@@ -13,7 +13,10 @@ device; the ``*_to_numpy`` functions go back, for comparisons.
 
 The reference stacks LM layers as ``prefix`` (list) / ``groups`` (``pos{i}``
 leaves stacked over the repeats of ``layer_pattern``) / ``suffix`` (list);
-the port keeps one entry per layer. ``lm_*`` unstack and restack.
+the port keeps one entry per layer. ``lm_*`` unstack and restack, on the
+leading axis of every leaf whatever its rank: an expert layer's ``(E, d,
+f)`` weights are ``(G, E, d, f)`` in a group, its float32 router ``(G, d,
+E)``, its shared FFN a dictionary of matrices.
 """
 
 from __future__ import annotations
@@ -28,7 +31,6 @@ from repro_torch.core.controller import ControllerState, DimmTimingTable, Replay
 from repro_torch.core.fleet import Fleet, RegionSweepResult
 from repro_torch.core.perfmodel import ScorePartials
 from repro_torch.core.refresh import RefreshPolicy
-from repro_torch.models import stack as lm_stack
 from repro_torch.models.blocks import KVCache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.rglru import RGLRUCache
@@ -173,8 +175,6 @@ def lm_params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
     layers = _unstack(tree["stack"], cfg)
     if len(layers) != cfg.n_layers:
         raise ValueError(f"{len(layers)} layers in the tree, the config has {cfg.n_layers}")
-    for i in range(cfg.n_layers):
-        lm_stack._check_layer(cfg, i)
 
     def to_t(a):
         return torch.tensor(np.asarray(a), device=device)

@@ -26,9 +26,10 @@
 //   output float4 slots tx + 16 g of those rows, so a row's max and sum
 //   reduce over the 16 lanes that hold it with shuffles (at dh 32 the
 //   output has 8 float4 slots: lanes tx >= 8 mirror lanes tx - 8 and do not
-//   write; at dh 80, 20 slots: slot tx + 16 of lanes tx >= 4 lies past the
-//   row, reads the next V row's slots, which lie inside the block's shared
-//   memory, and is not written).
+//   write, at dh 16 4 slots, lanes tx >= 4 mirroring tx & 3; at dh 80, 20
+//   slots, and at dh 112, 28: slot tx + 16 of lanes tx >= 4, or tx >= 12,
+//   lies past the row, reads the next V row's slots, which lie inside the
+//   block's shared memory, and is not written).
 // - At dh 256 and 320 a thread owns 16 scores (4 x 4; kScoresWide), twice
 //   the threads a tile, so its share of the output accumulator (4 rows x
 //   dh / 16 columns) stays in registers.
@@ -49,7 +50,7 @@
 // Loads overlap the products: Q, K and V are copied by cp.async (16 bytes,
 // zero-filled past the end; each thread copies one float4 column of every
 // (threads / (dh / 4))-th row from one base address, or, where dh / 4 does
-// not divide the threads (dh 80, 320), the tile's float4 slots tid +
+// not divide the threads (dh 80, 112, 320), the tile's float4 slots tid +
 // threads * i in row-major order) in a staggered order
 // with single buffers and two barriers a tile. V(t) is in flight while the
 // block computes S = Q K(t)^T and the softmax; K(t + 1) is in flight while
@@ -419,10 +420,12 @@ int attributes(int32_t* out) {
 
 // The instantiated (bq, bk, head width) triples: kernels/flash_attention/
 // kernel.TILES_BY_DH, every tile whose shared memory fits a block.
-#define FA_INSTANCES(X)                                     \
-  X(64, 64, 32) X(64, 64, 64) X(64, 64, 80) X(64, 64, 128)  \
-  X(128, 64, 32) X(128, 64, 64) X(128, 64, 80) X(128, 64, 128) \
-  X(64, 128, 32) X(64, 128, 64) X(64, 128, 80) X(64, 128, 128) \
+#define FA_INSTANCES(X)                                                                  \
+  X(64, 64, 16) X(64, 64, 32) X(64, 64, 64) X(64, 64, 80) X(64, 64, 112) X(64, 64, 128)       \
+  X(128, 64, 16) X(128, 64, 32) X(128, 64, 64) X(128, 64, 80) X(128, 64, 112)                 \
+  X(128, 64, 128)                                                                              \
+  X(64, 128, 16) X(64, 128, 32) X(64, 128, 64) X(64, 128, 80) X(64, 128, 112)                 \
+  X(64, 128, 128)                                                                              \
   X(64, 64, 256) X(32, 64, 320)
 
 }  // namespace

@@ -24,15 +24,18 @@ __all__ = ["HEAD_DIMS", "TILES", "TILES_BY_DH", "attributes", "flash_attention_c
            "flash_attention_plain", "tiles", "tolerance"]
 
 #: Head widths the CUDA kernel is instantiated for.
-HEAD_DIMS = (32, 64, 80, 128, 256, 320)
+HEAD_DIMS = (16, 32, 64, 80, 112, 128, 256, 320)
 #: The (bq, bk) query × key tiles it is instantiated for at head widths up to
 #: 128, in the order of ``ops.CANDIDATES``; the first is the smallest.
 TILES = ((64, 64), (128, 64), (64, 128))
 #: The tiles instantiated at each head width (``FA_INSTANCES`` in the
 #: source), smallest first: those whose shared memory fits a block
-#: (232,448 bytes). At dh 256 only 64 × 64 fits (214,016 bytes); at dh 320
-#: none of ``TILES`` does (64 × 64 needs 263,168), so it has 32 × 64.
-TILES_BY_DH = {32: TILES, 64: TILES, 80: TILES, 128: TILES, 256: ((64, 64),), 320: ((32, 64),)}
+#: (232,448 bytes). Up to dh 128 all of ``TILES`` fit (64 × 128, the
+#: largest, needs 178,176 bytes at dh 112, 198,656 at 128); at dh 256 only 64 × 64 fits
+#: (214,016 bytes); at dh 320 none of ``TILES`` does (64 × 64 needs
+#: 263,168), so it has 32 × 64.
+TILES_BY_DH = {16: TILES, 32: TILES, 64: TILES, 80: TILES, 112: TILES, 128: TILES,
+               256: ((64, 64),), 320: ((32, 64),)}
 
 
 def tiles(dh: int) -> Tuple[Tuple[int, int], ...]:

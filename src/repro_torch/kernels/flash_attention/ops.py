@@ -9,7 +9,7 @@ and ``k``/``v (B, Skv, Hk, dh)``: a CPU tensor runs the plain version
 tensor it names the query × key tile the CUDA kernel is instantiated for at
 q's head width: :func:`candidates` (``kernel.tiles(dh)``), the tiles whose
 shared memory fits one block. :data:`CANDIDATES` are those of head widths
-32 to 128 (64 × 64, 128 × 64 and 64 × 128; also dh 80's) and
+16 to 128 (64 × 64, 128 × 64 and 64 × 128; also dh 80's and 112's) and
 :data:`WORST_CASE` their smallest, 64 × 64. :func:`worst_case` is the
 smallest at a given width, the JEDEC analogue that fits every launch there:
 64 × 64 up to dh 256, 32 × 64 at dh 320, where 64 × 64 would need 263,168

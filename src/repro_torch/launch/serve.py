@@ -13,6 +13,8 @@ and ``prompts`` are given.
       --arch llama3.2-3b --batch 2 --prompt-len 16 --gen 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b --full \\
       --batch 4 --prompt-len 1024 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch kimi-k2-1t-a32b --full \\
+      --layers 2 --batch 2 --prompt-len 256 --gen 32
 """
 
 from __future__ import annotations
@@ -27,8 +29,17 @@ import torch
 import repro_torch.configs as C
 from repro_torch import resolve_device
 from repro_torch.models import model as lm
+from repro_torch.models import moe
 from repro_torch.models import stack as lm_stack
 from repro_torch.train.serve import ServeConfig, make_decode_step, make_prefill_step
+
+#: A token routed to other experts on the card than on the CPU (a "flip")
+#: is admitted only where the CPU's k-th and (k + 1)-th largest router
+#: probabilities lie within ``FLIP_EPS`` of each other: the router's
+#: float32 product, and every layer before it, sum in another order on the
+#: card, which moves a probability by ~1e-7 at the reduced and 2-layer
+#: full-width configs' depths.
+FLIP_EPS = 1e-5
 
 
 def _sync(dev: torch.device) -> None:
@@ -39,12 +50,15 @@ def _sync(dev: torch.device) -> None:
 def serve(arch: str, batch: int = 4, prompt_len: int = 32, gen: int = 32,
           reduced: bool = True, temperature: float = 0.0, seed: int = 0,
           device: str | torch.device = "cuda", attn_impl: str = "pallas",
-          params=None, prompts=None, return_report: bool = False):
+          params=None, prompts=None, return_report: bool = False,
+          n_layers: Optional[int] = None):
     """Serve ``batch`` prompts of ``prompt_len`` tokens for ``gen`` new tokens.
 
     Given ``prompts`` (B, S) ids, their shape sets ``batch`` and
-    ``prompt_len``. Returns the generated ids (B, gen) int32 on the device,
-    or with ``return_report`` the pair (ids, report): prefill seconds,
+    ``prompt_len``. ``n_layers`` cuts the config's depth to its first
+    layers (a model too large for one card, at full width). Returns the
+    generated ids (B, gen) int32 on the device, or with ``return_report``
+    the pair (ids, report): prefill seconds,
     decode seconds per token, peak device bytes (None on the CPU), whether
     the last step's logits were finite, and the device."""
     dev = resolve_device(device)
@@ -53,7 +67,7 @@ def serve(arch: str, batch: int = 4, prompt_len: int = 32, gen: int = 32,
         raise ValueError(f"{arch} is encoder-only (no autoregressive serving)")
     if attn_impl not in ("pallas", "chunked"):
         raise ValueError(f"attn_impl must be 'pallas' or 'chunked', got {attn_impl!r}")
-    cfg = dataclasses.replace(cfg, attn_impl=attn_impl)
+    cfg = dataclasses.replace(cfg, attn_impl=attn_impl, n_layers=n_layers or cfg.n_layers)
     if prompts is not None:
         batch, prompt_len = prompts.shape
     sc = ServeConfig(max_len=prompt_len + gen, temperature=temperature,
@@ -143,7 +157,17 @@ def compare_card_to_cpu(arch: str, device: str | torch.device = "cuda", batch: i
     position of a forward), ``cache_err`` (the prefill's caches), ``sure``
     (rows whose CPU top-2 logit gap exceeds ``2 * tol``), ``agree`` (how
     many of those have equal greedy ids on both), ``attn_layers`` and the
-    flash-attention launches of the card's prefill and of its decode steps."""
+    flash-attention launches of the card's prefill and of its decode steps.
+
+    With experts, each call's routes are compared too, layer by layer:
+    ``moe_calls`` (routings compared), ``route_flips`` (tokens whose expert
+    set differs), ``flips_not_near_tie`` (of those, the ones whose CPU gap
+    between the k-th and (k + 1)-th probability exceeds :data:`FLIP_EPS`),
+    ``flip_max_gap``. A flip changes the token's output and, through the
+    capacity, other tokens' of the batch, and every later call through the
+    caches: from the first call with a flip on, later routings are not
+    compared and its logit rows are left out (``excluded_rows``), as are
+    the caches when the flip is in the prefill (``cache_compared``)."""
     from repro_torch import convert
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
 
@@ -168,37 +192,72 @@ def compare_card_to_cpu(arch: str, device: str | torch.device = "cuda", batch: i
     card_inputs = {k: t.to(dev) for k, t in inputs.items()}
     out = {"n_layers": cfg.n_layers, "d_model": cfg.d_model, "d_head": cfg.d_head,
            "attn_layers": lm_stack.attention_layers(cfg), "logit_err": 0.0, "cache_err": 0.0,
-           "sure": 0, "agree": 0, "decode_launches": 0}
+           "sure": 0, "agree": 0, "decode_launches": 0, "moe_calls": 0, "route_flips": 0,
+           "flips_not_near_tie": 0, "flip_max_gap": 0.0, "excluded_rows": 0,
+           "cache_compared": True}
+    diverged = False
 
     def compare(lc: torch.Tensor, lh: torch.Tensor) -> None:
         lc, lh = lc.cpu().reshape(-1, lh.shape[-1]), lh.reshape(-1, lh.shape[-1])
+        if diverged:
+            out["excluded_rows"] += lh.shape[0]
+            return
         out["logit_err"] = max(out["logit_err"], float((lc - lh).abs().max()))
         top2 = torch.topk(lh, 2, dim=-1).values
         gap = (top2[:, 0] - top2[:, 1]) > 2 * tol
         out["sure"] += int(gap.sum())
         out["agree"] += int((torch.argmax(lc, -1) == torch.argmax(lh, -1))[gap].sum())
 
+    def run(fn, *args):
+        """``fn(*args)`` with its routes recorded."""
+        with moe.recording_routes() as routes:
+            return fn(*args), routes
+
+    def routes_agree(card_routes, host_routes) -> bool:
+        """Compare one call's routings in layer order up to the first with a
+        flip; False if there is one."""
+        if diverged:
+            return False
+        for (ic, _), (ih, ph) in zip(card_routes, host_routes):
+            out["moe_calls"] += 1
+            flip = (ic.cpu().sort(-1).values != ih.sort(-1).values).any(-1)
+            if bool(flip.any()):
+                k = ih.shape[-1]
+                top = ph[flip].sort(-1, descending=True).values
+                gap = top[:, k - 1] - top[:, k]
+                out["route_flips"] += int(flip.sum())
+                out["flips_not_near_tie"] += int((gap > FLIP_EPS).sum())
+                out["flip_max_gap"] = max(out["flip_max_gap"], float(gap.max()))
+                return False
+        return True
+
     before = fa_kernel.flash_attention_cuda.launches
     if not cfg.causal:
-        lc, _, _ = lm.forward(card, cfg, **card_inputs)
+        (lc, _, _), rc = run(lambda: lm.forward(card, cfg, **card_inputs))
         out["prefill_launches"] = fa_kernel.flash_attention_cuda.launches - before
-        compare(lc, lm.forward(host, cfg, **inputs)[0])
+        (lh, _, _), rh = run(lambda: lm.forward(host, cfg, **inputs))
+        diverged = not routes_agree(rc, rh)
+        compare(lc, lh)
         return out
     sc = ServeConfig(max_len=prompt_len + steps, cache_dtype="float32")
     prefill, decode = make_prefill_step(cfg, sc), make_decode_step(cfg, sc)
-    lc, cc = prefill(card, card_inputs)
+    (lc, cc), rc = run(prefill, card, card_inputs)
     out["prefill_launches"] = fa_kernel.flash_attention_cuda.launches - before
-    lh, ch = prefill(host, inputs)
-    out["cache_err"] = max(max_diff(a.cpu(), b) for x, y in zip(cc, ch)
-                           for a, b in zip(cache_tensors(x), cache_tensors(y)))
+    (lh, ch), rh = run(prefill, host, inputs)
+    diverged = not routes_agree(rc, rh)
+    out["cache_compared"] = not diverged
+    if not diverged:
+        out["cache_err"] = max(max_diff(a.cpu(), b) for x, y in zip(cc, ch)
+                               for a, b in zip(cache_tensors(x), cache_tensors(y)))
     nxt = torch.argmax(lh, -1)[:, None].to(torch.int32)
     before = fa_kernel.flash_attention_cuda.launches
     for i in range(steps + 1):
         compare(lc, lh)
         if i == steps:
             break
-        _, lc, cc = decode(card, cc, nxt.to(dev), prompt_len + i)
-        nxt, lh, ch = decode(host, ch, nxt, prompt_len + i)
+        (_, lc, cc), rc = run(decode, card, cc, nxt.to(dev), prompt_len + i)
+        (nxt, lh, ch), rh = run(decode, host, ch, nxt, prompt_len + i)
+        diverged = not routes_agree(rc, rh)
     out["decode_launches"] = fa_kernel.flash_attention_cuda.launches - before
     return out
 
@@ -215,10 +274,12 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--attn-impl", default="pallas", choices=("pallas", "chunked"))
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config to its first N layers (default: all)")
     args = ap.parse_args()
     ids = serve(args.arch, args.batch, args.prompt_len, args.gen, reduced=not args.full,
                 temperature=args.temperature, seed=args.seed, device=args.device,
-                attn_impl=args.attn_impl)
+                attn_impl=args.attn_impl, n_layers=args.layers)
     print("generated ids[0,:16]:", ids[0, :16].tolist())
 
 

@@ -48,7 +48,8 @@ def forward(params: Dict[str, Any], cfg: ModelConfig,
             caches: Optional[List[Any]] = None, pos: int = 0,
             cache_len: int = 0,
             last_logits: bool = False) -> Tuple[torch.Tensor, torch.Tensor, Optional[List[Any]]]:
-    """Returns (logits, aux_loss, caches_out); aux_loss is 0 (no experts).
+    """Returns (logits, aux_loss, caches_out); aux_loss is the experts'
+    load-balance losses summed over layers (0 without experts).
     ``last_logits``: the head at the last position only, logits (B, 1, V)."""
     if embeds is not None:
         x = embeds.to(params["embed"].dtype)
@@ -61,14 +62,13 @@ def forward(params: Dict[str, Any], cfg: ModelConfig,
     if positions is None:
         offset = pos if mode == "decode" else 0
         positions = default_positions(cfg, b, s, offset, device=x.device)
-    x, caches_out = stack.apply_stack(params["stack"], x, cfg, positions, mode=mode,
-                                      caches=caches, pos=pos, cache_len=cache_len)
+    x, aux, caches_out = stack.apply_stack(params["stack"], x, cfg, positions, mode=mode,
+                                           caches=caches, pos=pos, cache_len=cache_len)
     if last_logits:
         x = x[:, -1:]
     x = blocks.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     head = params["embed"].t() if cfg.tie_embeddings else params["head"]
     logits = x @ head
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits, aux, caches_out
 
 
@@ -119,16 +119,30 @@ def _mixer_params(cfg: ModelConfig, kind: str) -> int:
 
 
 def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
-    """Exact parameter count from the shapes :func:`init_params` draws
-    (``active_only`` equals the total: no experts are ported)."""
+    """Exact parameter count from the shapes :func:`init_params` draws.
+    ``active_only``: the routed experts' weights counted at ``top_k /
+    n_experts``, rounded down over the whole model, as the reference's."""
     d = cfg.d_model
-    ffn = d + (2 if cfg.ffn_variant == "gelu" else 3) * d * cfg.d_ff  # ln2, mix
+    matrices = 2 if cfg.ffn_variant == "gelu" else 3
     total = cfg.vocab_size * d + d  # embed, ln_f
     if not cfg.tie_embeddings:
         total += d * cfg.vocab_size
+    routed = 0
     for i in range(cfg.n_layers):
-        kind = stack._check_layer(cfg, i)
+        kind = cfg.mixer_of(i)
         total += d + _mixer_params(cfg, kind)  # ln1, the mixer
-        if kind not in ("mlstm", "slstm") and cfg.ffn_variant != "none":
-            total += ffn
+        if kind in ("mlstm", "slstm") or cfg.ffn_variant == "none":
+            continue
+        total += d  # ln2
+        if cfg.uses_moe(i):
+            m = cfg.moe
+            experts = 3 * m.n_experts * d * m.d_ff_expert  # w_gate, w_up, w_down
+            routed += experts
+            total += d * m.n_experts + experts  # router
+            if m.n_shared > 0:
+                total += matrices * d * m.n_shared * m.d_ff_expert
+        else:
+            total += matrices * d * cfg.d_ff
+    if active_only and cfg.moe is not None:
+        total = total - routed + int(routed * cfg.moe.top_k / cfg.moe.n_experts)
     return total

@@ -14,8 +14,10 @@ Every token mixer is ported: attention (``global`` / ``local``, a KV
 cache written in place in decode), ``rglru`` (an :class:`RGLRUCache`),
 ``mlstm`` (an :class:`MLSTMCache`) and ``slstm`` (an :class:`SLSTMState`);
 the recurrent caches are replaced by new ones each step. The mLSTM and
-sLSTM blocks own their projections and have no FFN sublayer. Experts
-(``moe``) raise ``NotImplementedError`` naming their ROADMAP item.
+sLSTM blocks own their projections and have no FFN sublayer. The channel
+mixer of the other layers is a dense FFN or, from layer ``first_k_dense``
+of a config with ``moe``, the experts (:mod:`.moe`), whose load-balance
+losses the stack sums, as the reference's scan carry does.
 """
 
 from __future__ import annotations
@@ -24,24 +26,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.models import blocks, rglru, xlstm
+from repro_torch.models import blocks, moe, rglru, xlstm
 from repro_torch.models.config import ModelConfig
 
 ATTN_KINDS = ("global", "local")
-
-#: Channel mixers not ported yet → their ROADMAP items.
-UNPORTED = {"moe": "queue 1 item 9a (experts)"}
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} layers are not ported yet: ROADMAP {UNPORTED[what]}")
-
-
-def _check_layer(cfg: ModelConfig, layer_idx: int) -> str:
-    kind = cfg.mixer_of(layer_idx)
-    if cfg.uses_moe(layer_idx) and cfg.ffn_variant != "none" and kind not in ("mlstm", "slstm"):
-        raise _unported("moe")
-    return kind
 
 
 def attention_layers(cfg: ModelConfig) -> int:
@@ -55,7 +43,7 @@ def attention_layers(cfg: ModelConfig) -> int:
 # ---------------------------------------------------------------------------
 def init_layer(gen: torch.Generator, cfg: ModelConfig, layer_idx: int,
                dtype=torch.float32) -> Dict[str, Any]:
-    kind = _check_layer(cfg, layer_idx)
+    kind = cfg.mixer_of(layer_idx)
     p: Dict[str, Any] = {"ln1": blocks.init_rmsnorm(cfg.d_model, gen.device)}
     if kind in ATTN_KINDS:
         p["attn"] = blocks.init_attention(gen, cfg, dtype)
@@ -69,13 +57,16 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, layer_idx: int,
         p["rglru"] = rglru.init_rglru_block(gen, cfg, dtype)
     if cfg.ffn_variant != "none":
         p["ln2"] = blocks.init_rmsnorm(cfg.d_model, gen.device)
-        p["mix"] = blocks.init_ffn(gen, cfg, cfg.d_ff, dtype)
+        if cfg.uses_moe(layer_idx):
+            p["mix"] = moe.init_moe(gen, cfg, dtype)
+        else:
+            p["mix"] = blocks.init_ffn(gen, cfg, cfg.d_ff, dtype)
     return p
 
 
 def init_layer_cache(cfg: ModelConfig, layer_idx: int, batch: int, max_len: int,
                      dtype, device=None):
-    kind = _check_layer(cfg, layer_idx)
+    kind = cfg.mixer_of(layer_idx)
     if kind in ATTN_KINDS:
         return blocks.init_kv_cache(cfg, kind, batch, max_len, dtype, device)
     if kind == "mlstm":
@@ -87,9 +78,11 @@ def init_layer_cache(cfg: ModelConfig, layer_idx: int, batch: int, max_len: int,
 
 
 def apply_layer(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, kind: str,
-                positions, mode: str = "forward", cache=None, pos: int = 0,
-                cache_len: int = 0) -> Tuple[torch.Tensor, Any]:
-    """Returns (x, new_cache). new_cache is None in forward mode."""
+                use_moe: bool, positions, mode: str = "forward", cache=None, pos: int = 0,
+                cache_len: int = 0) -> Tuple[torch.Tensor, Optional[torch.Tensor], Any]:
+    """Returns (x, aux_loss, new_cache): aux_loss the experts' load-balance
+    loss (None for a layer without experts), new_cache None in forward
+    mode."""
     if mode not in ("forward", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     new_cache = None
@@ -109,7 +102,7 @@ def apply_layer(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, kind: str,
             y, new_cache = xlstm.mlstm_block_forward(p["mlstm"], h, cfg, return_cache=True)
         else:
             y = xlstm.mlstm_block_forward(p["mlstm"], h, cfg)
-        return x + y, new_cache
+        return x + y, None, new_cache
     elif kind == "slstm":
         if mode == "forward":
             y = xlstm.slstm_block_forward(p["slstm"], h, cfg)
@@ -117,7 +110,7 @@ def apply_layer(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, kind: str,
             y, new_cache = xlstm.slstm_block_forward(
                 p["slstm"], h, cfg, state=cache if mode == "decode" else None,
                 return_cache=True)
-        return x + y, new_cache
+        return x + y, None, new_cache
     elif kind == "rglru":
         if mode == "decode":
             y, new_cache = rglru.rglru_block_step(p["rglru"], h, cfg, cache)
@@ -128,10 +121,15 @@ def apply_layer(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, kind: str,
     else:
         raise ValueError(f"unknown mixer kind {kind!r}")
     x = x + y
+    aux = None
     if "mix" in p:
         h2 = blocks.rmsnorm(p["ln2"], x, cfg.norm_eps)
-        x = x + blocks.ffn_forward(p["mix"], h2, cfg)
-    return x, new_cache
+        if use_moe:
+            y2, aux = moe.moe_forward(p["mix"], h2, cfg)
+        else:
+            y2 = blocks.ffn_forward(p["mix"], h2, cfg)
+        x = x + y2
+    return x, aux, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -150,12 +148,18 @@ def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 def apply_stack(params: List[Dict[str, Any]], x: torch.Tensor, cfg: ModelConfig,
                 positions, mode: str = "forward", caches: Optional[List[Any]] = None,
-                pos: int = 0, cache_len: int = 0) -> Tuple[torch.Tensor, Optional[List[Any]]]:
-    """Run the full stack. Returns (x, new_caches | None)."""
+                pos: int = 0, cache_len: int = 0
+                ) -> Tuple[torch.Tensor, torch.Tensor, Optional[List[Any]]]:
+    """Run the full stack. Returns (x, total_aux, new_caches | None):
+    total_aux the sum of the expert layers' losses, in layer order (0 with
+    none)."""
+    total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = []
     for i, p in enumerate(params):
-        x, nc = apply_layer(p, x, cfg, cfg.mixer_of(i), positions, mode=mode,
-                            cache=caches[i] if caches is not None else None,
-                            pos=pos, cache_len=cache_len)
+        x, aux, nc = apply_layer(p, x, cfg, cfg.mixer_of(i), cfg.uses_moe(i), positions,
+                                 mode=mode, cache=caches[i] if caches is not None else None,
+                                 pos=pos, cache_len=cache_len)
+        if aux is not None:
+            total_aux = total_aux + aux
         new_caches.append(nc)
-    return x, (new_caches if mode != "forward" else None)
+    return x, total_aux, (new_caches if mode != "forward" else None)

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import chip_smoke
+import repro_torch.configs as tconfigs
 from repro_torch.core import charge, controller, fleet, perfmodel
 from repro_torch.kernels.charge_sweep import kernel as sweep_kernel
 from repro_torch.kernels.charge_sweep import ops as sweep_ops
@@ -343,6 +344,9 @@ FA_CASES = {
     "window-g2-dh320": (1, 300, 300, 8, 4, 320, True, 100),
     "window-mqa-dh256": (1, 333, 333, 16, 1, 256, True, 128),
     "noncausal-ragged-dh80": (2, 150, 150, 16, 16, 80, False, 0),
+    "causal-ragged-g8-dh112": (2, 203, 203, 64, 8, 112, True, 0),
+    "noncausal-ragged-g8-dh112": (1, 150, 77, 16, 2, 112, False, 0),
+    "window-ragged-g4-dh16": (2, 301, 301, 8, 2, 16, True, 70),
 }
 
 
@@ -393,16 +397,22 @@ def test_lm_serve_on_card_matches_cpu(cuda_device):
 
 
 @pytest.mark.parametrize("arch", ["gemma3-4b", "chatglm3-6b", "qwen2-vl-72b", "hubert-xlarge",
-                                  "recurrentgemma-9b", "xlstm-125m"])
+                                  "recurrentgemma-9b", "xlstm-125m", "deepseek-moe-16b",
+                                  "kimi-k2-1t-a32b"])
 def test_lm_family_on_card_matches_cpu(cuda_device, arch):
     """Each reduced LM family card vs CPU as above: qwen2-vl fed embeddings
     and three M-RoPE position streams, hubert-xlarge one forward of
-    embeddings (encoder-only); one kernel launch per attention layer."""
+    embeddings (encoder-only), the MoE configs' routes compared too (a
+    token routed to other experts on the card must be a near-tie on the
+    CPU; later rows are left out); one kernel launch per attention layer
+    (the reduced Kimi's at dh 16)."""
     tol = 1e-4
     r = lm_launch.compare_card_to_cpu(arch, cuda_device, batch=2, prompt_len=40, steps=8,
                                       tol=tol)
     assert r["logit_err"] <= tol and r["cache_err"] <= tol
-    assert r["sure"] > 0 and r["agree"] == r["sure"]
+    assert (r["sure"] > 0 or r["excluded_rows"] > 0) and r["agree"] == r["sure"]
+    assert r["flips_not_near_tie"] == 0
+    assert (r["moe_calls"] > 0) == (tconfigs.reduced(arch).moe is not None)
     assert r["prefill_launches"] == r["attn_layers"] and r["decode_launches"] == 0
 
 

@@ -4,7 +4,7 @@ The same numpy inputs go through the port's plain version
 (``flash_attention_plain``, what a CPU tensor runs) and through the
 reference's ``naive_attention`` and its Pallas kernel in interpret mode
 (``ops.flash_attention(..., interpret=True)``), for causal, windowed,
-ragged and non-causal masks at GQA groups 1, 2 and 3, head widths 64 to
+ragged and non-causal masks at GQA groups 1 to 4 and 8, head widths 16 to
 320. Tolerance: 2e-6 absolute on outputs of magnitude ≤ ~3 (float32 sums
 in another order; the two JAX forms differ from each other by as much), at
 head widths above 128 scaled by dh / 128 (the score is a sum of dh
@@ -35,6 +35,8 @@ CASES = {
     "noncausal-ragged-g3": (1, 40, 72, 3, 1, 128, False, 0, (128, 128)),
     "noncausal-ragged-dh80": (1, 45, 45, 2, 2, 80, False, 0, (32, 32)),
     "window-g2-dh320": (1, 40, 40, 4, 2, 320, True, 12, (32, 32)),
+    "causal-ragged-g4-dh16": (2, 37, 37, 8, 2, 16, True, 0, (32, 32)),
+    "noncausal-ragged-g8-dh112": (1, 45, 29, 8, 1, 112, False, 0, (32, 32)),
 }
 
 
@@ -107,7 +109,7 @@ def test_tiles_by_head_width_fit_a_block():
     q's width before it looks at the device."""
     from repro_torch.core.altune import costmodel as cm
 
-    assert fa_kernel.HEAD_DIMS == (32, 64, 80, 128, 256, 320)
+    assert fa_kernel.HEAD_DIMS == (16, 32, 64, 80, 112, 128, 256, 320)
     for dh in fa_kernel.HEAD_DIMS:
         cands = ops.candidates(dh)
         assert [(c.bq, c.bk) for c in cands] == list(fa_kernel.tiles(dh))

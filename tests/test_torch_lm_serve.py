@@ -12,8 +12,8 @@ both packages:
   Pallas kernel in interpret mode; the port's plain flash attention);
 * then 8 greedy decode steps with equal ids and logits within 1e-5;
 * ``launch.serve.serve`` end to end on the CPU with the reference's weights,
-  rope variants against the reference, parameter counts, and the paths that
-  are not ported yet (experts).
+  rope variants against the reference, parameter counts, and that every
+  architecture loads (experts: ``tests/test_torch_moe.py``).
 
 Reduced Llama-3.2-3B (GQA group 2, dh 32) and reduced SmolLM-135M (tied
 embeddings, GQA group 3) as the reference's configs give them, plus one
@@ -234,20 +234,29 @@ def test_param_count_matches_reference(arch):
 
 
 def test_unported_paths_raise():
-    """Only experts are not ported: the two MoE architectures and ``moe``
-    layers raise, naming ROADMAP item 9a; every other architecture loads."""
-    experts = {"deepseek-moe-16b", "kimi-k2-1t-a32b"}
-    for arch in experts:
-        for get in (tconfigs.get, tconfigs.reduced):
-            with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9a"):
-                get(arch)
-    assert all(tconfigs.get(a).name == a for a in set(tconfigs.ARCH_IDS) - experts)
-    cfg = dataclasses.replace(tconfigs.reduced("llama3.2-3b"),
-                              moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=16))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9a"):
-        cfg.param_count()
-    with pytest.raises(NotImplementedError, match="experts"):
-        model.init_params(torch.Generator().manual_seed(0), cfg)
+    """No path is left unported: all ten architectures load, full and
+    reduced (an unknown one raises ``KeyError``), and ``moe`` layers
+    initialize — a MoE variant of reduced Llama draws its experts' shapes
+    from layer ``first_k_dense`` on, counts them, and runs."""
+    for arch in tconfigs.ARCH_IDS:
+        assert tconfigs.get(arch).name == arch
+        assert tconfigs.reduced(arch).d_model < tconfigs.get(arch).d_model
+    with pytest.raises(KeyError, match="unknown architecture"):
+        tconfigs.get("no-such-arch")
+    cfg = dataclasses.replace(tconfigs.reduced("llama3.2-3b"), first_k_dense=1,
+                              moe=MoEConfig(n_experts=4, top_k=2, n_shared=1, d_ff_expert=16))
+    p = model.init_params(torch.Generator().manual_seed(0), cfg)
+    assert "router" not in p["stack"][0]["mix"]
+    mix = p["stack"][1]["mix"]
+    d = cfg.d_model
+    assert mix["router"].shape == (d, 4) and mix["router"].dtype == torch.float32
+    assert mix["w_gate"].shape == mix["w_up"].shape == (4, d, 16)
+    assert mix["w_down"].shape == (4, 16, d) and mix["shared"]["w_up"].shape == (d, 16)
+    assert sum(a.size for a in jax.tree_util.tree_leaves(
+        convert.lm_params_to_numpy(p, cfg))) == cfg.param_count()
+    logits, aux, _ = model.forward(p, cfg, tokens=torch.zeros((2, 8), dtype=torch.int32))
+    assert logits.shape == (2, 8, cfg.vocab_size) and bool(torch.isfinite(logits).all())
+    assert float(aux) > 0.0
 
 
 def test_serve_refuses_cuda_without_a_card():
