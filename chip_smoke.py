@@ -201,11 +201,35 @@ Phases, each of which exits non-zero on failure:
    each profiled as in phase 11, and each prefill split: the MoE layers'
    share, and the routed experts' router/top-k, sort and tables, gather,
    three batched products and scatter-add.
+20. Training (run after 19, its weights freed): (a) one step of reduced
+   smollm-135m, deepseek-moe-16b, recurrentgemma-9b and xlstm-125m at
+   float32 compute, of smollm and deepseek-moe-16b at bfloat16, and of
+   Llama-3.2-3B at full width on its first 2 layers at float32, card vs
+   CPU from the same state (``launch.train.compare_card_to_cpu``, within
+   ``launch.train.STEP_TOL``; a routing flip only at a near-tie); (b)
+   smollm-135m at full width and depth through ``launch.train.train``,
+   50 steps of 8 × 1,024 tokens in 2 microbatches: the mean loss of the
+   last 10 steps at least 0.5 below step 1's; the median step, tokens/s,
+   6·N·D FLOP/s, peak memory, and one more step under ``torch.profiler``
+   (busy share, host waits, launches) and the launches that bfloat16
+   ``blocks.silu`` adds to it; (c) Llama-3.2-3B at full width and depth, 3
+   steps of 2 × 1,024 (default ``TrainConfig``: bfloat16 compute, remat),
+   step times and peak memory (≤ 79 GiB); (d) deepseek-moe-16b at full
+   width on its dense first layer and two MoE layers, 3 steps of 4 ×
+   1,024, step times, peak memory and a finite aux loss. Every kernel's
+   count is read around (b)–(d) and must be 0: the training path runs no
+   kernel of this repository.
 17. One JSON line describing each kernel (``launches_by_path`` with
-   ``"sharded"``: phase 18(b)'s launches, and ``"lm_serve/<arch>"``: phase
-   11b–c's and 19's; flash attention's ``by_head_dim``: the timed cases of
-   other widths); the card's name and power limit;
-   the last line ``{"ok": true, "device": {...}}``.
+   ``"sharded"``: phase 18(b)'s launches, ``"lm_serve/<arch>"``: phase
+   11b–c's and 19's, and ``"train"``: phase 20(b)–(d)'s; flash attention's
+   ``by_head_dim``: the timed cases of other widths); the card's name and
+   power limit; the last line ``{"ok": true, "device": {...}}``.
+
+A failing phase prints ``[chip_smoke] FAIL in phase <name>: <reason>`` on
+both standard output and standard error and exits 1, also for an exception
+outside the script's own checks (its traceback on standard error first).
+Run alone, in a directory without the repository, the script stops so in
+phase 0, where it imports the port.
 """
 
 from __future__ import annotations
@@ -295,6 +319,31 @@ LM_FULL_COMPARE = (("chatglm3-6b", None), ("qwen2-vl-72b", 4), ("deepseek-moe-16
 #: kimi-k2-1t-a32b (3,827 GiB in float32) at its dense first layer and one
 #: MoE layer (74.26 GiB).
 MOE_FULL_PATHS = (("deepseek-moe-16b", 4, 1024, 32, None), ("kimi-k2-1t-a32b", 2, 256, 32, 2))
+#: Phase 20 (training). (a) One step of each reduced config on the card and
+#: on the CPU from the same state, at the compute dtype given; within
+#: ``launch.train.STEP_TOL``.
+TRAIN_COMPARE = (("smollm-135m", "float32"), ("deepseek-moe-16b", "float32"),
+                 ("recurrentgemma-9b", "float32"), ("xlstm-125m", "float32"),
+                 ("smollm-135m", "bfloat16"), ("deepseek-moe-16b", "bfloat16"))
+#: ... and at full width, cut in depth: (arch, compute dtype, layers, batch,
+#: sequence). Llama-3.2-3B's 128,256-entry untied head and its full-width
+#: decay rule, on its first 2 layers (0.99e9 parameters; the CPU's step
+#: holds ~20 GB of the host's memory).
+TRAIN_COMPARE_FULL = (("llama3.2-3b", "float32", 2, 2, 64),)
+#: (b) smollm-135m at full width and depth through ``launch.train.train``:
+#: steps, batch, sequence, microbatches; the mean loss of the last
+#: ``TRAIN_LAST`` steps must sit ``TRAIN_DROP`` below the first step's.
+TRAIN_SMOLLM = (50, 8, 1024, 2)
+TRAIN_LAST, TRAIN_DROP = 10, 0.5
+#: (c, d) Full-width steps at the default ``TrainConfig`` (bfloat16 compute,
+#: remat, the default schedule's first steps): (arch, steps, batch,
+#: sequence, layers; None: all).
+#: Llama-3.2-3B whole (3.61e9 parameters: 53.7 GiB of float32 parameters,
+#: gradients and moments); deepseek-moe-16b on its dense first layer and two
+#: MoE layers (1.68e9).
+TRAIN_FULL = (("llama3.2-3b", 3, 2, 1024, None), ("deepseek-moe-16b", 3, 4, 1024, 3))
+#: The card's memory a full-width training step may take at its peak.
+TRAIN_PEAK_GIB = 79.0
 #: The routed experts' parts, each timed in a prefill: (``models.moe``
 #: function, part).
 MOE_PARTS = (("_route", "router/top-k"), ("_tables", "sort and tables"),
@@ -826,8 +875,20 @@ def sharded_phase(torch, dev, serve_score: dict, serve_switches: int) -> dict:
     return launches
 
 
+#: The phase running, named in every failure.
+_PHASE = ["0. card and imports"]
+
+
+def phase(name: str) -> None:
+    _PHASE[0] = name
+    log(f"---- phase {name}")
+
+
 def fail(msg: str) -> None:
-    print(f"[chip_smoke] FAIL: {msg}", file=sys.stderr, flush=True)
+    """Report a failure, naming the phase, on both streams, and exit 1."""
+    line = f"[chip_smoke] FAIL in phase {_PHASE[0]}: {msg}"
+    print(line, flush=True)
+    print(line, file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -2071,6 +2132,196 @@ def altune_main_path_phase(torch, dev, zero_counts, read_counts, out_dir):
     return launches
 
 
+def silu_fork_launches(torch, dev, shape) -> dict:
+    """Kernel launches of one bfloat16 silu call on a ``shape`` input,
+    (forward, backward), for ``blocks.silu`` (the reference's rounding
+    steps) as ``"fork"`` and torch's fused ``F.silu`` as ``"fused"``."""
+    import torch.nn.functional as F
+    from repro_torch.models import blocks
+    from torch.profiler import ProfilerActivity, profile
+
+    def launches(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(e.count for e in prof.key_averages() if e.key == "cudaLaunchKernel")
+
+    x = torch.randn(shape, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    out = {}
+    for name, f in (("fork", blocks.silu), ("fused", F.silu)):
+        f(x)  # warm
+        holder = {}
+        fwd = launches(lambda: holder.update(y=f(x)))
+        gy = torch.ones_like(holder["y"])
+        x.grad = None
+        bwd = launches(lambda: holder["y"].backward(gy))
+        out[name] = (fwd, bwd)
+    return out
+
+
+def train_phase(torch, dev, zero_counts, read_counts) -> dict:
+    """Phase 20: training. (a) ``TRAIN_COMPARE`` and ``TRAIN_COMPARE_FULL``:
+    one step card vs CPU; (b)
+    smollm-135m at full width and depth through ``launch.train.train``
+    (``TRAIN_SMOLLM``), learning, timed, and one more step profiled; (c, d)
+    ``TRAIN_FULL``: full-width steps of Llama-3.2-3B and deepseek-moe-16b
+    (3 layers), step time and peak memory (at the default schedule's first
+    rates, ~1e-7: these steps show memory and time; (a) holds the
+    full-width step's values). Every kernel's count is read
+    around (b)–(d): the training path runs no kernel of this repository
+    (attention is the chunked form; the flash-attention kernel has no
+    backward pass). Returns those launches and the figures."""
+    import statistics
+
+    import repro_torch.configs as lm_configs
+    from repro_torch.data import pipeline as data
+    from repro_torch.launch import serve_fleet
+    from repro_torch.launch import train as lm_train
+    from repro_torch.models import model as lm
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train import step as train_step
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    gib = 2.0 ** 30
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
+    log(f"training phase starts with {held / gib:.2f} GiB held by this process")
+    out = {"compare": {}}
+    t0 = time.perf_counter()
+    cases = [(arch, dtype, "reduced", {}) for arch, dtype in TRAIN_COMPARE] + [
+        (arch, dtype, f"full-width, {layers}-layer",
+         dict(reduced=False, n_layers=layers, batch=batch, seq=seq))
+        for arch, dtype, layers, batch, seq in TRAIN_COMPARE_FULL]
+    for arch, dtype, size, kw in cases:
+        t1 = time.perf_counter()
+        r = lm_train.compare_card_to_cpu(arch, dev, dtype, **kw)
+        log(f"train step card vs CPU, {size} {arch} at {dtype}: loss {r['loss']:.6f}, "
+            f"loss diff {r['loss_err']:.3e}, grad norm diff {r['grad_norm_err']:.3e}, params "
+            f"{r['params']:.3e}, moments {r['moments']:.3e} (leaf {r['moments_leaf']}), "
+            f"update {r['update']:.3e}; tolerance {lm_train.STEP_TOL[dtype]}; routings "
+            f"{r['moe_calls']}, flips {r['route_flips']} ({r['flips_not_near_tie']} not at a "
+            f"near-tie; largest gap of a flipped token {r['max_flip_gap']:.3e}, near-tie "
+            f"bound {lm_train.STEP_FLIP_EPS[dtype]:.3e}); {time.perf_counter() - t1:.1f} s")
+        if not lm_train.within_tolerance(r, dtype):
+            fail(f"train step of {size} {arch} ({dtype}) card vs CPU outside "
+                 f"{lm_train.STEP_TOL[dtype]} (or skipped, or a flip away from a near-tie): {r}")
+        out["compare"][f"{arch}/{dtype}/{size}"] = r
+    log(f"(a) took {time.perf_counter() - t0:.1f} s")
+
+    launches = {}
+    zero_counts()
+    steps, batch, seq, micro = TRAIN_SMOLLM
+    arch = "smollm-135m"
+    cfg = lm_configs.get(arch)
+    n_params = cfg.param_count()
+    t0 = time.perf_counter()
+    params, opt, losses, rep = lm_train.train(arch, steps=steps, batch=batch, seq=seq,
+                                              reduced=False, microbatches=micro,
+                                              log_every=10, device=dev, return_report=True)
+    wall = time.perf_counter() - t0
+    for k, v in read_counts().items():
+        launches[k] = launches.get(k, 0) + v
+    ms = rep["step_ms"]
+    med = statistics.median(ms[1:])
+    tokens = batch * seq
+    last = sum(losses[-TRAIN_LAST:]) / TRAIN_LAST
+    smollm = {"steps": steps, "batch": batch, "seq": seq, "microbatches": micro,
+              "first_loss": losses[0], "last_mean_loss": last, "first_step_ms": ms[0],
+              "median_step_ms": med, "tokens_per_s": tokens / (med / 1e3),
+              "flops_per_s_6nd": 6 * n_params * tokens / (med / 1e3),
+              "peak_gib": (rep["peak_device_bytes"] or 0) / gib, "wall_s": wall,
+              "skipped": rep["skipped"]}
+    log(f"(b) {arch} full width ({cfg.n_layers} layers, {n_params:,} parameters), {steps} "
+        f"steps of {batch} x {seq} tokens, {micro} microbatches: loss {losses[0]:.4f} -> "
+        f"mean of the last {TRAIN_LAST} {last:.4f}; step 1 {ms[0]:.1f} ms, median after it "
+        f"{med:.2f} ms, {smollm['tokens_per_s']:,.0f} tokens/s, 6·N·D "
+        f"{smollm['flops_per_s_6nd'] / 1e12:.2f} TFLOP/s; peak {smollm['peak_gib']:.2f} GiB; "
+        f"{wall:.1f} s in all")
+    if len(losses) != steps or rep["skipped"] or not all(math.isfinite(x) for x in losses):
+        fail(f"{arch} training skipped steps or gave non-finite losses: {rep['skipped']}")
+    if last > losses[0] - TRAIN_DROP:
+        fail(f"{arch} did not learn: last-{TRAIN_LAST} mean {last:.4f} is not "
+             f"{TRAIN_DROP} below step 1's {losses[0]:.4f}")
+
+    # One more step under the profiler: the device's busy share and the
+    # host's waits for it within the step.
+    tc = train_step.TrainConfig(microbatches=micro, opt=OptConfig(
+        peak_lr=1e-3, warmup_steps=max(steps // 10, 1), total_steps=steps))
+    fn = train_step.make_train_step(cfg, tc)
+    dc = data.DataConfig(seq_len=seq, global_batch=batch)
+    zero_counts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("train_step"):
+            b = data.to_device(data.batch_for_step(cfg, dc, steps), dev)
+            params, opt, m = fn(params, opt, b)
+            float(m["loss"])
+    for k, v in read_counts().items():
+        launches[k] += v
+    tr = serve_fleet._trace_summary(prof, top=8, range_name="train_step")
+    smollm.update(profiled_step_ms=tr["loop_s"] * 1e3, busy_frac=tr["device_busy_frac"],
+                  host_waits=tr["host_syncs"])
+    log(f"(b) one step under torch.profiler: span {tr['loop_s'] * 1e3:.2f} ms, device busy "
+        f"{tr['device_busy_s'] * 1e3:.2f} ms ({tr['device_busy_frac'] * 100:.2f} %), host "
+        f"waits for the device {tr['host_syncs']}")
+    log("  device time by activity (s): " + json.dumps(dict(list(
+        tr["device_s_by_name"].items())[:8])))
+    log("  host ops by self time: " + json.dumps(tr["host_self_s_top"]))
+    launched = sum(e.count for e in prof.key_averages() if e.key == "cudaLaunchKernel")
+    fork = silu_fork_launches(torch, dev, (batch // micro, seq, cfg.d_ff))
+    calls = cfg.n_layers * micro  # one gated FFN a layer and microbatch
+    extra = calls * (2 * (fork["fork"][0] - fork["fused"][0])  # forward and its recompute
+                     + fork["fork"][1] - fork["fused"][1])
+    smollm.update(step_launches=launched, silu_fork=fork, silu_fork_extra_launches=extra)
+    log(f"(b) bfloat16 silu as the reference's steps (blocks.silu): {fork['fork'][0]} forward "
+        f"+ {fork['fork'][1]} backward launches a call, torch's fused silu "
+        f"{fork['fused'][0]} + {fork['fused'][1]}; {calls} calls a step (forward twice with "
+        f"remat): {extra} more launches of the step's {launched}")
+    out["smollm"] = smollm
+    del params, opt, m, b, prof, fn
+    torch.cuda.empty_cache()
+
+    for arch, steps, batch, seq, layers in TRAIN_FULL:
+        cfg = dataclasses.replace(lm_configs.get(arch),
+                                  n_layers=layers or lm_configs.get(arch).n_layers)
+        zero_counts()
+        params, opt, losses, rep = lm_train.train(arch, steps=steps, batch=batch, seq=seq,
+                                                  reduced=False, log_every=1, device=dev,
+                                                  n_layers=layers, return_report=True,
+                                                  train_config=train_step.TrainConfig())
+        for k, v in read_counts().items():
+            launches[k] += v
+        r = {"layers": cfg.n_layers, "params": cfg.param_count(), "batch": batch, "seq": seq,
+             "losses": losses, "step_ms": rep["step_ms"],
+             "peak_gib": (rep["peak_device_bytes"] or 0) / gib}
+        if cfg.moe is not None:
+            b = data.to_device(data.batch_for_step(
+                cfg, data.DataConfig(seq_len=seq, global_batch=batch), steps), dev)
+            with torch.no_grad():
+                _, metrics = lm.lm_loss(params, cfg, b)
+            r["aux"] = float(metrics["aux"])
+            del b, metrics
+        log(f"({'c' if cfg.moe is None else 'd'}) {arch} full width, {cfg.n_layers} layers "
+            f"({r['params']:,} parameters), {steps} steps of {batch} x {seq}: losses "
+            f"{[round(x, 4) for x in losses]}, step ms {[round(x, 1) for x in rep['step_ms']]}, "
+            f"peak {r['peak_gib']:.2f} GiB" + (f", aux loss {r['aux']:.6f}" if "aux" in r else ""))
+        if len(losses) != steps or not all(math.isfinite(x) for x in losses) or (
+                "aux" in r and not math.isfinite(r["aux"])):
+            fail(f"{arch} full-width training skipped a step or gave a non-finite loss: {r}")
+        if r["peak_gib"] > TRAIN_PEAK_GIB:
+            fail(f"{arch} full-width training peaked at {r['peak_gib']:.2f} GiB, over "
+                 f"{TRAIN_PEAK_GIB} GiB")
+        out[arch] = r
+        del params, opt
+        torch.cuda.empty_cache()
+    log(f"kernel launches on the training path: {launches}")
+    if any(launches.values()):
+        fail(f"the training path launched a kernel of this repository: {launches}")
+    out["launches"] = launches
+    return out
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -2111,6 +2362,7 @@ def main() -> None:
         return {name: fn.launches for name, fn in counters.items()}
 
     # ---- 1. card check and build -------------------------------------------
+    phase("1. card check and build")
     smi = nvidia_smi()
     log(f"card: {smi} | torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -2129,6 +2381,7 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(0)
 
     # ---- 2. charge sweep: kernel vs plain ------------------------------------
+    phase("2. charge sweep: kernel vs plain")
     fl = fleet.synthesize(gen, FULL_DIMMS, device=dev)
     boot_t = torch.tensor(BOOT_BINS, dtype=torch.float32, device=dev)[:, None, None]
     cells = charge.CellParams(*(a[None, None, :] for a in fl.cells))
@@ -2185,6 +2438,7 @@ def main() -> None:
     del stacks, inv_worst, inv_hot, inv_corner, got, want, plain_idx
 
     # ---- 3. replay chunk: kernel vs plain ------------------------------------
+    phase("3. replay chunk: kernel vs plain")
     table = serve_fleet.bootstrap_table(gen, REPLAY_DIMMS, device=dev)
     params = controller.ControllerParams()
     rscal = replay_ops.replay_scalars(table.temp_bins, params)
@@ -2395,6 +2649,7 @@ def main() -> None:
     del big_temps, big_errs, big_state, pageable, big_stack_t, big_table, ingestor
 
     # ---- 4. serve: small card-vs-CPU check, then the main path ---------------
+    phase("4. serve: small card-vs-CPU check, then the main path")
     small_table = serve_fleet.bootstrap_table(gen, SMALL_DIMMS, device=dev)
     small_trace = (torch.rand((SMALL_STEPS, SMALL_DIMMS), generator=gen, device=dev)
                    * 60.0 + 20.0).cpu()
@@ -2456,6 +2711,7 @@ def main() -> None:
     log("  host ops by self time: " + json.dumps(tr["host_self_s_top"]))
 
     # ---- 4b. serve with decisions: the main path, then its checks ---------------
+    phase("4b. serve with decisions: the main path, then its checks")
     zero_counts()
     dec = serve_fleet.serve(n_dimms=FULL_DIMMS, n_steps=SERVE_STEPS, chunk=CHUNK,
                             scenario="diurnal", error_rate=0.0, device=dev, decisions=True)
@@ -2548,6 +2804,7 @@ def main() -> None:
     del rep, traced_by
 
     # ---- 5. accumulate: kernel vs plain ---------------------------------------
+    phase("5. accumulate: kernel vs plain")
     n_bins = len(controller.DEFAULT_TEMP_BINS)
     acc_timings = torch.empty((EVAL_STEPS, EVAL_DIMMS, 2, 4), dtype=torch.float32, device=dev)
     for s in range(0, EVAL_STEPS, 1000):
@@ -2608,6 +2865,7 @@ def main() -> None:
         fail("the ragged accumulate check did not reach every effective bin")
 
     # ---- 6. card step vs plain step -------------------------------------------
+    phase("6. card step vs plain step")
     step_temps = torch.cat([ladder[:, None].expand(-1, REPLAY_DIMMS),
                             torch.rand((STEP_CHECK_STEPS - ladder.shape[0], REPLAY_DIMMS),
                                        generator=gen, device=dev) * 75.0 + 20.0]).contiguous()
@@ -2645,6 +2903,7 @@ def main() -> None:
     del on_card, plain_hist, step_temps, step_errs
 
     # ---- 7. trace-eval: card vs CPU --------------------------------------------
+    phase("7. trace-eval: card vs CPU")
     small_kw = dict(scenario="refresh_storm", error_rate=ERROR_RATE, verbose=False)
     card = trace_eval.run(n_dimms=EVAL_SMALL_DIMMS, n_steps=EVAL_SMALL_STEPS, device=dev,
                           **small_kw)
@@ -2666,6 +2925,7 @@ def main() -> None:
     del card, host
 
     # ---- 8. trace-eval main path -------------------------------------------------
+    phase("8. trace-eval main path")
     eval_launches = {}
     for scenario in EVAL_SCENARIOS:
         torch.cuda.empty_cache()
@@ -2753,6 +3013,7 @@ def main() -> None:
     del hist, ch_temps, st0
 
     # ---- 9-11. flash attention and the LM serving paths --------------------------
+    phase("9-11. flash attention and the LM serving paths")
     torch.cuda.empty_cache()
     fa = flash_attention_phase(torch, dev, gen, fa_k)
     lm_card_vs_cpu_phase(dev)
@@ -2762,6 +3023,7 @@ def main() -> None:
         fail("the port imported JAX or the JAX package")
 
     # ---- 12-14. the altune kernels, the tile gate, the altune main path ----------
+    phase("12-14. the altune kernels, the tile gate, the altune main path")
     torch.cuda.empty_cache()
     mm = latency_matmul_phase(torch, dev, gen)
     sc = rglru_scan_phase(torch, dev, gen)
@@ -2773,33 +3035,44 @@ def main() -> None:
         fail("the port imported JAX or the JAX package")
 
     # ---- 15. the profiling path --------------------------------------------------
+    phase("15. the profiling path")
     prof_launches = profiling_phase(torch, dev, zero_counts, read_counts)
     if {m.split(".")[0] for m in sys.modules} & {"jax", "jaxlib", "repro"}:
         fail("the port imported JAX or the JAX package")
 
     # ---- 16. the region path ----------------------------------------------------
+    phase("16. the region path")
     reg = regions_phase(torch, dev, zero_counts, read_counts)
     if {m.split(".")[0] for m in sys.modules} & {"jax", "jaxlib", "repro"}:
         fail("the port imported JAX or the JAX package")
 
     # ---- 18. the sharded path --------------------------------------------------
+    phase("18. the sharded path")
     shard_launches = sharded_phase(torch, dev, score, int(report["total_switches"]))
     if {m.split(".")[0] for m in sys.modules} & {"jax", "jaxlib", "repro"}:
         fail("the port imported JAX or the JAX package")
 
     # ---- 19. the experts ---------------------------------------------------------
+    phase("19. the experts")
     experts = moe_phase(torch, dev, zero_counts, read_counts)
     if {m.split(".")[0] for m in sys.modules} & {"jax", "jaxlib", "repro"}:
         fail("the port imported JAX or the JAX package")
 
+    # ---- 20. training -------------------------------------------------------------
+    phase("20. training")
+    training = train_phase(torch, dev, zero_counts, read_counts)
+    if {m.split(".")[0] for m in sys.modules} & {"jax", "jaxlib", "repro"}:
+        fail("the port imported JAX or the JAX package")
+
     # ---- 17. summary -----------------------------------------------------------
+    phase("17. summary")
     by_path = {"serve": launches, "serve_decisions": dec_launches, "trace_eval": {
         k: sum(v[k] for v in eval_launches.values()) for k in counters},
         "lm_serve": lm["launches"],
         **{f"lm_serve/{arch}": fam["launches"] for arch, fam in
            {**families, **experts}.items()},
         "altune": alt_launches, "profile": prof_launches,
-        "regions": reg["launches"], "sharded": shard_launches}
+        "regions": reg["launches"], "sharded": shard_launches, "train": training["launches"]}
 
     def counted(name: str) -> dict:
         """Launches of one kernel on each main path, as read around it."""
@@ -2856,4 +3129,10 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    except Exception as e:  # a failure outside fail(): name the phase on both streams
+        import traceback
+
+        traceback.print_exc()
+        fail(f"{type(e).__name__}: {e}")

@@ -21,7 +21,7 @@ E)``, its shared FFN a dictionary of matrices.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -35,6 +35,7 @@ from repro_torch.models.blocks import KVCache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.rglru import RGLRUCache
 from repro_torch.models.xlstm import MLSTMCache, MLSTMState, SLSTMState
+from repro_torch.tree import tree_map
 
 
 def _t(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -135,25 +136,13 @@ def replay_to_numpy(res: ReplayResult) -> Dict[str, np.ndarray]:
 # ---------------------------------------------------------------------------
 # LM weights and KV caches
 # ---------------------------------------------------------------------------
-def _zip_map(fn: Callable, trees: List[Any]):
-    """Apply ``fn`` leafwise across trees of one structure (dicts, lists,
-    tuples and named tuples; anything else is a leaf)."""
-    t0 = trees[0]
-    if isinstance(t0, dict):
-        return {k: _zip_map(fn, [t[k] for t in trees]) for k in t0}
-    if isinstance(t0, (list, tuple)):
-        items = [_zip_map(fn, [t[i] for t in trees]) for i in range(len(t0))]
-        return type(t0)(*items) if hasattr(t0, "_fields") else type(t0)(items)
-    return fn(*trees)
-
-
 def _unstack(stack_tree, cfg: ModelConfig) -> List[Any]:
     """The reference's prefix / groups / suffix stack → one subtree per layer."""
     layers = list(stack_tree["prefix"])
     for g in range(cfg.n_groups):
         for p in range(cfg.pattern_len):
-            layers.append(_zip_map(lambda a, g=g: np.asarray(a)[g],
-                                   [stack_tree["groups"][f"pos{p}"]]))
+            layers.append(tree_map(lambda a, g=g: np.asarray(a)[g],
+                                   stack_tree["groups"][f"pos{p}"]))
     return layers + list(stack_tree["suffix"])
 
 
@@ -164,7 +153,7 @@ def _restack(layers: List[Any], cfg: ModelConfig) -> Dict[str, Any]:
     for p in range(cfg.pattern_len):
         members = [layers[cfg.n_prefix + g * cfg.pattern_len + p] for g in range(cfg.n_groups)]
         if members:
-            groups[f"pos{p}"] = _zip_map(lambda *xs: np.stack(xs), members)
+            groups[f"pos{p}"] = tree_map(lambda *xs: np.stack(xs), *members)
     return {"prefix": layers[:cfg.n_prefix], "groups": groups, "suffix": layers[start:]}
 
 
@@ -177,17 +166,50 @@ def lm_params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
         raise ValueError(f"{len(layers)} layers in the tree, the config has {cfg.n_layers}")
 
     def to_t(a):
-        return torch.tensor(np.asarray(a), device=device)
+        return _tensor(a, device)
 
-    out = {k: _zip_map(to_t, [tree[k]]) for k in tree if k != "stack"}
-    out["stack"] = [_zip_map(to_t, [layer]) for layer in layers]
+    out = {k: tree_map(to_t, tree[k]) for k in tree if k != "stack"}
+    out["stack"] = [tree_map(to_t, layer) for layer in layers]
     return out
 
 
 def lm_params_to_numpy(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
-    """The port's parameters → the reference's tree of numpy arrays."""
-    out = {k: _zip_map(_np, [params[k]]) for k in params if k != "stack"}
-    out["stack"] = _restack([_zip_map(_np, [layer]) for layer in params["stack"]], cfg)
+    """The port's parameters → the reference's tree of numpy arrays
+    (bfloat16 leaves as float32, which holds them exactly)."""
+    out = {k: tree_map(_np32, params[k]) for k in params if k != "stack"}
+    out["stack"] = _restack([tree_map(_np32, layer) for layer in params["stack"]], cfg)
+    return out
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A numpy array as a tensor on ``device``, dtype kept; a bfloat16 array
+    (the ``ml_dtypes`` type JAX gives) through its 16-bit words."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.view(np.int16), device=device).view(torch.bfloat16)
+    return torch.tensor(a, device=device)
+
+
+def _np32(x: torch.Tensor) -> np.ndarray:
+    return _np(x.to(torch.float32) if x.dtype == torch.bfloat16 else x)
+
+
+def opt_state_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
+                         device="cuda") -> Dict[str, Any]:
+    """The reference's optimizer state (``m``, ``v``: trees like the
+    parameters, ``step``, and ``grad_err`` with gradient compression) →
+    the port's, on ``device``: ``step`` a 0-d int32 tensor, dtypes kept."""
+    out = {k: lm_params_from_numpy(tree[k], cfg, device)
+           for k in ("m", "v", "grad_err") if k in tree}
+    out["step"] = torch.tensor(int(np.asarray(tree["step"])), dtype=torch.int32, device=device)
+    return out
+
+
+def opt_state_to_numpy(state: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """The port's optimizer state → the reference's tree of numpy arrays
+    (bfloat16 leaves as float32)."""
+    out = {k: lm_params_to_numpy(state[k], cfg) for k in ("m", "v", "grad_err") if k in state}
+    out["step"] = np.asarray(int(state["step"]), dtype=np.int32)
     return out
 
 
@@ -221,4 +243,4 @@ def lm_cache_to_numpy(caches: List[Any], cfg: ModelConfig) -> Dict[str, Any]:
     """The port's per-layer caches → the reference's prefix / groups / suffix
     stack of named tuples (the port's types, the reference's field names)
     of numpy arrays."""
-    return _restack([_zip_map(_np, [c]) for c in caches], cfg)
+    return _restack([tree_map(_np, c) for c in caches], cfg)

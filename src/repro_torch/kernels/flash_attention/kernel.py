@@ -79,7 +79,17 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Launch ``csrc/flash_attention.cu``'s ``tile = (bq, bk)`` instantiation
     at q's head width (``None``: the smallest tile instantiated there) on
     PyTorch's current stream. A tile not instantiated at that width raises
-    ``ValueError``. Counts its launches in ``flash_attention_cuda.launches``."""
+    ``ValueError``. Counts its launches in ``flash_attention_cuda.launches``.
+
+    The kernel has no backward pass (nor has the reference's Pallas kernel),
+    and its output, made outside autograd, would have no gradient: while
+    grad mode is on and q, k or v requires grad it raises ``RuntimeError``
+    instead of returning a detached result."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention_cuda has no backward pass: under autograd its output would "
+            "be cut off from q, k and v; run it under torch.no_grad(), or train with "
+            "attn_impl='chunked'")
     b, sq, h, dh = q.shape
     if dh not in HEAD_DIMS:
         raise ValueError(f"the CUDA kernel takes dh in {HEAD_DIMS}, got {dh}")

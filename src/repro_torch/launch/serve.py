@@ -32,6 +32,7 @@ from repro_torch.models import model as lm
 from repro_torch.models import moe
 from repro_torch.models import stack as lm_stack
 from repro_torch.train.serve import ServeConfig, make_decode_step, make_prefill_step
+from repro_torch.tree import tree_map
 
 #: A token routed to other experts on the card than on the CPU (a "flip")
 #: is admitted only where the CPU's k-th and (k + 1)-th largest router
@@ -180,7 +181,7 @@ def compare_card_to_cpu(arch: str, device: str | torch.device = "cuda", batch: i
                                             device=dev)
     else:
         card = lm.init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
-        host = convert._zip_map(lambda t: t.cpu(), [card])
+        host = tree_map(lambda t: t.cpu(), card)
     gen = torch.Generator().manual_seed(seed + 1)
     if cfg.embeds_input:
         inputs = {"embeds": torch.randn((batch, prompt_len, cfg.d_model), generator=gen)}

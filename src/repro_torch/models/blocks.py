@@ -34,6 +34,28 @@ NEG_INF = -1e30
 Params = Dict[str, torch.Tensor]
 
 
+def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with the reference's type promotion: operands of two float
+    dtypes are both cast to the wider first, as ``jnp.matmul`` does (torch
+    refuses the mix). Training's bfloat16 compute copies meet float32
+    activations there: the float32 gate and router inputs, and the xLSTM
+    blocks' float32 residual stream."""
+    if a.dtype != b.dtype:
+        t = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(t), b.to(t)
+    return a @ b
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: x · sigmoid(x). Below float32 it takes the
+    reference's steps, 1 / (1 + exp(−x)) and the product, each rounded in
+    x's dtype, where torch's fused kernel rounds once; in float32 it is the
+    fused kernel."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return x * torch.reciprocal(torch.exp(-x) + 1)
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
@@ -83,9 +105,9 @@ def _theta(cfg: ModelConfig, kind: str) -> float:
 def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig, positions, theta: float):
     """Project + rope. Returns q (B,S,H,dh), k/v (B,S,Hk,dh)."""
     b, s, _ = x.shape
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.d_head)
-    k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
-    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    q = mm(x, p["wq"]).reshape(b, s, cfg.n_heads, cfg.d_head)
+    k = mm(x, p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    v = mm(x, p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
@@ -250,7 +272,7 @@ def attention_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str,
         out = chunked_attention(q, k, v, causal=cfg.causal, window=window,
                                 chunk=cfg.chunk_len)
     b, s = x.shape[:2]
-    y = out.reshape(b, s, cfg.n_heads * cfg.d_head) @ p["wo"]
+    y = mm(out.reshape(b, s, cfg.n_heads * cfg.d_head), p["wo"])
     if cache_len == 0:
         return y
     length = min(cache_len, cfg.window) if kind == "local" else cache_len
@@ -312,7 +334,7 @@ def decode_attention(p: Params, x: torch.Tensor, cache: KVCache, pos: int,
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bhl,blhd->bhd", w, v_use.to(torch.float32))
     out = out.reshape(b, 1, cfg.n_heads * cfg.d_head).to(x.dtype)
-    return out @ p["wo"], cache
+    return mm(out, p["wo"]), cache
 
 
 # ---------------------------------------------------------------------------
@@ -333,9 +355,9 @@ def init_ffn(gen: torch.Generator, cfg: ModelConfig, d_ff: int,
 
 def ffn_forward(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.ffn_variant == "gelu":  # classic 2-matrix FFN (BERT/HuBERT)
-        return F.gelu(x @ p["w_up"], approximate="tanh") @ p["w_down"]
+        return mm(F.gelu(mm(x, p["w_up"]), approximate="tanh"), p["w_down"])
     if cfg.ffn_variant == "swiglu":
-        act = F.silu(x @ p["w_gate"])
+        act = silu(mm(x, p["w_gate"]))
     else:
-        act = F.gelu(x @ p["w_gate"], approximate="tanh")
-    return (act * (x @ p["w_up"])) @ p["w_down"]
+        act = F.gelu(mm(x, p["w_gate"]), approximate="tanh")
+    return mm(act * mm(x, p["w_up"]), p["w_down"])

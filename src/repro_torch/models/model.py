@@ -4,8 +4,10 @@ The port of ``src/repro/models/model.py``'s serving surface: parameters are
 a plain dictionary (``embed``, ``stack`` — a list of per-layer
 dictionaries, ``ln_f``, and ``head`` unless the embeddings are tied),
 drawn with the reference's distributions and scales from a
-``torch.Generator`` on the device. ``lm_loss`` and the sharding specs come
-with the training slice (ROADMAP queue 1 item 9g).
+``torch.Generator`` on the device. :func:`lm_loss` is the training loss,
+differentiated by autograd. The reference's logical sharding specs
+(``logical_specs``, ``cache_logical_specs``) wait for ROADMAP item 9h, with
+the dry run and the sharded policies that read them.
 """
 
 from __future__ import annotations
@@ -46,11 +48,13 @@ def forward(params: Dict[str, Any], cfg: ModelConfig,
             tokens: Optional[torch.Tensor] = None, embeds: Optional[torch.Tensor] = None,
             positions=None, mode: str = "forward",
             caches: Optional[List[Any]] = None, pos: int = 0,
-            cache_len: int = 0,
-            last_logits: bool = False) -> Tuple[torch.Tensor, torch.Tensor, Optional[List[Any]]]:
+            cache_len: int = 0, last_logits: bool = False,
+            remat=True) -> Tuple[torch.Tensor, torch.Tensor, Optional[List[Any]]]:
     """Returns (logits, aux_loss, caches_out); aux_loss is the experts'
     load-balance losses summed over layers (0 without experts).
-    ``last_logits``: the head at the last position only, logits (B, 1, V)."""
+    ``last_logits``: the head at the last position only, logits (B, 1, V).
+    ``remat``: as in :func:`.stack.apply_stack` (forward mode under
+    autograd only)."""
     if embeds is not None:
         x = embeds.to(params["embed"].dtype)
         b, s = x.shape[:2]
@@ -63,12 +67,13 @@ def forward(params: Dict[str, Any], cfg: ModelConfig,
         offset = pos if mode == "decode" else 0
         positions = default_positions(cfg, b, s, offset, device=x.device)
     x, aux, caches_out = stack.apply_stack(params["stack"], x, cfg, positions, mode=mode,
-                                           caches=caches, pos=pos, cache_len=cache_len)
+                                           caches=caches, pos=pos, cache_len=cache_len,
+                                           remat=remat)
     if last_logits:
         x = x[:, -1:]
     x = blocks.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     head = params["embed"].t() if cfg.tie_embeddings else params["head"]
-    logits = x @ head
+    logits = blocks.mm(x, head)
     return logits, aux, caches_out
 
 
@@ -94,6 +99,38 @@ def decode_step(params, cfg: ModelConfig, caches: List[Any], tokens: torch.Tenso
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                device=None) -> List[Any]:
     return stack.init_stack_cache(cfg, batch, max_len, dtype, device)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+def lm_loss(params: Dict[str, Any], cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            aux_coef: float = 0.01, z_coef: float = 1e-4,
+            remat=True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross entropy (float32) + MoE aux + z-loss.
+
+    batch: {"tokens" | "embeds", "labels", optional "positions"}; labels
+    < 0 are masked out. The label's logit is picked with a ``gather``: the
+    reference sums a (B, S, V) masked copy of the logits, whose sum is the
+    same single value (a sum of one value and zeros is exact) and whose
+    temporaries a vocabulary of 128k does not need. Returns (loss, {"ce",
+    "aux", "z", "tokens"})."""
+    logits, aux, _ = forward(params, cfg, tokens=batch.get("tokens"),
+                             embeds=batch.get("embeds"), positions=batch.get("positions"),
+                             remat=remat)
+    labels = batch["labels"]
+    valid = (labels >= 0).to(torch.float32)
+    lab = torch.clamp_min(labels, 0).to(torch.int64)
+
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    picked = torch.gather(lf, -1, lab[..., None])[..., 0]
+    ce = (lse - picked) * valid
+    n = torch.clamp_min(valid.sum(), 1.0)
+    ce_mean = ce.sum() / n
+    z_loss = z_coef * ((lse * valid) ** 2).sum() / n
+    loss = ce_mean + aux_coef * aux + z_loss
+    return loss, {"ce": ce_mean, "aux": aux, "z": z_loss, "tokens": n}
 
 
 # ---------------------------------------------------------------------------

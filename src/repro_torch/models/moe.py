@@ -13,7 +13,7 @@ with the reference's capacity-bounded, sort-based dispatch, step for step:
    are dropped (a dropped token keeps the shared experts and its
    residual);
 4. token ids and weights written into (E, C) tables, activations gathered
-   to (E, C, d), one batched product per weight matrix (``torch.bmm``:
+   to (E, C, d), one batched product per weight matrix (``torch.matmul``:
    cuBLAS on a card, float32), and the weighted rows added back to their
    tokens (``index_add_``). Empty slots gather token 0 with weight 0.
 
@@ -103,6 +103,18 @@ def recording_routes() -> Iterator[List[Tuple[torch.Tensor, torch.Tensor]]]:
         _route_log = outer
 
 
+@contextlib.contextmanager
+def routes_paused() -> Iterator[None]:
+    """Within the block, routings are not recorded (a layer run again for
+    its backward pass routes the same tokens a second time)."""
+    global _route_log
+    outer, _route_log = _route_log, None
+    try:
+        yield
+    finally:
+        _route_log = outer
+
+
 def _counts(index: torch.Tensor, n: int, dtype) -> torch.Tensor:
     """How often each of 0..n-1 occurs in ``index``: an ``index_add_`` of
     ones (``bincount`` on a card reads the maximum back to the host)."""
@@ -113,7 +125,7 @@ def _counts(index: torch.Tensor, n: int, dtype) -> torch.Tensor:
 def _route(router: torch.Tensor, x_flat: torch.Tensor, moe: MoEConfig):
     """Top-k routing: (weights (T, k) float32, experts (T, k) int64, probs
     (T, E) float32, aux scalar)."""
-    logits = x_flat.to(torch.float32) @ router
+    logits = blocks.mm(x_flat.to(torch.float32), router)
     probs = torch.softmax(logits, dim=-1)
     top, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     w, idx = top[:, :moe.top_k], idx[:, :moe.top_k]
@@ -162,9 +174,9 @@ def _experts(gathered: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
              w_down: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The grouped GEMM: (E_loc, C, d) → (E_loc, C, d) through each expert's
     gated FFN, three batched products."""
-    h = torch.bmm(gathered, w_gate)
-    h = F.silu(h) if cfg.ffn_variant == "swiglu" else F.gelu(h, approximate="tanh")
-    return torch.bmm(h * torch.bmm(gathered, w_up), w_down)
+    h = blocks.mm(gathered, w_gate)
+    h = blocks.silu(h) if cfg.ffn_variant == "swiglu" else F.gelu(h, approximate="tanh")
+    return blocks.mm(h * blocks.mm(gathered, w_up), w_down)
 
 
 def _combine(out: torch.Tensor, tok_table: torch.Tensor, w_table: torch.Tensor,

@@ -73,7 +73,7 @@ def _block_diag_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     shape = x.shape
     drh = w.shape[1]
     xh = x.to(torch.float32).reshape(shape[:-1] + (n_heads, drh))
-    y = torch.einsum("...hd,hde->...he", xh, w)
+    y = torch.einsum("...hd,hde->...he", xh, w.to(torch.float32))
     return y.reshape(shape[:-1] + (n_heads * drh,)) + b
 
 
@@ -124,14 +124,14 @@ def rglru_block_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
                         cache: Optional[RGLRUCache] = None, return_cache: bool = False):
     """Full-sequence forward. x: (B,S,d)."""
     b = x.shape[0]
-    xb = x @ p["w_x_branch"]
-    gate = F.gelu(x @ p["w_gate_branch"], approximate="tanh")
+    xb = blocks.mm(x, p["w_x_branch"])
+    gate = F.gelu(blocks.mm(x, p["w_gate_branch"]), approximate="tanh")
     conv_prev = cache.conv if cache is not None else None
     xc = _causal_conv(xb, p["conv"], conv_prev)
     h0 = cache.h if cache is not None else torch.zeros(
         (b, _d_rnn(cfg)), dtype=torch.float32, device=x.device)
     hseq, h_final = rglru_scan(p, xc, cfg, h0)
-    out = (hseq * gate) @ p["w_out"]
+    out = blocks.mm(hseq * gate, p["w_out"])
     if return_cache:
         return out, RGLRUCache(h=h_final, conv=trailing_conv_inputs(conv_prev, xb,
                                                                       cfg.conv_width))
@@ -141,13 +141,13 @@ def rglru_block_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
 def rglru_block_step(p: Params, x1: torch.Tensor, cfg: ModelConfig,
                      cache: RGLRUCache) -> Tuple[torch.Tensor, RGLRUCache]:
     """One-token decode. x1: (B, 1, d)."""
-    xb = x1 @ p["w_x_branch"]  # (B,1,dr)
-    gate = F.gelu(x1 @ p["w_gate_branch"], approximate="tanh")
+    xb = blocks.mm(x1, p["w_x_branch"])  # (B,1,dr)
+    gate = F.gelu(blocks.mm(x1, p["w_gate_branch"]), approximate="tanh")
     window = torch.cat([cache.conv, xb.to(cache.conv.dtype)], dim=1)  # (B, W, dr)
     w = p["conv"]
     xc = sum(window[:, i] * w[i] for i in range(w.shape[0]))  # (B,dr)
     h1, h_new = rglru_step(p, xc, cfg, cache.h)
-    out = (h1[:, None] * gate) @ p["w_out"]
+    out = blocks.mm(h1[:, None] * gate, p["w_out"])
     return out, RGLRUCache(h=h_new, conv=window[:, 1:])
 
 

@@ -18,16 +18,23 @@ sLSTM blocks own their projections and have no FFN sublayer. The channel
 mixer of the other layers is a dense FFN or, from layer ``first_k_dense``
 of a config with ``moe``, the experts (:mod:`.moe`), whose load-balance
 losses the stack sums, as the reference's scan carry does.
+
+Training differentiates the forward mode with autograd; ``remat`` in
+:func:`apply_stack` recomputes each layer in the backward pass instead of
+keeping its activations.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import blocks, moe, rglru, xlstm
 from repro_torch.models.config import ModelConfig
+from repro_torch.tree import leaves
 
 ATTN_KINDS = ("global", "local")
 
@@ -146,20 +153,51 @@ def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
             for i in range(cfg.n_layers)]
 
 
+def _recompute_context():
+    """``checkpoint``'s (forward, recompute) contexts: the recompute in the
+    backward pass records no routes (each routing is logged once)."""
+    return contextlib.nullcontext(), moe.routes_paused()
+
+
 def apply_stack(params: List[Dict[str, Any]], x: torch.Tensor, cfg: ModelConfig,
                 positions, mode: str = "forward", caches: Optional[List[Any]] = None,
-                pos: int = 0, cache_len: int = 0
+                pos: int = 0, cache_len: int = 0, remat=True
                 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[List[Any]]]:
     """Run the full stack. Returns (x, total_aux, new_caches | None):
     total_aux the sum of the expert layers' losses, in layer order (0 with
-    none)."""
+    none).
+
+    ``remat`` applies in forward mode while autograd records the stack
+    (grad mode on, parameters that require grad): ``True``
+    checkpoints each layer (``torch.utils.checkpoint``, non-reentrant: a
+    layer keeps only its input for the backward pass and runs again
+    there; the reference checkpoints each layer group, the same values);
+    ``"offload"`` also parks those inputs in pinned host memory
+    (``save_on_cpu``); ``False`` keeps every activation."""
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = []
-    for i, p in enumerate(params):
-        x, aux, nc = apply_layer(p, x, cfg, cfg.mixer_of(i), cfg.uses_moe(i), positions,
-                                 mode=mode, cache=caches[i] if caches is not None else None,
-                                 pos=pos, cache_len=cache_len)
-        if aux is not None:
-            total_aux = total_aux + aux
-        new_caches.append(nc)
+    if not (mode == "forward" and torch.is_grad_enabled()
+            and any(t.requires_grad for t in leaves(params))):
+        remat = False
+    saves = (torch.autograd.graph.save_on_cpu(pin_memory=True) if remat == "offload"
+             else contextlib.nullcontext())
+    with saves:
+        for i, p in enumerate(params):
+            kind, use_moe = cfg.mixer_of(i), cfg.uses_moe(i)
+            if remat:
+                def layer(x, p=p, kind=kind, use_moe=use_moe):
+                    return apply_layer(p, x, cfg, kind, use_moe, positions)[:2]
+
+                # No layer draws random numbers: no RNG state to keep.
+                x, aux = torch.utils.checkpoint.checkpoint(
+                    layer, x, use_reentrant=False, preserve_rng_state=False,
+                    context_fn=_recompute_context)
+                nc = None
+            else:
+                x, aux, nc = apply_layer(p, x, cfg, kind, use_moe, positions, mode=mode,
+                                         cache=caches[i] if caches is not None else None,
+                                         pos=pos, cache_len=cache_len)
+            if aux is not None:
+                total_aux = total_aux + aux
+            new_caches.append(nc)
     return x, total_aux, (new_caches if mode != "forward" else None)

@@ -189,7 +189,7 @@ def trailing_conv_inputs(conv_prev: Optional[torch.Tensor], x: torch.Tensor,
 
 def _mlstm_gates(p: Params, xc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Log input and log forget gates (… , H) from the conv output."""
-    gates = xc.to(torch.float32) @ p["w_gates"] + p["b_gates"]
+    gates = blocks.mm(xc.to(torch.float32), p["w_gates"]) + p["b_gates"]
     i_log, f_raw = gates.chunk(2, dim=-1)
     return i_log, F.logsigmoid(f_raw)
 
@@ -199,19 +199,19 @@ def mlstm_block_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     b, s, _ = x.shape
     di, h = _d_inner_m(cfg), cfg.n_heads
     dh = di // h
-    xm, gate = (x @ p["w_up"]).chunk(2, dim=-1)
+    xm, gate = blocks.mm(x, p["w_up"]).chunk(2, dim=-1)
     conv_prev = cache.conv if cache is not None else None
     xc = F.silu(_causal_conv(xm, p["conv"], conv_prev))
 
-    q = (xc @ p["wq"]).reshape(b, s, h, dh)
-    k = (xc @ p["wk"]).reshape(b, s, h, dh) * (dh ** -0.5)
-    v = (xm @ p["wv"]).reshape(b, s, h, dh)
+    q = blocks.mm(xc, p["wq"]).reshape(b, s, h, dh)
+    k = blocks.mm(xc, p["wk"]).reshape(b, s, h, dh) * (dh ** -0.5)
+    v = blocks.mm(xm, p["wv"]).reshape(b, s, h, dh)
     i_log, f_log = _mlstm_gates(p, xc)
 
     state = cache.state if cache is not None else mlstm_zero_state(b, h, dh, x.device)
     hseq, final = mlstm_chunked(q, k, v, i_log, f_log, state, cfg.chunk_len)
     hflat = hseq.reshape(b, s, di) + p["skip"] * xc
-    out = (hflat * F.silu(gate)) @ p["w_down"]
+    out = blocks.mm(hflat * F.silu(gate), p["w_down"])
     if return_cache:
         conv = trailing_conv_inputs(conv_prev, xm, cfg.conv_width)
         return out, MLSTMCache(state=final, conv=conv)
@@ -225,17 +225,17 @@ def mlstm_block_step(p: Params, x1: torch.Tensor, cfg: ModelConfig,
     b = x1.shape[0]
     di, nh = _d_inner_m(cfg), cfg.n_heads
     dh = di // nh
-    xm, gate = (x1 @ p["w_up"]).chunk(2, dim=-1)  # (B,1,di)
+    xm, gate = blocks.mm(x1, p["w_up"]).chunk(2, dim=-1)  # (B,1,di)
     window = torch.cat([cache.conv, xm.to(cache.conv.dtype)], dim=1)  # (B,W,di)
     w = p["conv"]
     xc = F.silu(sum(window[:, i] * w[i] for i in range(w.shape[0])))
-    q = (xc @ p["wq"]).reshape(b, nh, dh)
-    k = (xc @ p["wk"]).reshape(b, nh, dh) * (dh ** -0.5)
-    v = (xm[:, 0] @ p["wv"]).reshape(b, nh, dh)
+    q = blocks.mm(xc, p["wq"]).reshape(b, nh, dh)
+    k = blocks.mm(xc, p["wk"]).reshape(b, nh, dh) * (dh ** -0.5)
+    v = blocks.mm(xm[:, 0], p["wv"]).reshape(b, nh, dh)
     i_log, f_log = _mlstm_gates(p, xc)
     state, hv = mlstm_step(cache.state, q, k, v, i_log, f_log)
     hflat = hv.reshape(b, 1, di).to(x1.dtype) + p["skip"] * xc[:, None]
-    out = (hflat * F.silu(gate)) @ p["w_down"]
+    out = blocks.mm(hflat * F.silu(gate), p["w_down"])
     return out, MLSTMCache(state=state, conv=window[:, 1:])
 
 
@@ -294,9 +294,12 @@ def slstm_scan(p: Params, x: torch.Tensor, cfg: ModelConfig,
     b, s, d = x.shape
     h = cfg.n_heads
     dh = d // h
-    zx = (x @ p["w_x"] + p["b"]).to(torch.float32)          # (B,S,4d)
+    zx = (blocks.mm(x, p["w_x"]) + p["b"]).to(torch.float32)          # (B,S,4d)
     zx = zx.reshape(b, s, 4, h, dh).movedim(1, 0)            # (S,B,4,H,dh)
     r = p["r"].to(torch.float32)
+    # torch.maximum, not clamp_min: at a tie (n is exactly 1 after the
+    # first step) it halves the gradient, as the reference's jnp.maximum.
+    one = torch.ones((), dtype=torch.float32, device=x.device)
     st = state
     hs = []
     for t in range(s):
@@ -308,7 +311,7 @@ def slstm_scan(p: Params, x: torch.Tensor, cfg: ModelConfig,
         f_s = torch.exp(zf + st.m - m_new)
         c_new = f_s * st.c + i_s * torch.tanh(zz)
         n_new = f_s * st.n + i_s
-        h_new = torch.sigmoid(zo) * c_new / torch.clamp_min(n_new, 1.0)
+        h_new = torch.sigmoid(zo) * c_new / torch.maximum(n_new, one)
         st = SLSTMState(c_new, n_new, h_new, m_new)
         hs.append(h_new)
     out = torch.stack(hs, dim=1).reshape(b, s, d)
@@ -322,8 +325,8 @@ def slstm_block_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     st = state if state is not None else slstm_zero_state(b, h, d // h, x.device)
     y, final = slstm_scan(p, x, cfg, st)
     y = blocks.rmsnorm(p["gn"], y, cfg.norm_eps)
-    up_gate, up = (y @ p["w_up"]).chunk(2, dim=-1)
-    out = (F.gelu(up_gate, approximate="tanh") * up) @ p["w_down"]
+    up_gate, up = blocks.mm(y, p["w_up"]).chunk(2, dim=-1)
+    out = blocks.mm(F.gelu(up_gate, approximate="tanh") * up, p["w_down"])
     if return_cache:
         return out, final
     return out

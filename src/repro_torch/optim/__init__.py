@@ -1,0 +1,7 @@
+from repro_torch.optim.adamw import (  # noqa: F401
+    OptConfig,
+    apply_updates,
+    global_norm,
+    init_opt_state,
+    schedule,
+)

@@ -31,6 +31,7 @@ from repro_torch.kernels.rglru_scan import ops as sc_ops
 from repro_torch.launch import altune_margin
 from repro_torch.launch import serve as lm_launch
 from repro_torch.launch import serve_fleet, trace_eval
+from repro_torch.launch import train as lm_train
 
 pytestmark = pytest.mark.cuda
 
@@ -718,3 +719,34 @@ def test_stream_staging_waits_for_queued_work(cuda_device):
             assert torch.equal(torch.cat([d[1] for d in decs]), rep.bin_idx)
             for a, b in zip((*busy.state, *busy.partials), (*idle.state, *idle.partials)):
                 assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "deepseek-moe-16b", "recurrentgemma-9b",
+                                  "xlstm-125m"])
+def test_train_step_on_card_matches_cpu(cuda_device, arch, dtype):
+    """One training step of the reduced config on the card and on the CPU
+    from the same state and batch, within ``train.STEP_TOL``; with experts,
+    a routing flip is admitted only at a CPU near-tie
+    (``train.STEP_FLIP_EPS``), and then only the loss and the gradient norm
+    are compared (a flipped token's gradients differ)."""
+    r = lm_train.compare_card_to_cpu(arch, cuda_device, dtype)
+    assert lm_train.within_tolerance(r, dtype), r
+    if arch == "deepseek-moe-16b":
+        assert r["moe_calls"] == 3
+
+
+def test_flash_attention_kernel_refuses_autograd(cuda_device):
+    """The kernel has no backward pass: with grad on and an input that
+    requires grad it raises rather than return an output cut off from q, k
+    and v; under no_grad it launches."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q = torch.randn((1, 64, 4, 64), generator=g, device=cuda_device)
+    k = torch.randn((1, 64, 2, 64), generator=g, device=cuda_device)
+    before = fa_kernel.flash_attention_cuda.launches
+    with pytest.raises(RuntimeError, match="no backward pass"):
+        fa_ops.flash_attention(q.requires_grad_(True), k, k)
+    assert fa_kernel.flash_attention_cuda.launches == before
+    with torch.no_grad():
+        out = fa_ops.flash_attention(q, k, k)
+    assert out.grad_fn is None and fa_kernel.flash_attention_cuda.launches == before + 1

@@ -42,6 +42,7 @@ from repro_torch import convert
 from repro_torch.launch import serve as tlaunch
 from repro_torch.models import model, moe
 from repro_torch.train import serve as tserve
+from repro_torch.tree import tree_map
 
 TOL = 1e-5
 W_TOL = 1e-6
@@ -80,7 +81,7 @@ def _layer(seed=0):
 
 
 def _torch_tree(tree):
-    return convert._zip_map(torch.tensor, [tree])
+    return tree_map(torch.tensor, tree)
 
 
 @pytest.mark.parametrize("ties", [False, True])
