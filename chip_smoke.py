@@ -204,7 +204,7 @@ Phases, each of which exits non-zero on failure:
 20. Training (run after 19, its weights freed): (a) one step of reduced
    smollm-135m, deepseek-moe-16b, recurrentgemma-9b and xlstm-125m at
    float32 compute, of smollm and deepseek-moe-16b at bfloat16, and of
-   Llama-3.2-3B at full width on its first 2 layers at float32, card vs
+   Llama-3.2-3B at full width on its first layer at float32, card vs
    CPU from the same state (``launch.train.compare_card_to_cpu``, within
    ``launch.train.STEP_TOL``; a routing flip only at a near-tie); (b)
    smollm-135m at full width and depth through ``launch.train.train``,
@@ -219,9 +219,32 @@ Phases, each of which exits non-zero on failure:
    1,024, step times, peak memory and a finite aux loss. Every kernel's
    count is read around (b)–(d) and must be 0: the training path runs no
    kernel of this repository.
+21. Sharded training (run after 20, before the summary): (a) four gloo
+   ranks sharing the card on a (2, 2) ``("data", "model")`` mesh under
+   ``parallel.sharding.DEFAULT_RULES`` (TP, FSDP and, with experts, EP),
+   once a probe shows gloo runs phase 18(a)'s collectives and DTensor's
+   all-reduce, all-gather and reduce-scatter on CUDA tensors (a refusal, or
+   a rank ended by one of them, is logged and leaves (a) out; torch
+   2.11's gloo ended a rank in the all-gather): one float32 step each of reduced
+   smollm-135m and reduced deepseek-moe-16b (8 experts over ``model`` =
+   2: the expert-parallel branch) held against the one-rank step of the
+   same state and batch (``sharded_step_vs_one_rank``, within
+   ``STEP_TOL["float32"]``, a routing flip only at a near-tie); (b)
+   ``torch.cuda.device_count()`` NCCL ranks, one a card, on the (1, 1)
+   mesh of one card or the (2, 2) mesh of four: ``train(mesh=)`` with
+   ``make_policy``'s placements, Llama-3.2-3B at full width and depth, 3
+   steps of 2 × 1,024 at the default ``TrainConfig`` (step ms, tokens/s,
+   each rank's peak memory over the call, the state's part-by-part
+   placement included, and up to the end of the placement), on four cards
+   also deepseek-moe-16b at full
+   width on 3 layers (64 experts over ``model`` = 2); then one float32 step
+   of Llama-3.2-3B at full width on its first 2 layers held against the
+   unsharded step on rank 0's card. Every kernel's count is read around
+   (a) and (b) on each rank and summed: the path runs none.
 17. One JSON line describing each kernel (``launches_by_path`` with
    ``"sharded"``: phase 18(b)'s launches, ``"lm_serve/<arch>"``: phase
-   11b–c's and 19's, and ``"train"``: phase 20(b)–(d)'s; flash attention's
+   11b–c's and 19's, ``"train"``: phase 20(b)–(d)'s and
+   ``"sharded_train"``: phase 21's; flash attention's
    ``by_head_dim``: the timed cases of other widths); the card's name and
    power limit; the last line ``{"ok": true, "device": {...}}``.
 
@@ -234,6 +257,7 @@ phase 0, where it imports the port.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -327,9 +351,9 @@ TRAIN_COMPARE = (("smollm-135m", "float32"), ("deepseek-moe-16b", "float32"),
                  ("smollm-135m", "bfloat16"), ("deepseek-moe-16b", "bfloat16"))
 #: ... and at full width, cut in depth: (arch, compute dtype, layers, batch,
 #: sequence). Llama-3.2-3B's 128,256-entry untied head and its full-width
-#: decay rule, on its first 2 layers (0.99e9 parameters; the CPU's step
-#: holds ~20 GB of the host's memory).
-TRAIN_COMPARE_FULL = (("llama3.2-3b", "float32", 2, 2, 64),)
+#: decay rule, on its first layer (0.89e9 parameters; phase 21(b) holds 2
+#: layers against the card's own step).
+TRAIN_COMPARE_FULL = (("llama3.2-3b", "float32", 1, 2, 64),)
 #: (b) smollm-135m at full width and depth through ``launch.train.train``:
 #: steps, batch, sequence, microbatches; the mean loss of the last
 #: ``TRAIN_LAST`` steps must sit ``TRAIN_DROP`` below the first step's.
@@ -344,6 +368,26 @@ TRAIN_LAST, TRAIN_DROP = 10, 0.5
 TRAIN_FULL = (("llama3.2-3b", 3, 2, 1024, None), ("deepseek-moe-16b", 3, 4, 1024, 3))
 #: The card's memory a full-width training step may take at its peak.
 TRAIN_PEAK_GIB = 79.0
+#: Phase 21 (sharded training). (a) Gloo ranks sharing the card on this
+#: ("data", "model") mesh under ``DEFAULT_RULES``: one float32 step of each
+#: reduced (arch, microbatches, layers; None: all) at batch × sequence,
+#: against the one-rank step.
+SHARDED_TRAIN_MESH = (2, 2)
+SHARDED_TRAIN_COMPARE = (("smollm-135m", 1, None), ("deepseek-moe-16b", 1, None))
+SHARDED_TRAIN_BATCH, SHARDED_TRAIN_SEQ = 4, 16
+#: ``train(mesh=)``'s runs held against one rank's: the reference's default
+#: ``TrainConfig`` (its schedule's first rates, ~1e-7) at float32 compute
+#: (these fields of it).
+#: At a rate of 1e-3, AdamW's first step, g / (|g| + ε) an entry, turns
+#: float32 sum-order differences of gradients near ε into steps of ~lr and
+#: the losses part by ~1e-4 after it.
+SHARDED_TRAIN_CONFIG = {"compute_dtype": "float32"}
+#: (b) One NCCL rank a card, ``train(mesh=)`` at full width: (arch, steps,
+#: batch, sequence, layers; None: all); the second entry on four cards only.
+SHARDED_TRAIN_FULL = (("llama3.2-3b", 3, 2, 1024, None), ("deepseek-moe-16b", 3, 4, 1024, 3))
+#: ... and one float32 step at full width against the unsharded step on
+#: rank 0's card: (arch, layers, batch, sequence).
+SHARDED_TRAIN_CHECK = ("llama3.2-3b", 2, 2, 64)
 #: The routed experts' parts, each timed in a prefill: (``models.moe``
 #: function, part).
 MOE_PARTS = (("_route", "router/top-k"), ("_tables", "sort and tables"),
@@ -746,6 +790,564 @@ def gloo_cuda_probe() -> Optional[str]:
     return None
 
 
+def kernel_counters() -> dict:
+    """Each kernel's launching wrapper by name; its ``launches`` attribute
+    counts this process's launches."""
+    from repro_torch.kernels.charge_sweep import kernel as sweep_k
+    from repro_torch.kernels.flash_attention import kernel as fa_k
+    from repro_torch.kernels.flash_decode import kernel as fd_k
+    from repro_torch.kernels.latency_matmul import kernel as mm_k
+    from repro_torch.kernels.replay_step import kernel as replay_k
+    from repro_torch.kernels.rglru_scan import kernel as sc_k
+
+    return {"charge_sweep": sweep_k.charge_sweep_cuda,
+            "replay_chunk": replay_k.replay_chunk_cuda,
+            "accumulate": replay_k.accumulate_cuda,
+            "flash_attention": fa_k.flash_attention_cuda,
+            "latency_matmul": mm_k.matmul_cuda,
+            "rglru_scan": sc_k.rglru_scan_cuda,
+            "flash_decode": fd_k.flash_decode_cuda}
+
+
+def _summed_launches(torch, counters: dict, dev) -> dict:
+    """The counters' launches summed over the default process group."""
+    import torch.distributed as dist
+
+    total = torch.tensor([fn.launches for fn in counters.values()], dtype=torch.int64,
+                         device=dev)
+    dist.all_reduce(total)
+    return dict(zip(counters, total.tolist()))
+
+
+@contextlib.contextmanager
+def data_shards(n: int):
+    """Within the block, ``moe.moe_forward`` without a policy splits the
+    batch rows into ``n`` equal groups and dispatches each alone (capacity
+    from its own tokens), the load-balance losses averaged: what the
+    expert-parallel branch computes on a mesh whose batch axes have ``n``
+    shards, on one device. The one-rank oracle of a sharded step: it wraps
+    ``moe._local_dispatch`` for the block and puts it back after."""
+    import torch
+
+    from repro_torch.models import moe
+
+    whole = moe._local_dispatch
+
+    def grouped(p, x, cfg, e_lo, e_count, w):
+        if x.shape[0] % n:
+            raise ValueError(f"{x.shape[0]} rows in {n} data shards")
+        parts = [whole(p, xs, cfg, e_lo, e_count, w) for xs in x.chunk(n, dim=0)]
+        y = torch.cat([yp for yp, _ in parts], dim=0)
+        return y, torch.stack([a for _, a in parts]).mean()
+
+    moe._local_dispatch = grouped if n > 1 else whole
+    try:
+        yield
+    finally:
+        moe._local_dispatch = whole
+
+
+def sharded_step_vs_one_rank(arch: str, shape=(2, 2), axes=("data", "model"),
+                             device: str = "cpu", compute_dtype: str = "float32",
+                             batch: int = 4, seq: int = 16, microbatches: int = 1,
+                             reduced: bool = True, n_layers: Optional[int] = None,
+                             seed: int = 0, rules: Optional[dict] = None) -> dict:
+    """Rank body of phases 21(a) and (b) and of the CPU tests (every rank of
+    a process group of ``prod(shape)`` calls it): one training step of ``arch`` on a ``shape`` mesh of ``axes``
+    under ``rules`` (default ``DEFAULT_RULES``: TP, FSDP and, with experts,
+    EP), held against the one-rank step of the same state and batch on
+    rank 0's device. The state is drawn from ``seed`` on the device (on
+    every rank alike), the batch is step 0 of the data pipeline's global
+    batch, the schedule ``launch.train.compare_card_to_cpu``'s. With
+    experts the one-rank step runs under :func:`data_shards` of the mesh's
+    batch shards — the expert-parallel branch's capacity and load-balance loss
+    are each data shard's, as the reference's ``shard_map`` — and each
+    rank's routings are compared with its shard's. Returns, on every rank,
+    ``compare_card_to_cpu``'s keys (``launch.train.within_tolerance``
+    applies) and
+    the sharded step's ``step_ms`` and each rank's ``peak_device_bytes``
+    (None on the CPU)."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.data.pipeline import DataConfig, batch_for_step, shard_batch, to_device
+    from repro_torch.launch.mesh import auto_mesh
+    from repro_torch.launch.train import _compare_config, _rel, _route_flips, placed_state
+    from repro_torch.models import moe
+    from repro_torch.parallel.sharding import DEFAULT_RULES, ShardingPolicy, use_policy
+    from repro_torch.train.step import init_train_state, make_train_step
+    from repro_torch.tree import leaves
+
+    dev = (torch.device("cuda", torch.cuda.current_device()) if device.startswith("cuda")
+           else torch.device(device))
+    mesh = auto_mesh(shape, axes, dev)
+    rank = dist.get_rank()
+    cfg, tc = _compare_config(arch, compute_dtype, reduced, n_layers, microbatches)
+    pol = ShardingPolicy(mesh, dict(rules or DEFAULT_RULES))
+    np_batch = batch_for_step(cfg, DataConfig(seq_len=seq, global_batch=batch), 0,
+                              process=(0, 1))
+    b_pl = pol.placements(pol.fit(np_batch["labels"].shape, ("batch", None)))
+    groups = math.prod(mesh.size(i) for i, p in enumerate(b_pl) if isinstance(p, Shard))
+    group = sum(mesh.get_local_rank(i) * math.prod(
+        mesh.size(j) for j in range(i + 1, mesh.ndim) if isinstance(b_pl[j], Shard))
+        for i, p in enumerate(b_pl) if isinstance(p, Shard))
+    step = make_train_step(cfg, tc)
+    one = None
+    if rank == 0:
+        p1, o1 = init_train_state(torch.Generator(device=dev).manual_seed(seed), cfg, tc)
+        before = [t.clone() for t in leaves(p1)]
+        with moe.recording_routes() as r1, data_shards(groups if cfg.moe else 1):
+            p1, o1, m1 = step(p1, o1, to_device(np_batch, dev))
+        one = (p1, o1, m1, before, r1)
+    dist.barrier()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    params, opt = placed_state(torch.Generator(device=dev).manual_seed(seed), cfg, tc, pol)
+    data = shard_batch(np_batch, pol, dev)
+    t0 = time.perf_counter()
+    with use_policy(pol), moe.recording_routes() as rs:
+        params, opt, ms = step(params, opt, data)
+    loss = float(ms["loss"])
+    step_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    peaks = [None] * mesh.size()
+    dist.all_gather_object(peaks, peak)
+    routes = [None] * mesh.size()
+    dist.all_gather_object(routes, (group, [(i.cpu(), p.detach().cpu()) for i, p in rs]))
+    # Every rank gathers each leaf (a collective); rank 0 compares.
+    num = {"params": [0.0, 0.0], "update": [0.0, 0.0]}
+    moments = []
+    if rank == 0:
+        ones = list(zip(leaves(one[0]), leaves(one[1]["m"]), one[3]))
+    for i, (p, m) in enumerate(zip(leaves(params), leaves(opt["m"]))):
+        p, m = p.full_tensor(), m.full_tensor()
+        if rank == 0:
+            p1, m1_, b0 = ones[i]
+            for key, a, b in (("params", p, p1), ("update", p.double() - b0.double(),
+                                                    p1.double() - b0.double())):
+                a, b = a.double(), b.double()
+                num[key][0] += float(torch.sum((a - b) ** 2))
+                num[key][1] += float(torch.sum(b * b))
+            moments.append((_rel([(m, m1_)]), i))
+        del p, m
+    out = None
+    if rank == 0:
+        m1 = one[2]
+        out = {"loss": loss, "loss_err": _rel([(ms["loss"], m1["loss"])]),
+               "grad_norm_err": _rel([(ms["grad_norm"], m1["grad_norm"])]),
+               "skipped": float(ms["skipped"]) + float(m1["skipped"]),
+               "moe_calls": len(one[4]), "route_flips": 0, "flips_not_near_tie": 0,
+               "max_flip_gap": 0.0}
+        one_routes = one[4]
+        for g, rr in routes:  # the one-rank step's calls: layer by layer, group by group
+            _route_flips(out, rr, one_routes[g::groups], cfg, compute_dtype)
+        out["compared"] = out["route_flips"] == 0
+        for key, (a, b) in num.items():
+            out[key] = math.sqrt(a) / max(math.sqrt(b), 1e-300)
+        out["moments"], out["moments_leaf"] = max(moments)
+        out.update(step_ms=step_ms, peak_device_bytes=peaks, mesh=list(shape),
+                   batch_groups=groups)
+    obj = [out]
+    dist.broadcast_object_list(obj, src=0)
+    return obj[0]
+
+
+#: The error-fuse check of :func:`fuse_restore`: reduced smollm-135m cut to
+#: one layer, this many steps with a checkpoint after each, the parameters
+#: poisoned (NaN) before step ``FUSE_STEP``, and rank 0's write of the
+#: checkpoint pending then (``step_<FUSE_STEP>``) held back
+#: ``FUSE_WRITE_DELAY_S`` seconds, several steps' time (a rank that read
+#: without waiting for it would find the step before).
+FUSE_STEPS, FUSE_STEP, FUSE_WRITE_DELAY_S = 3, 2, 1.0
+
+
+def fuse_restore(dev, ckpt_dir: str, batch: int, seq: int) -> dict:
+    """Rank body: ``train(mesh=)`` on a ``SHARDED_TRAIN_MESH`` mesh with a
+    ``save_async`` after every step, rank 0's last write slowed, and a
+    non-finite step at ``FUSE_STEP``: the error fuse restores the latest
+    checkpoint on every rank. Returns the skipped steps, the step each
+    rank restored, the leaves whose gathered values after the restore
+    differ from that step's files, and the losses."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.ft import checkpoint as ckpt
+    from repro_torch.launch import train as lm_train
+    from repro_torch.launch.mesh import auto_mesh
+    from repro_torch.train.step import TrainConfig
+    from repro_torch.tree import leaves, walk
+
+    real_step, real_restore, real_write = (lm_train.make_train_step, ckpt.restore,
+                                           ckpt._write)
+    restored = []
+
+    def make_step(cfg, tc):
+        step_fn, calls = real_step(cfg, tc), [0]
+
+        def poisoned(params, opt, data):
+            calls[0] += 1
+            if calls[0] == FUSE_STEP + 1:
+                with torch.no_grad():
+                    next(iter(leaves(params))).to_local().fill_(float("nan"))
+            return step_fn(params, opt, data)
+
+        return poisoned
+
+    def restore(ckpt_dir_, state, step=None, **kw):
+        got, at = real_restore(ckpt_dir_, state, step=step, **kw)
+        cdir = os.path.join(ckpt_dir_, f"step_{at:010d}")
+        bad = 0
+        for path, t in walk(got["params"]):
+            whole = t.full_tensor().cpu()
+            name = "__".join(map(str, ("params",) + path)) + ".npy"
+            bad += not np.array_equal(whole.numpy(), np.load(os.path.join(cdir, name)))
+        restored.append((at, bad))
+        return got, at
+
+    def slow_write(ckpt_dir_, step, *a, **kw):
+        if step == FUSE_STEP:
+            time.sleep(FUSE_WRITE_DELAY_S)
+        return real_write(ckpt_dir_, step, *a, **kw)
+
+    lm_train.make_train_step, ckpt.restore = make_step, restore
+    if dist.get_rank() == 0:
+        ckpt._write = slow_write
+    try:
+        _, _, losses, rep = lm_train.train(
+            "smollm-135m", steps=FUSE_STEPS, batch=batch, seq=seq, device=dev, n_layers=1,
+            ckpt_dir=ckpt_dir, ckpt_every=1, log_every=FUSE_STEPS, return_report=True,
+            train_config=TrainConfig(**SHARDED_TRAIN_CONFIG),
+            mesh=auto_mesh(SHARDED_TRAIN_MESH, ("data", "model"), dev))
+    finally:
+        lm_train.make_train_step, ckpt.restore, ckpt._write = (real_step, real_restore,
+                                                               real_write)
+    by_rank = [None] * dist.get_world_size()
+    dist.all_gather_object(by_rank, (restored, losses))
+    return {"skipped": rep["skipped"], "restored_by_rank": [r for r, _ in by_rank],
+            "losses_by_rank": [x for _, x in by_rank]}
+
+
+def escaped_leaf(dev, batch: int, seq: int) -> str:
+    """Rank body: a train step under a ``SHARDED_TRAIN_MESH`` policy whose
+    batch was left plain (never placed). Returns the ``TypeError`` it
+    raises; no error fails the caller."""
+    import torch
+
+    import repro_torch.configs as lm_configs
+    from repro_torch.data.pipeline import DataConfig, batch_for_step, to_device
+    from repro_torch.launch.mesh import auto_mesh
+    from repro_torch.launch.train import placed_state
+    from repro_torch.parallel import sharding
+    from repro_torch.train.step import TrainConfig, make_train_step
+
+    cfg = dataclasses.replace(lm_configs.reduced("smollm-135m"), n_layers=1)
+    tc = TrainConfig(**SHARDED_TRAIN_CONFIG)
+    pol = sharding.ShardingPolicy(auto_mesh(SHARDED_TRAIN_MESH, ("data", "model"), dev),
+                                  dict(sharding.DEFAULT_RULES))
+    params, opt = placed_state(torch.Generator(device=dev).manual_seed(0), cfg, tc, pol)
+    data = to_device(batch_for_step(cfg, DataConfig(seq_len=seq, global_batch=batch), 0), dev)
+    try:
+        with sharding.use_policy(pol):
+            make_train_step(cfg, tc)(params, opt, data)
+    except TypeError as e:
+        return str(e)
+    raise AssertionError("a train step under a policy took a plain batch leaf")
+
+
+def sharded_train_parity(device: str, cases, batch: int, seq: int, train_case=None,
+                         ckpt_dir: Optional[str] = None, ep: Optional[dict] = None,
+                         fuse_dir: Optional[str] = None) -> dict:
+    """Rank body of phase 21(a) and of the CPU tests (four ranks, gloo):
+    with the kernels' counters set to 0, for each (arch, microbatches,
+    layers) of ``cases`` one float32 step on a ``SHARDED_TRAIN_MESH`` mesh
+    under ``DEFAULT_RULES`` against the one-rank step
+    (``sharded_step_vs_one_rank``); with ``train_case`` (arch,
+    steps, layers), ``train(mesh=)``'s losses at ``SHARDED_TRAIN_CONFIG``; with ``ckpt_dir``, reduced smollm-135m's parameters saved
+    under (2, 2) and restored under (4, 1) and (1, 4) (``restore(
+    shardings=)``): mismatching leaves and wrong placements counted; with
+    ``ep`` (numpy ``params`` of a reduced deepseek-moe-16b MoE layer and
+    ``x`` (B, S, d)), ``moe.moe_forward`` under the (2, 2) policy: the
+    gathered output and aux loss; with ``fuse_dir``, :func:`fuse_restore`
+    in it and :func:`escaped_leaf`. Returns the results and the kernels'
+    launches summed over the ranks (``device``: "cpu", or "cuda" for the
+    card each rank selected)."""
+    import torch
+
+    import repro_torch.configs as lm_configs
+    from repro_torch.ft import checkpoint as ckpt
+    from repro_torch.launch import train as lm_train
+    from repro_torch.launch.mesh import auto_mesh
+    from repro_torch.models import model as lm
+    from repro_torch.models import moe
+    from repro_torch.parallel import sharding
+    from repro_torch.train.step import TrainConfig
+    from repro_torch.tree import leaves, walk
+
+    dev = (torch.device("cuda", torch.cuda.current_device()) if device == "cuda"
+           else torch.device(device))
+    axes = ("data", "model")
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    out = {"compare": {}}
+    out["seconds"] = {}
+    for arch, micro, layers in cases:
+        t0 = time.perf_counter()
+        out["compare"][arch] = sharded_step_vs_one_rank(
+            arch, SHARDED_TRAIN_MESH, axes, device, "float32", batch, seq, micro,
+            n_layers=layers)
+        out["seconds"][arch] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if train_case is not None:
+        arch, steps, layers = train_case
+        out["train"] = lm_train.train(arch, steps=steps, batch=batch, seq=seq, device=dev,
+                                      n_layers=layers, log_every=steps,
+                                      train_config=TrainConfig(**SHARDED_TRAIN_CONFIG),
+                                      mesh=auto_mesh(SHARDED_TRAIN_MESH, axes, dev))[2]
+    out["seconds"]["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if ckpt_dir is not None:
+        cfg = lm_configs.reduced("smollm-135m")
+        params = lm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+        specs = lm.logical_specs(params, cfg)
+
+        def placed(shape):
+            pol = sharding.ShardingPolicy(auto_mesh(shape, axes, dev),
+                                          dict(sharding.DEFAULT_RULES))
+            return sharding.param_specs(specs, params, pol)
+
+        ckpt.save(ckpt_dir, 1, {"params": sharding.distribute(params, placed((2, 2)))})
+        out["elastic"] = {}
+        for shape in ((4, 1), (1, 4)):
+            want = placed(shape)
+            got, step = ckpt.restore(ckpt_dir, {"params": params},
+                                     shardings={"params": want})
+            pairs = list(zip(leaves(got["params"]), leaves(params), leaves(want)))
+            out["elastic"][shape] = {
+                "step": step, "leaves": len(pairs),
+                "mismatches": sum(not torch.equal(g.full_tensor(), p) for g, p, _ in pairs),
+                "wrong_placements": sum(tuple(g.placements) != w.placements
+                                        for g, _, w in pairs)}
+        out["params"] = {"/".join(map(str, path)): t.cpu().numpy()
+                         for path, t in walk(params)}
+    out["seconds"]["ckpt"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if ep is not None:
+        cfg = lm_configs.reduced("deepseek-moe-16b")
+        p = {k: (torch.from_numpy(v).to(dev) if not isinstance(v, dict) else
+                 {kk: torch.from_numpy(vv).to(dev) for kk, vv in v.items()})
+             for k, v in ep["params"].items()}
+        pol = sharding.ShardingPolicy(auto_mesh(SHARDED_TRAIN_MESH, axes, dev),
+                                      dict(sharding.DEFAULT_RULES))
+        dp = sharding.distribute(p, sharding.param_specs(lm.logical_specs(p, cfg), p, pol))
+        x = torch.from_numpy(ep["x"])
+        dx = sharding.from_whole(x, pol.mesh, pol.placements(("batch", None, None)), dev)
+        with torch.no_grad(), sharding.use_policy(pol):
+            y, aux = moe.moe_forward(dp, dx, cfg)
+        out["ep"] = {"y": y.full_tensor().cpu().numpy(), "aux": float(aux.full_tensor()),
+                     "expert_parallel": moe.expert_parallel(pol, cfg.moe)}
+    out["seconds"]["ep"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if fuse_dir is not None:
+        out["fuse"] = fuse_restore(dev, fuse_dir, batch, seq)
+        out["escaped"] = escaped_leaf(dev, batch, seq)
+    out["seconds"]["fuse"] = time.perf_counter() - t0
+    out["launches"] = _summed_launches(torch, counters, dev)
+    return out
+
+
+def sharded_train_main_path() -> dict:
+    """Rank body of phase 21(b), one NCCL rank a card: on the (1, 1) mesh
+    of one card or a (2, n / 2) mesh of n, with the kernels' counters set
+    to 0, ``train(mesh=)`` of each ``SHARDED_TRAIN_FULL`` entry (the second
+    on four or more cards only) at the default ``TrainConfig``; then the
+    ``SHARDED_TRAIN_CHECK`` step under ``make_policy``'s rules against the
+    unsharded step on rank 0's card. Returns each run's figures (each
+    rank's peak bytes), the check and the summed launches."""
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch.configs as lm_configs
+    from repro_torch.launch import train as lm_train
+    from repro_torch.launch.mesh import auto_mesh
+    from repro_torch.parallel import policies
+    from repro_torch.train.step import TrainConfig
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    world = dist.get_world_size()
+    shape = (1, 1) if world == 1 else (2, world // 2)
+    axes = ("data", "model")
+    mesh = auto_mesh(shape, axes, dev)
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    runs = {}
+    for i, (arch, steps, batch, seq, layers) in enumerate(SHARDED_TRAIN_FULL):
+        if i > 0 and world < 4:
+            continue
+        cfg = dataclasses.replace(lm_configs.get(arch),
+                                  n_layers=layers or lm_configs.get(arch).n_layers)
+        pol = policies.make_policy(mesh, cfg, "train", seq, batch)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        params, opt, losses, rep = lm_train.train(
+            arch, steps=steps, batch=batch, seq=seq, reduced=False, mesh=mesh, device=dev,
+            n_layers=layers, return_report=True, train_config=TrainConfig(), log_every=1)
+        runs[arch] = {"layers": cfg.n_layers, "params": cfg.param_count(), "batch": batch,
+                      "seq": seq, "losses": losses, "step_ms": rep["step_ms"],
+                      "peak_bytes_by_rank": rep["peak_device_bytes_by_rank"],
+                      "placed_bytes_by_rank": rep["placed_device_bytes_by_rank"],
+                      "rules": {k: list(v) for k, v in pol.sharding.rules.items()},
+                      "notes": list(pol.notes), "wall_s": time.perf_counter() - t0}
+        del params, opt
+    torch.cuda.empty_cache()
+    arch, layers, batch, seq = SHARDED_TRAIN_CHECK
+    cfg = dataclasses.replace(lm_configs.get(arch), n_layers=layers)
+    rules = policies.make_policy(mesh, cfg, "train", seq, batch).sharding.rules
+    check = sharded_step_vs_one_rank(arch, shape, axes, "cuda", "float32", batch, seq,
+                                              reduced=False, n_layers=layers, rules=rules)
+    return {"shape": list(shape), "runs": runs, "check": check,
+            "launches": _summed_launches(torch, counters, dev)}
+
+
+def sharded_train_phase(torch, dev) -> dict:
+    """Phase 21, sharded training (see the module docstring). Returns the
+    kernels' launches over (a) and (b), summed over ranks, and the
+    figures."""
+    import gc
+
+    from repro_torch.core import shard
+    from repro_torch.launch import train as lm_train
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k: 0 for k in kernel_counters()}
+    out = {}
+    ranks = SHARDED_TRAIN_MESH[0] * SHARDED_TRAIN_MESH[1]
+    refused = gloo_dtensor_refusal(ranks)
+    if refused:
+        log(f"21(a) left out: gloo refuses CUDA tensors on this torch build ({refused})")
+    else:
+        t0 = time.perf_counter()
+        got = shard.launch(sharded_train_parity, ranks, "cuda:0", "cuda",
+                           SHARDED_TRAIN_COMPARE, SHARDED_TRAIN_BATCH, SHARDED_TRAIN_SEQ)
+        for arch, r in got["compare"].items():
+            log(f"21(a) {ranks} gloo ranks on one card, {SHARDED_TRAIN_MESH} mesh, reduced "
+                f"{arch} float32 step against one rank: " + json.dumps(r))
+            if not lm_train.within_tolerance(r, "float32"):
+                fail(f"the sharded step of reduced {arch} on {ranks} gloo ranks is outside "
+                     f"{lm_train.STEP_TOL['float32']} of the one-rank step (or skipped, or "
+                     f"a flip away from a near-tie): {r}")
+        for k, v in got["launches"].items():
+            launches[k] += v
+        out["gloo"] = got["compare"]
+        log(f"21(a) done in {time.perf_counter() - t0:.1f} s (spawns included)")
+
+    cards = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    got = shard.launch(sharded_train_main_path, cards, "cuda")
+    wall = time.perf_counter() - t0
+    gib = 2.0 ** 30
+    for arch, r in got["runs"].items():
+        ms = r["step_ms"]
+        after = sorted(ms[1:]) or ms
+        med = after[len(after) // 2]
+        r["median_step_ms"] = med
+        r["tokens_per_s"] = r["batch"] * r["seq"] / (med / 1e3)
+        log(f"21(b) {cards} NCCL rank(s), mesh {tuple(got['shape'])}, {arch} full width "
+            f"({r['layers']} layers, {r['params']:,} parameters), {len(ms)} steps of "
+            f"{r['batch']} x {r['seq']}: losses {[round(x, 4) for x in r['losses']]}, step ms "
+            f"{[round(x, 1) for x in ms]}, median after the first {med:.1f} ms, "
+            f"{r['tokens_per_s']:,.0f} tokens/s, peak GiB by rank over the call "
+            f"{[round(b / gib, 2) for b in r['peak_bytes_by_rank']]} (up to the end of the "
+            f"placement {[round(b / gib, 2) for b in r['placed_bytes_by_rank']]}); rules "
+            f"{r['rules']}, "
+            f"notes {r['notes']}; {r['wall_s']:.1f} s")
+        if len(r["losses"]) != len(ms) or not all(math.isfinite(x) for x in r["losses"]):
+            fail(f"sharded training of {arch} skipped a step or gave a non-finite loss: {r}")
+        if max(r["peak_bytes_by_rank"]) / gib > TRAIN_PEAK_GIB:
+            fail(f"sharded training of {arch} peaked over {TRAIN_PEAK_GIB} GiB on a rank")
+    chk = got["check"]
+    arch, layers, batch, seq = SHARDED_TRAIN_CHECK
+    log(f"21(b) {arch} full width on {layers} layers, {batch} x {seq}, float32, mesh "
+        f"{tuple(got['shape'])} against the unsharded step on one card: " + json.dumps(chk))
+    if not lm_train.within_tolerance(chk, "float32"):
+        fail(f"the sharded full-width {arch} step is outside {lm_train.STEP_TOL['float32']} "
+             f"of the unsharded one: {chk}")
+    for k, v in got["launches"].items():
+        launches[k] += v
+    log(f"21(b) done in {wall:.1f} s (spawn included); kernel launches on the sharded "
+        f"training path {launches}")
+    if any(launches.values()):
+        fail(f"the sharded training path launched a kernel of this repository: {launches}")
+    out.update(runs=got["runs"], check=chk, shape=got["shape"], launches=launches)
+    return out
+
+
+#: The collectives DTensor issues on a (2, 2) mesh, probed in this order by
+#: :func:`gloo_dtensor_probe`.
+DTENSOR_COLLECTIVES = ("all_reduce", "all_gather", "reduce_scatter")
+
+
+def gloo_dtensor_probe() -> Optional[str]:
+    """Rank body (four ranks sharing a card over gloo): :func:`gloo_cuda_probe`,
+    then each collective that DTensor issues on a (2, 2) mesh of CUDA
+    tensors, values checked — ``all_reduce`` (partial sums replicated),
+    ``all_gather`` (a ``full_tensor`` of a tensor sharded on both axes) and
+    ``reduce_scatter`` (partial sums to shards). Returns the refusal of
+    :func:`gloo_cuda_probe` or None. Rank 0 logs each collective before it
+    runs: a build whose gloo cannot run one may end the rank (a
+    segmentation fault), and the log names the collective."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.launch.mesh import auto_mesh
+
+    refused = gloo_cuda_probe()
+    if refused:
+        return refused
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = auto_mesh(SHARDED_TRAIN_MESH, ("data", "model"), dev)
+    full = torch.arange(48, dtype=torch.float32, device=dev).reshape(8, 6)
+    r, c = mesh.get_local_rank(0), mesh.get_local_rank(1)
+    for op in DTENSOR_COLLECTIVES:
+        if dist.get_rank() == 0:
+            log(f"gloo DTensor probe: {op} on CUDA tensors")
+        if op == "all_gather":
+            x = DTensor.from_local(full[r * 4:(r + 1) * 4, c * 3:(c + 1) * 3].contiguous(),
+                                   mesh, (Shard(0), Shard(1)), run_check=False)
+            got, want = x.full_tensor(), full
+        else:
+            x = DTensor.from_local(full.clone(), mesh, (Partial(), Partial()), run_check=False)
+            want = full * 4
+            if op == "reduce_scatter":
+                got = x.redistribute(mesh, (Shard(0), Shard(1))).full_tensor()
+            else:
+                got = x.redistribute(mesh, (Replicate(), Replicate())).to_local()
+        if not torch.equal(got, want):
+            raise AssertionError(f"gloo {op} of a DTensor on CUDA tensors gave wrong values")
+    return None
+
+
+def gloo_dtensor_refusal(ranks: int) -> Optional[str]:
+    """Why ``ranks`` gloo ranks sharing card 0 cannot run sharded training
+    (:func:`gloo_dtensor_probe` in one spawn: gloo's refusal, or the rank
+    ended by a collective), or None where they can."""
+    from repro_torch.core import shard
+
+    try:
+        return shard.launch(gloo_dtensor_probe, ranks, "cuda:0")
+    except Exception as e:  # a rank ended by the collective itself
+        if "signal" not in str(e):
+            raise
+        return (f"a DTensor collective on gloo ranks sharing the card ended a rank (the "
+                f"probe's last logged collective): {type(e).__name__}: {e}")
+
+
 def sharded_main_path() -> dict:
     """Rank body of phase 18(b), one rank a card over NCCL: the kernels'
     counters set to 0, then ``serve_fleet.serve(sharded=True)`` at the full
@@ -758,24 +1360,10 @@ def sharded_main_path() -> dict:
     import torch
     import torch.distributed as dist
 
-    from repro_torch.core import shard
-    from repro_torch.kernels.charge_sweep import kernel as sweep_k
-    from repro_torch.kernels.flash_attention import kernel as fa_k
-    from repro_torch.kernels.flash_decode import kernel as fd_k
-    from repro_torch.kernels.latency_matmul import kernel as mm_k
-    from repro_torch.kernels.replay_step import kernel as replay_k
-    from repro_torch.kernels.rglru_scan import kernel as sc_k
     from repro_torch.launch import serve_fleet, trace_eval
 
     dev = torch.device("cuda", torch.cuda.current_device())
-    mesh = shard.fleet_mesh(device=dev)
-    counters = {"charge_sweep": sweep_k.charge_sweep_cuda,
-                "replay_chunk": replay_k.replay_chunk_cuda,
-                "accumulate": replay_k.accumulate_cuda,
-                "flash_attention": fa_k.flash_attention_cuda,
-                "latency_matmul": mm_k.matmul_cuda,
-                "rglru_scan": sc_k.rglru_scan_cuda,
-                "flash_decode": fd_k.flash_decode_cuda}
+    counters = kernel_counters()
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -797,10 +1385,8 @@ def sharded_main_path() -> dict:
     del ev
     per_rank = [None] * dist.get_world_size()
     dist.all_gather_object(per_rank, mine)
-    launches = shard.psum(torch.tensor([fn.launches for fn in counters.values()],
-                                       device=dev), mesh)
     return {"serve": serve, "eval_rows": rows, "per_rank": per_rank,
-            "launches": dict(zip(counters, launches.tolist()))}
+            "launches": _summed_launches(torch, counters, dev)}
 
 
 def sharded_phase(torch, dev, serve_score: dict, serve_switches: int) -> dict:
@@ -3064,6 +3650,12 @@ def main() -> None:
     if {m.split(".")[0] for m in sys.modules} & {"jax", "jaxlib", "repro"}:
         fail("the port imported JAX or the JAX package")
 
+    # ---- 21. sharded training -------------------------------------------------
+    phase("21. sharded training")
+    sharded_training = sharded_train_phase(torch, dev)
+    if {m.split(".")[0] for m in sys.modules} & {"jax", "jaxlib", "repro"}:
+        fail("the port imported JAX or the JAX package")
+
     # ---- 17. summary -----------------------------------------------------------
     phase("17. summary")
     by_path = {"serve": launches, "serve_decisions": dec_launches, "trace_eval": {
@@ -3072,7 +3664,8 @@ def main() -> None:
         **{f"lm_serve/{arch}": fam["launches"] for arch, fam in
            {**families, **experts}.items()},
         "altune": alt_launches, "profile": prof_launches,
-        "regions": reg["launches"], "sharded": shard_launches, "train": training["launches"]}
+        "regions": reg["launches"], "sharded": shard_launches, "train": training["launches"],
+        "sharded_train": sharded_training["launches"]}
 
     def counted(name: str) -> dict:
         """Launches of one kernel on each main path, as read around it."""

@@ -12,8 +12,14 @@ Weights are random, drawn from seed 0 on the device; a checkpoint in
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m --full \\
       --steps 50 --batch 8 --seq 1024 --microbatches 2
 
-Training on several cards (the reference's ``mesh=``) waits for ROADMAP
-item 9h.
+``train(mesh=)`` trains on the ranks of a ``DeviceMesh`` (every rank calls
+it; start them with ``torchrun`` or ``repro_torch.core.shard.launch``):
+``parallel.policies.make_policy(mesh, cfg, "train", seq, batch)`` chooses
+the placements, the parameters and moments are DTensors placed by
+``param_specs``, each step takes the reference's single-host global batch
+placed by ``data.pipeline.shard_batch``, and the loop runs under
+``use_policy``. Rank 0 alone prints and writes checkpoints (every rank
+gathers them).
 """
 
 from __future__ import annotations
@@ -29,12 +35,17 @@ import torch
 import repro_torch.configs as C
 from repro_torch import resolve_device
 from repro_torch.core.altune.runtime import AdaptiveExecutor, ConditionBins
-from repro_torch.data.pipeline import DataConfig, _process, batch_for_step, to_device
+from repro_torch.data.pipeline import (DataConfig, _process, batch_for_step, shard_batch,
+                                       to_device)
 from repro_torch.ft import checkpoint as ckpt
 from repro_torch.ft.monitor import FleetMonitor
 from repro_torch.launch.serve import FLIP_EPS
+from repro_torch.models import model as lm
 from repro_torch.models import moe
+from repro_torch.optim import adamw
 from repro_torch.optim.adamw import OptConfig
+from repro_torch.parallel import policies
+from repro_torch.parallel.sharding import ShardingPolicy, distribute, param_specs, use_policy
 from repro_torch.tree import leaves, tree_map
 from repro_torch.train.step import TrainConfig, init_train_state, make_train_step
 
@@ -78,10 +89,16 @@ def train(arch: str, steps: int = 200, batch: int = 8, seq: int = 128, reduced: 
     run, unless given. Returns (params, opt_state, losses) — with
     ``return_report`` also a report: each step's milliseconds (host clock
     around the step, data included, ending when its loss is read), the
-    skipped steps, the device and its peak bytes (None on the CPU)."""
-    if mesh is not None:
-        raise NotImplementedError("train(mesh=): training on several cards waits for "
-                                  "ROADMAP item 9h (sharded training)")
+    skipped steps, the device and its peak bytes (None on the CPU).
+
+    ``mesh``: a ``DeviceMesh`` of the ranks that call this together (see
+    the module docstring); the parameters and moments come back as
+    DTensors, and the report's peak is the largest over the ranks
+    (``peak_device_bytes_by_rank`` each rank's), taken over the whole call,
+    the placement of the state included; ``placed_device_bytes_by_rank``
+    is each rank's peak up to the end of the placement."""
+    if mesh is not None and not hasattr(mesh, "mesh_dim_names"):
+        raise TypeError(f"train(mesh=): a torch.distributed DeviceMesh, not {type(mesh)}")
     dev = resolve_device(device)
     cfg = C.reduced(arch) if reduced else C.get(arch)
     cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers)
@@ -91,12 +108,22 @@ def train(arch: str, steps: int = 200, batch: int = 8, seq: int = 128, reduced: 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
-    params, opt_state = init_train_state(torch.Generator(device=dev).manual_seed(0), cfg, tc)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pol = None
+    if mesh is None:
+        params, opt_state = init_train_state(gen, cfg, tc)
+    else:
+        pol = policies.make_policy(mesh, cfg, "train", seq, batch).sharding
+        params, opt_state = placed_state(gen, cfg, tc, pol)
+    placed_peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
     state = {"params": params, "opt": opt_state}
+    rank0 = _process()[0] == 0
     start_step = 0
-    if ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
-        _, start_step = ckpt.restore(ckpt_dir, state)
-        print(f"[train] resumed from step {start_step}")
+    # Under a process group every rank takes rank 0's view of ckpt_dir.
+    if ckpt_dir and (last := ckpt.agreed_latest_step(ckpt_dir)) is not None:
+        _, start_step = ckpt.restore(ckpt_dir, state, step=last)
+        if rank0:
+            print(f"[train] resumed from step {start_step}")
 
     step_fn = make_train_step(cfg, tc)
     dc = DataConfig(seq_len=seq, global_batch=batch)
@@ -112,8 +139,13 @@ def train(arch: str, steps: int = 200, batch: int = 8, seq: int = 128, reduced: 
     losses, step_ms, skipped = [], [], []
     for step in range(start_step, steps):
         t0 = time.perf_counter()
-        data = to_device(batch_for_step(cfg, dc, step), dev)
-        state["params"], state["opt"], metrics = step_fn(state["params"], state["opt"], data)
+        if pol is None:
+            data = to_device(batch_for_step(cfg, dc, step), dev)
+        else:  # the global batch, each rank's rows placed
+            data = shard_batch(batch_for_step(cfg, dc, step, process=(0, 1)), pol, dev)
+        with use_policy(pol):
+            state["params"], state["opt"], metrics = step_fn(state["params"], state["opt"],
+                                                             data)
         # One wait for the device a step: the loss and the fuse together.
         loss, skip = torch.stack([metrics["loss"], metrics["skipped"]]).tolist()
         dt = time.perf_counter() - t0
@@ -126,16 +158,17 @@ def train(arch: str, steps: int = 200, batch: int = 8, seq: int = 128, reduced: 
             skipped.append(step)
             monitor.record_error(host)
             executor.report_error(host)
-            if ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
-                if pending_ckpt is not None:
-                    pending_ckpt.result()
-                    pending_ckpt = None
-                ckpt.restore(ckpt_dir, state)
-                print(f"[train] step {step}: non-finite grads — restored")
+            if ckpt_dir and pending_ckpt is not None:
+                pending_ckpt.result()  # rank 0's write, before any rank looks
+                pending_ckpt = None
+            if ckpt_dir and (last := ckpt.agreed_latest_step(ckpt_dir)) is not None:
+                ckpt.restore(ckpt_dir, state, step=last)
+                if rank0:
+                    print(f"[train] step {step}: non-finite grads — restored step {last}")
                 continue
 
         losses.append(loss)
-        if step % log_every == 0:
+        if rank0 and step % log_every == 0:
             print(f"[train] step {step:5d} loss {loss:8.4f} "
                   f"gnorm {float(metrics['grad_norm']):8.3f} "
                   f"lr {float(metrics['lr']):.2e} {dt * 1e3:7.1f} ms mode={mode}", flush=True)
@@ -148,22 +181,57 @@ def train(arch: str, steps: int = 200, batch: int = 8, seq: int = 128, reduced: 
         pending_ckpt.result()
     if not return_report:
         return state["params"], state["opt"], losses
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
     report = {"device": str(dev), "step_ms": step_ms, "skipped": skipped,
-              "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
-                                    if dev.type == "cuda" else None)}
+              "peak_device_bytes": peak}
+    if mesh is not None:
+        by_rank = [None] * mesh.size()
+        torch.distributed.all_gather_object(by_rank, (peak, placed_peak))
+        report["peak_device_bytes_by_rank"] = [p for p, _ in by_rank]
+        report["placed_device_bytes_by_rank"] = [p for _, p in by_rank]
+        report["peak_device_bytes"] = None if peak is None else max(p for p, _ in by_rank)
     return state["params"], state["opt"], losses, report
+
+
+def placed_state(gen: torch.Generator, cfg, tc: TrainConfig, policy: ShardingPolicy):
+    """Parameters drawn from ``gen`` (the same draws on every rank, and as
+    ``init_train_state``'s), placed under ``policy`` by ``param_specs``
+    over ``logical_specs`` part by part as they are drawn (the embedding,
+    each layer, the final norm, the head: only one part is ever whole on a
+    device, every rank keeping its shards), and zero moments placed
+    alike."""
+    def place(part):
+        return distribute(part, param_specs(lm.logical_specs(part, cfg), part, policy))
+
+    placed = lm.init_params(gen, cfg, getattr(torch, tc.param_dtype), place=place)
+    return placed, adamw.init_opt_state(placed, tc.opt)
 
 
 def _rel(pairs) -> float:
     """‖a − b‖ / ‖b‖ over ``(a, b)`` pairs of tensors taken as one vector,
-    in float64 on the host, one pair at a time (a full-width tree is never
-    copied whole)."""
+    in float64 on ``a``'s device, one pair at a time (a full-width tree is
+    never copied whole)."""
     num = den = 0.0
     for a, b in pairs:
-        a, b = a.detach().cpu().double(), b.detach().cpu().double()
+        a = a.detach().double()
+        b = b.detach().to(a.device).double()
         num += float(torch.sum((a - b) ** 2))
         den += float(torch.sum(b * b))
     return math.sqrt(num) / max(math.sqrt(den), 1e-300)
+
+
+def _route_flips(out: dict, got, want, cfg, compute_dtype: str) -> None:
+    """Count into ``out`` the tokens whose expert set differs between the
+    routings ``got`` and ``want`` (lists of (experts, probs), call by call),
+    and those of them away from a near-tie of ``want``'s probabilities."""
+    for (ic, _), (ih, ph) in zip(got, want):
+        flip = (ic.to(ih.device).sort(-1).values != ih.sort(-1).values).any(-1)
+        top = ph.detach().sort(-1, descending=True).values
+        gap = top[:, cfg.moe.top_k - 1] - top[:, cfg.moe.top_k]
+        out["route_flips"] += int(flip.sum())
+        out["flips_not_near_tie"] += int((flip & (gap > STEP_FLIP_EPS[compute_dtype])).sum())
+        if flip.any():
+            out["max_flip_gap"] = max(out["max_flip_gap"], float(gap[flip].max()))
 
 
 def compare_card_to_cpu(arch: str, device: str | torch.device = "cuda",
@@ -185,10 +253,7 @@ def compare_card_to_cpu(arch: str, device: str | torch.device = "cuda",
     parameters, moments and update are compared only without one
     (``compared``)."""
     dev = resolve_device(device)
-    cfg = C.reduced(arch) if reduced else C.get(arch)
-    cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers)
-    tc = TrainConfig(compute_dtype=compute_dtype,
-                     opt=OptConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10))
+    cfg, tc = _compare_config(arch, compute_dtype, reduced, n_layers)
     host_p, host_o = init_train_state(torch.Generator().manual_seed(seed), cfg, tc)
     card_p, card_o = (tree_map(lambda t: t.to(dev, copy=True), x) for x in (host_p, host_o))
     before = [t.clone() for t in leaves(host_p)]
@@ -203,14 +268,7 @@ def compare_card_to_cpu(arch: str, device: str | torch.device = "cuda",
            "skipped": float(mc["skipped"]) + float(mh["skipped"]),
            "moe_calls": len(rh), "route_flips": 0, "flips_not_near_tie": 0,
            "max_flip_gap": 0.0}
-    for (ic, _), (ih, ph) in zip(rc, rh):
-        flip = (ic.cpu().sort(-1).values != ih.sort(-1).values).any(-1)
-        top = ph.detach().sort(-1, descending=True).values
-        gap = top[:, cfg.moe.top_k - 1] - top[:, cfg.moe.top_k]
-        out["route_flips"] += int(flip.sum())
-        out["flips_not_near_tie"] += int((flip & (gap > STEP_FLIP_EPS[compute_dtype])).sum())
-        if flip.any():
-            out["max_flip_gap"] = max(out["max_flip_gap"], float(gap[flip].max()))
+    _route_flips(out, rc, rh, cfg, compute_dtype)
     out["compared"] = out["route_flips"] == 0
     pc, ph_ = list(leaves(card_p)), list(leaves(host_p))
     out["params"] = _rel(zip(pc, ph_))
@@ -221,6 +279,15 @@ def compare_card_to_cpu(arch: str, device: str | torch.device = "cuda",
     out["update"] = _rel((c.detach().cpu().double() - b0.double(), h.double() - b0.double())
                          for c, h, b0 in zip(pc, ph_, before))
     return out
+
+
+def _compare_config(arch: str, compute_dtype: str, reduced: bool, n_layers: Optional[int],
+                    microbatches: int = 1):
+    cfg = C.reduced(arch) if reduced else C.get(arch)
+    cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers)
+    tc = TrainConfig(compute_dtype=compute_dtype, microbatches=microbatches,
+                     opt=OptConfig(peak_lr=1e-3, warmup_steps=1, total_steps=10))
+    return cfg, tc
 
 
 def within_tolerance(r: dict, compute_dtype: str) -> bool:

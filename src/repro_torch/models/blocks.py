@@ -28,6 +28,8 @@ import torch.nn.functional as F
 from repro_torch.kernels.flash_attention.ops import flash_attention, worst_case
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.rope import apply_rope
+from repro_torch.parallel.sharding import (constrain, current_policy, from_whole, is_dtensor,
+                                           reshape, use_policy)
 
 NEG_INF = -1e30
 
@@ -102,18 +104,71 @@ def _theta(cfg: ModelConfig, kind: str) -> float:
     return cfg.rope_theta
 
 
-def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig, positions, theta: float):
-    """Project + rope. Returns q (B,S,H,dh), k/v (B,S,Hk,dh)."""
+def _project(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    """q (B,S,H,dh), k/v (B,S,Hk,dh): the projections, qk-norm applied."""
     b, s, _ = x.shape
-    q = mm(x, p["wq"]).reshape(b, s, cfg.n_heads, cfg.d_head)
-    k = mm(x, p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
-    v = mm(x, p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    q = reshape(mm(x, p["wq"]), (b, s, cfg.n_heads, cfg.d_head))
+    k = reshape(mm(x, p["wk"]), (b, s, cfg.n_kv_heads, cfg.d_head))
+    v = reshape(mm(x, p["wv"]), (b, s, cfg.n_kv_heads, cfg.d_head))
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
-    q = apply_rope(q, positions, cfg, theta)
-    k = apply_rope(k, positions, cfg, theta)
     return q, k, v
+
+
+def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig, positions, theta: float):
+    """Project + rope. Returns q (B,S,H,dh), k/v (B,S,Hk,dh)."""
+    q, k, v = _project(p, x, cfg)
+    return apply_rope(q, positions, cfg, theta), apply_rope(k, positions, cfg, theta), v
+
+
+def _sharded_heads(fn, q, k, v, positions):
+    """``fn(q, k, v, positions)`` — rope and an attention core — on each
+    rank's local rows and heads of the DTensors ``q``, ``k``, ``v``: the
+    batch sharded as the policy's ``batch`` rule, q's heads as ``heads``
+    where they divide its axes (else replicated: every rank computes all
+    heads). Each rank gathers k and v over the head axes and keeps the KV
+    heads of its query heads (or, where the KV heads do not divide the
+    axes, repeats them to full heads first). The loop over KV chunks runs
+    on local tensors (``local_map``): what GSPMD shards over (batch, heads),
+    without a DTensor dispatch per op."""
+    import math
+
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    pol = current_policy()
+    mesh = q.device_mesh
+    q_pl = pol.placements(pol.fit(q.shape, ("batch", None, "heads", None)))
+    heads = [i for i, p in enumerate(q_pl) if isinstance(p, Shard) and p.dim == 2]
+    kv_pl = tuple(Replicate() if i in heads else p for i, p in enumerate(q_pl))
+    kv_grad = tuple(Partial() if i in heads else p for i, p in enumerate(q_pl))
+    pos_spec = (None, "batch", None) if positions.dim() == 3 else ("batch", None)
+    pos_pl = pol.placements(pol.fit(positions.shape, pos_spec))
+    if not is_dtensor(positions):
+        positions = from_whole(positions, mesh, pos_pl, q.to_local().device)
+    h, hk = q.shape[2], k.shape[2]
+    g = h // hk
+    n = math.prod(mesh.size(i) for i in heads)
+    h_loc = h // n
+
+    def local_fn(q, k, v, pos):
+        off = 0
+        for i in heads:  # the rank's index along the head axes, outer first
+            off = off * mesh.size(i) + mesh.get_local_rank(i)
+        off *= h_loc
+        if hk % n == 0:
+            k, v = k[:, :, off // g:(off + h_loc) // g], v[:, :, off // g:(off + h_loc) // g]
+        else:
+            k = k.repeat_interleave(g, dim=2)[:, :, off:off + h_loc]
+            v = v.repeat_interleave(g, dim=2)[:, :, off:off + h_loc]
+        with use_policy(None):
+            return (fn(q, k, v, pos),)
+
+    return local_map(local_fn, out_placements=(q_pl,),
+                     in_placements=(q_pl, kv_pl, kv_pl, pos_pl),
+                     in_grad_placements=(q_pl, kv_grad, kv_grad, pos_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v, positions)[0]
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -138,9 +193,10 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if g > 1:
         k = k.repeat_interleave(g, dim=2)
         v = v.repeat_interleave(g, dim=2)
-    qh = q.to(torch.float32).transpose(1, 2)      # (B,H,Sq,dh)
-    kt = k.transpose(1, 2)                        # (B,H,Skv,dh)
-    vt = v.transpose(1, 2)
+    qh = constrain(q.to(torch.float32).transpose(1, 2),   # (B,H,Sq,dh)
+                   ("batch", "heads", None, None))
+    kt = constrain(k.transpose(1, 2), ("batch", "heads", None, None))  # (B,H,Skv,dh)
+    vt = constrain(v.transpose(1, 2), ("batch", "heads", None, None))
     dev = q.device
     q_pos = torch.arange(sq, dtype=torch.int32, device=dev) + q_offset
 
@@ -194,8 +250,10 @@ def chunked_attention_skip(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if g > 1:
         k = k.repeat_interleave(g, dim=2)
         v = v.repeat_interleave(g, dim=2)
-    qh = q.to(torch.float32).transpose(1, 2)      # (B,H,Sq,dh)
-    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    qh = constrain(q.to(torch.float32).transpose(1, 2),   # (B,H,Sq,dh)
+                   ("batch", "heads", None, None))
+    kt = constrain(k.transpose(1, 2), ("batch", "heads", None, None))
+    vt = constrain(v.transpose(1, 2), ("batch", "heads", None, None))
     dev = q.device
     offs = torch.arange(chunk, dtype=torch.int32, device=dev)
 
@@ -256,23 +314,35 @@ def attention_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, kind: str,
 
     ``cache_len > 0``: additionally return a KVCache of that length
     (prefill). Local layers store the trailing window at rolling slots."""
-    q, k, v = _qkv(p, x, cfg, positions, _theta(cfg, kind))
+    theta = _theta(cfg, kind)
     window = cfg.window if kind == "local" else 0
-    if cfg.attn_impl == "pallas":
-        # The smallest tile instantiated at this head width, as the
-        # reference calls its WORST_CASE config.
-        out = flash_attention(q, k, v, causal=cfg.causal, window=window,
-                              config=worst_case(cfg.d_head))
-    elif cfg.attn_block_skip and (cfg.causal or window > 0):
-        # The reference's training form (static KV bounds) without a cache,
-        # its prefill form with one.
-        out = chunked_attention_skip(q, k, v, causal=cfg.causal, window=window,
-                                     chunk=cfg.chunk_len, static=(cache_len == 0))
+
+    def core(q, k, v):
+        if cfg.attn_impl == "pallas":
+            # The smallest tile instantiated at this head width, as the
+            # reference calls its WORST_CASE config.
+            return flash_attention(q, k, v, causal=cfg.causal, window=window,
+                                   config=worst_case(cfg.d_head))
+        if cfg.attn_block_skip and (cfg.causal or window > 0):
+            # The reference's training form (static KV bounds) without a
+            # cache, its prefill form with one.
+            return chunked_attention_skip(q, k, v, causal=cfg.causal, window=window,
+                                          chunk=cfg.chunk_len, static=(cache_len == 0))
+        return chunked_attention(q, k, v, causal=cfg.causal, window=window,
+                                 chunk=cfg.chunk_len)
+
+    if is_dtensor(x):
+        if cache_len:
+            raise NotImplementedError("a prefill that builds caches runs unsharded")
+        q, k, v = _project(p, x, cfg)
+        out = _sharded_heads(lambda q, k, v, pos: core(apply_rope(q, pos, cfg, theta),
+                                                       apply_rope(k, pos, cfg, theta), v),
+                             q, k, v, positions)
     else:
-        out = chunked_attention(q, k, v, causal=cfg.causal, window=window,
-                                chunk=cfg.chunk_len)
+        q, k, v = _qkv(p, x, cfg, positions, theta)
+        out = core(q, k, v)
     b, s = x.shape[:2]
-    y = mm(out.reshape(b, s, cfg.n_heads * cfg.d_head), p["wo"])
+    y = mm(reshape(out, (b, s, cfg.n_heads * cfg.d_head)), p["wo"])
     if cache_len == 0:
         return y
     length = min(cache_len, cfg.window) if kind == "local" else cache_len
@@ -320,7 +390,8 @@ def decode_attention(p: Params, x: torch.Tensor, cache: KVCache, pos: int,
     if g > 1:  # repeat KV heads to full heads, as the reference does
         k_use = k_use.repeat_interleave(g, dim=2)
         v_use = v_use.repeat_interleave(g, dim=2)
-    qh = q.to(torch.float32).reshape(b, cfg.n_heads, cfg.d_head)
+    qh = constrain(q.to(torch.float32).reshape(b, cfg.n_heads, cfg.d_head),
+                   ("batch", "heads", None))
     s = torch.einsum("bhd,blhd->bhl", qh, k_use.to(torch.float32)) * (cfg.d_head ** -0.5)
 
     idx = torch.arange(length, dtype=torch.int32, device=x.device)

@@ -5,9 +5,11 @@ a plain dictionary (``embed``, ``stack`` — a list of per-layer
 dictionaries, ``ln_f``, and ``head`` unless the embeddings are tied),
 drawn with the reference's distributions and scales from a
 ``torch.Generator`` on the device. :func:`lm_loss` is the training loss,
-differentiated by autograd. The reference's logical sharding specs
-(``logical_specs``, ``cache_logical_specs``) wait for ROADMAP item 9h, with
-the dry run and the sharded policies that read them.
+differentiated by autograd. :func:`logical_specs` and
+:func:`cache_logical_specs` give each parameter and cache leaf the
+reference's logical sharding spec (:mod:`repro_torch.parallel.sharding`
+maps them onto a mesh); under an active policy :func:`forward` constrains
+the embeddings and the logits where the reference does.
 """
 
 from __future__ import annotations
@@ -19,25 +21,32 @@ import torch
 from repro_torch.models import blocks, rglru, stack, xlstm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.rope import default_positions
+from repro_torch.parallel.sharding import constrain, grad_placed, is_dtensor, replicated_like
+from repro_torch.tree import tree_map
 
 
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
-def init_params(gen: torch.Generator, cfg: ModelConfig,
-                dtype=torch.float32) -> Dict[str, Any]:
+def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
+                place=None) -> Dict[str, Any]:
     """Random parameters on ``gen.device``: the embedding and head are
     Normal · d_model^-0.5, the stack as :func:`.stack.init_stack` draws it,
-    norm scales zero (the norm multiplies by 1 + scale)."""
-    p: Dict[str, Any] = {
-        "embed": blocks.init_dense(gen, (cfg.vocab_size, cfg.d_model),
-                                   cfg.d_model ** -0.5, dtype),
-        "stack": stack.init_stack(gen, cfg, dtype),
-        "ln_f": blocks.init_rmsnorm(cfg.d_model, gen.device),
-    }
+    norm scales zero (the norm multiplies by 1 + scale).
+
+    ``place``: called on each part as soon as it is drawn — ``{"embed":
+    ...}``, each layer's dictionary, ``{"ln_f": ...}``, ``{"head": ...}`` —
+    and its result kept in the part's stead, so that a caller placing the
+    state under a mesh never holds more than one part whole. The draws are
+    the same with or without it."""
+    part = place or (lambda tree: tree)
+    p: Dict[str, Any] = part({"embed": blocks.init_dense(
+        gen, (cfg.vocab_size, cfg.d_model), cfg.d_model ** -0.5, dtype)})
+    p["stack"] = [part(stack.init_layer(gen, cfg, i, dtype)) for i in range(cfg.n_layers)]
+    p.update(part({"ln_f": blocks.init_rmsnorm(cfg.d_model, gen.device)}))
     if not cfg.tie_embeddings:
-        p["head"] = blocks.init_dense(gen, (cfg.d_model, cfg.vocab_size),
-                                      cfg.d_model ** -0.5, dtype)
+        p.update(part({"head": blocks.init_dense(gen, (cfg.d_model, cfg.vocab_size),
+                                                 cfg.d_model ** -0.5, dtype)}))
     return p
 
 
@@ -59,10 +68,11 @@ def forward(params: Dict[str, Any], cfg: ModelConfig,
         x = embeds.to(params["embed"].dtype)
         b, s = x.shape[:2]
     else:
-        x = params["embed"][tokens]
+        x = _lookup(grad_placed(params["embed"]), tokens)
         b, s = tokens.shape
     if cfg.scale_embed:
         x = x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+    x = constrain(x, ("batch", None, None))
     if positions is None:
         offset = pos if mode == "decode" else 0
         positions = default_positions(cfg, b, s, offset, device=x.device)
@@ -72,9 +82,28 @@ def forward(params: Dict[str, Any], cfg: ModelConfig,
     if last_logits:
         x = x[:, -1:]
     x = blocks.rmsnorm(params["ln_f"], x, cfg.norm_eps)
-    head = params["embed"].t() if cfg.tie_embeddings else params["head"]
-    logits = blocks.mm(x, head)
+    head = grad_placed(params["embed"]).t() if cfg.tie_embeddings else params["head"]
+    logits = constrain(blocks.mm(x, head), ("batch", None, "vocab"))
     return logits, aux, caches_out
+
+
+def _lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``embed[tokens]``. On DTensor tokens, each rank looks up its own
+    token rows in the whole table (gathered): DTensor's rule for indexing
+    refuses tokens whose batch spans several mesh axes on torch 2.11. The
+    table's gradient is a partial sum over the axes that split the tokens."""
+    if not is_dtensor(tokens):
+        return embed[tokens]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, t_pl = tokens.device_mesh, tuple(tokens.placements)
+    e_grad = tuple(Partial() if isinstance(p, Shard) else Replicate() for p in t_pl)
+    fn = local_map(lambda e, t: (e[t],), out_placements=(t_pl,),
+                   in_placements=((Replicate(),) * mesh.ndim, t_pl),
+                   in_grad_placements=(e_grad, t_pl), device_mesh=mesh,
+                   redistribute_inputs=True)
+    return fn(embed, tokens)[0]
 
 
 def prefill(params, cfg: ModelConfig, cache_len: int, tokens=None, embeds=None,
@@ -113,7 +142,9 @@ def lm_loss(params: Dict[str, Any], cfg: ModelConfig, batch: Dict[str, torch.Ten
     < 0 are masked out. The label's logit is picked with a ``gather``: the
     reference sums a (B, S, V) masked copy of the logits, whose sum is the
     same single value (a sum of one value and zeros is exact) and whose
-    temporaries a vocabulary of 128k does not need. Returns (loss, {"ce",
+    temporaries a vocabulary of 128k does not need. On DTensor logits
+    (under a sharding policy) the port takes the reference's masked sum,
+    which keeps the vocabulary sharded. Returns (loss, {"ce",
     "aux", "z", "tokens"})."""
     logits, aux, _ = forward(params, cfg, tokens=batch.get("tokens"),
                              embeds=batch.get("embeds"), positions=batch.get("positions"),
@@ -124,13 +155,112 @@ def lm_loss(params: Dict[str, Any], cfg: ModelConfig, batch: Dict[str, torch.Ten
 
     lf = logits.to(torch.float32)
     lse = torch.logsumexp(lf, dim=-1)
-    picked = torch.gather(lf, -1, lab[..., None])[..., 0]
+    if is_dtensor(lf):
+        # The reference's masked reduction: the vocabulary stays sharded
+        # and each rank sums its slice (a DTensor gather along a sharded
+        # dimension is not supported).
+        vocab_iota = replicated_like(
+            torch.arange(lf.shape[-1], dtype=lab.dtype, device=lab.device), lf)
+        picked = torch.where(vocab_iota == lab[..., None], lf, 0.0).sum(-1)
+    else:
+        picked = torch.gather(lf, -1, lab[..., None])[..., 0]
     ce = (lse - picked) * valid
     n = torch.clamp_min(valid.sum(), 1.0)
     ce_mean = ce.sum() / n
     z_loss = z_coef * ((lse * valid) ** 2).sum() / n
     loss = ce_mean + aux_coef * aux + z_loss
     return loss, {"ce": ce_mean, "aux": aux, "z": z_loss, "tokens": n}
+
+
+# ---------------------------------------------------------------------------
+# Logical sharding specs
+# ---------------------------------------------------------------------------
+_RULES_2D = {
+    "wq": ("fsdp", "heads"), "wk": ("fsdp", "heads"), "wv": ("fsdp", "heads"),
+    "wo": ("heads", "fsdp"),
+    "w_gate": ("fsdp", "ff"), "w_up": ("fsdp", "ff"), "w_down": ("ff", "fsdp"),
+    "router": ("fsdp", None),
+    "w_gates": ("fsdp", None),
+    "w_x": ("fsdp", None),
+    "w_x_branch": ("fsdp", "state"), "w_gate_branch": ("fsdp", "state"),
+    "w_out": ("state", "fsdp"),
+    "conv": (None, "state"),
+    "embed": ("vocab", "fsdp"),
+    "head": ("fsdp", "vocab"),
+}
+_RULES_3D = {
+    "w_gate": ("experts", "fsdp", None),
+    "w_up": ("experts", "fsdp", None),
+    "w_down": ("experts", None, "fsdp"),
+    "r": ("heads", None, None),
+    "w_a": ("heads", None, None), "w_i": ("heads", None, None),
+}
+_RULES_1D = {
+    "lam": ("state",), "b_a": ("state",), "b_i": ("state",), "skip": ("ff",),
+}
+
+
+def _rule_for(name: str, base_ndim: int) -> Tuple:
+    if base_ndim >= 3 and name in _RULES_3D:
+        return _RULES_3D[name]
+    if base_ndim == 2 and name in _RULES_2D:
+        return _RULES_2D[name]
+    if base_ndim == 1 and name in _RULES_1D:
+        return _RULES_1D[name]
+    return (None,) * base_ndim  # replicated (norm scales, biases, …)
+
+
+def _named_walk(tree, path: Tuple = ()):
+    """(path, leaf) pairs with a named tuple's field names in its path (the
+    names the reference's caches carry)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_walk(v, path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        names = getattr(tree, "_fields", range(len(tree)))
+        for k, v in zip(names, tree):
+            yield from _named_walk(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def _spec_tree(tree, rule):
+    """A tree of ``tree``'s structure whose leaves are ``rule(name,
+    leaf)``, ``name`` the leaf's last key or field name."""
+    flat = iter([rule(path[-1], leaf) for path, leaf in _named_walk(tree)])
+    return tree_map(lambda _: next(flat), tree)
+
+
+def logical_specs(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """The parameter tree's logical sharding specs, a tuple a leaf. The
+    port's stack is a list of per-layer dictionaries, so each leaf has the
+    reference's rule for its own rank: the reference's spec of the same
+    leaf, less the leading ``None`` of its stacked group axis."""
+    return _spec_tree(params, lambda name, leaf: _rule_for(name, leaf.dim()))
+
+
+#: Decode cache leaves, keyed by (field name, base ndim). KV caches try
+#: kv_heads first; when the kv-head count doesn't divide the TP axis the
+#: head_dim picks it up (``physical`` assigns each mesh axis at most once).
+_CACHE_RULES = {
+    ("k", 4): ("batch", None, "kv_heads", "head_dim"),
+    ("v", 4): ("batch", None, "kv_heads", "head_dim"),
+    ("c", 4): ("batch", "heads", None, None),   # mLSTM matrix memory
+    ("n", 3): ("batch", "heads", None),
+    ("m", 2): ("batch", "heads"),
+    ("c", 3): ("batch", "heads", None),         # sLSTM scalar state
+    ("h", 3): ("batch", "heads", None),
+    ("m", 3): ("batch", "heads", None),
+    ("conv", 3): ("batch", None, "state"),
+    ("h", 2): ("batch", "state"),               # RG-LRU state
+}
+
+
+def cache_logical_specs(caches: List[Any], cfg: ModelConfig) -> List[Any]:
+    """The serving caches' logical specs, keyed by the field names of the
+    cache types (those of ``convert.lm_cache_to_numpy``)."""
+    return _spec_tree(caches, lambda name, leaf: _CACHE_RULES.get((name, leaf.dim()),
+                                                                  (None,) * leaf.dim()))
 
 
 # ---------------------------------------------------------------------------

@@ -31,11 +31,23 @@ Every (E, C) slot is multiplied whether it holds a token or not, so a
 decode step (T = batch) reads every expert's weights, at C ≥ 8 rows each:
 the reference's semantics, kept.
 
-Expert parallelism — the reference's ``shard_map`` branch over a
-``model`` mesh axis, taken only under a ``parallel.sharding`` policy —
-waits for ROADMAP item 9h's policies: :func:`moe_forward` runs the local
-branch, and :func:`_dispatch_compute_combine` keeps the expert range
-(``e_lo``, ``e_count``) that branch gives each rank.
+Under a ``parallel.sharding`` policy on a DeviceMesh, :func:`moe_forward`
+takes the reference's expert-parallel branch exactly where the reference
+does (:func:`expert_parallel`: a ``model`` axis larger than one that the
+``experts`` rule names and that divides E). It is the reference's
+``shard_map`` as ``local_map``: activations are replicated over
+``model``, so each ``model`` rank ``m`` owns experts ``[m·E_loc,
+(m+1)·E_loc)`` and runs the dispatch on its *data-local* tokens — the
+capacity from the local token count, as under ``shard_map`` — and the
+partial outputs are summed over ``model`` (a ``Partial`` placement made
+``Replicate``). The load-balance loss is each data shard's, averaged over
+the shards (the reference's ``pmean``). The sort, top-k, table writes,
+gathers and ``index_add_`` run on local tensors inside ``local_map``
+(DTensor refuses a plain index tensor beside a DTensor operand). Other
+policies (no ``model`` axis, or an ``experts`` rule without it) run the
+reference's global dispatch: every rank gathers all tokens and the
+experts' weights and computes the layer whole, a replicated copy, as
+GSPMD's sharding of the global program gives the same values.
 
 The steps are the module's functions ``_route`` (1), ``_tables`` (2–3),
 ``_gather``, ``_experts`` and ``_combine`` (4), called through the module,
@@ -52,6 +64,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import blocks
 from repro_torch.models.config import ModelConfig, MoEConfig
+from repro_torch.parallel.sharding import constrain, current_policy, is_dtensor
 
 Params = Dict[str, object]
 
@@ -212,15 +225,88 @@ def _dispatch_compute_combine(p_router, w_gate, w_up, w_down, x_flat: torch.Tens
     return _combine(out, tok_table, w_table, t), aux
 
 
-def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) → (y, aux_loss): the routed experts over all B·S tokens
-    (the reference's local branch; its expert-parallel branch waits for
-    ROADMAP item 9h), plus the shared experts."""
-    moe = cfg.moe
+def expert_parallel(pol, moe: MoEConfig) -> bool:
+    """The reference's test for its expert-parallel branch."""
+    return (pol is not None
+            and pol.shape.get("model", 1) > 1
+            and "model" in pol.rules.get("experts", ())
+            and moe.n_experts % pol.shape["model"] == 0)
+
+
+def _local_dispatch(p: Params, x: torch.Tensor, cfg: ModelConfig, e_lo: int,
+                    e_count: int, w) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, S, d) local rows → (partial y (B, S, d), aux) for experts
+    [e_lo, e_lo + e_count), ``w`` the (w_gate, w_up, w_down) of that range."""
     b, s, d = x.shape
-    y, aux = _dispatch_compute_combine(p["router"], p["w_gate"], p["w_up"], p["w_down"],
-                                       x.reshape(b * s, d), cfg, 0, moe.n_experts)
-    y = y.reshape(b, s, d)
+    y, aux = _dispatch_compute_combine(p["router"], *w, x.reshape(b * s, d), cfg, e_lo, e_count)
+    return y.reshape(b, s, d), aux
+
+
+def _expert_parallel(p: Params, x, cfg: ModelConfig, pol):
+    """The reference's ``shard_map`` branch over the DTensor ``x``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    world = mesh.size()
+    e_loc = cfg.moe.n_experts // pol.shape["model"]
+    x_pl = pol.placements(pol.fit(x.shape, ("batch", None, None)))
+    rep = (Replicate(),) * len(names)
+    part = (Partial(),) * len(names)
+    w_pl = tuple(Shard(0) if a == "model" else Replicate() for a in names)
+    w_grad = tuple(Shard(0) if a == "model" else Partial() for a in names)
+    # The model ranks of a data shard hold the same tokens and sum their
+    # partial outputs: over model, x's gradient and y are partial sums.
+    x_grad = tuple(Partial() if isinstance(pl, Replicate) else pl for pl in x_pl)
+    y_pl = tuple(Partial() if a == "model" else pl for a, pl in zip(names, x_pl))
+
+    def local_fn(router, wg, wu, wd, x_loc):
+        m = mesh.get_local_rank("model")
+        y, aux = _local_dispatch({"router": router}, x_loc, cfg, m * e_loc, e_loc,
+                                 (wg, wu, wd))
+        # Every rank's share of the mean over data shards (the model ranks
+        # of a shard compute the same aux): a Partial sum over all axes.
+        return y, aux / world
+
+    fn = local_map(local_fn, out_placements=(y_pl, part),
+                   in_placements=(rep, w_pl, w_pl, w_pl, x_pl),
+                   in_grad_placements=(part, w_grad, w_grad, w_grad, x_grad),
+                   device_mesh=mesh, redistribute_inputs=True)
+    y, aux = fn(p["router"], p["w_gate"], p["w_up"], p["w_down"], x)
+    return y, aux.redistribute(mesh, rep)
+
+
+def _replicated(p: Params, x, cfg: ModelConfig):
+    """The global dispatch over the DTensor ``x`` on every rank: all tokens
+    and the experts' weights gathered (a replicated copy of the layer)."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    rep = (Replicate(),) * mesh.ndim
+    fn = local_map(lambda router, wg, wu, wd, x_loc: _local_dispatch(
+                       {"router": router}, x_loc, cfg, 0, cfg.moe.n_experts, (wg, wu, wd)),
+                   out_placements=(rep, rep), in_placements=(rep,) * 5,
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(p["router"], p["w_gate"], p["w_up"], p["w_down"], x)
+
+
+def moe_forward(p: Params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) → (y, aux_loss): the routed experts, plus the shared
+    experts. Without a policy, over all B·S tokens at once (the reference's
+    local branch); on a DTensor ``x`` under a policy, the expert-parallel
+    branch where :func:`expert_parallel` holds, else the global dispatch on
+    every rank."""
+    moe = cfg.moe
+    pol = current_policy()
+    if pol is not None and is_dtensor(x):
+        y, aux = (_expert_parallel(p, x, cfg, pol) if expert_parallel(pol, moe)
+                  else _replicated(p, x, cfg))
+    else:
+        y, aux = _local_dispatch(p, x, cfg, 0, moe.n_experts,
+                                 (p["w_gate"], p["w_up"], p["w_down"]))
+    y = constrain(y, ("batch", None, None))
     if moe.n_shared > 0:
         y = y + blocks.ffn_forward(p["shared"], x, cfg)
     return y, aux

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from repro_torch.models import blocks
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.xlstm import _causal_conv, trailing_conv_inputs
+from repro_torch.parallel.sharding import replicated_like
 
 Params = Dict[str, torch.Tensor]
 
@@ -128,8 +129,8 @@ def rglru_block_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     gate = F.gelu(blocks.mm(x, p["w_gate_branch"]), approximate="tanh")
     conv_prev = cache.conv if cache is not None else None
     xc = _causal_conv(xb, p["conv"], conv_prev)
-    h0 = cache.h if cache is not None else torch.zeros(
-        (b, _d_rnn(cfg)), dtype=torch.float32, device=x.device)
+    h0 = cache.h if cache is not None else replicated_like(torch.zeros(
+        (b, _d_rnn(cfg)), dtype=torch.float32, device=x.device), x)
     hseq, h_final = rglru_scan(p, xc, cfg, h0)
     out = blocks.mm(hseq * gate, p["w_out"])
     if return_cache:

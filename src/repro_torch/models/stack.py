@@ -34,6 +34,7 @@ import torch.utils.checkpoint
 
 from repro_torch.models import blocks, moe, rglru, xlstm
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel.sharding import constrain, current_policy, use_policy
 from repro_torch.tree import leaves
 
 ATTN_KINDS = ("global", "local")
@@ -127,7 +128,7 @@ def apply_layer(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, kind: str,
             y = rglru.rglru_block_forward(p["rglru"], h, cfg)
     else:
         raise ValueError(f"unknown mixer kind {kind!r}")
-    x = x + y
+    x = constrain(x + y, ("batch", None, None))
     aux = None
     if "mix" in p:
         h2 = blocks.rmsnorm(p["ln2"], x, cfg.norm_eps)
@@ -135,7 +136,7 @@ def apply_layer(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, kind: str,
             y2, aux = moe.moe_forward(p["mix"], h2, cfg)
         else:
             y2 = blocks.ffn_forward(p["mix"], h2, cfg)
-        x = x + y2
+        x = constrain(x + y2, ("batch", None, None))
     return x, aux, new_cache
 
 
@@ -153,10 +154,18 @@ def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
             for i in range(cfg.n_layers)]
 
 
+@contextlib.contextmanager
+def _recompute(policy):
+    with use_policy(policy), moe.routes_paused():
+        yield
+
+
 def _recompute_context():
     """``checkpoint``'s (forward, recompute) contexts: the recompute in the
-    backward pass records no routes (each routing is logged once)."""
-    return contextlib.nullcontext(), moe.routes_paused()
+    backward pass records no routes (each routing is logged once) and runs
+    under the forward's sharding policy (the backward pass may run on
+    another thread, outside the caller's block)."""
+    return contextlib.nullcontext(), _recompute(current_policy())
 
 
 def apply_stack(params: List[Dict[str, Any]], x: torch.Tensor, cfg: ModelConfig,

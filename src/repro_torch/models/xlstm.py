@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import blocks
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel.sharding import replicated_like
 
 NEG_INF = -1e30
 
@@ -171,8 +172,8 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
                  prev: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Depthwise causal conv. x: (B,S,di), w: (W,di); prev: (B,W-1,di)."""
     width = w.shape[0]
-    pad = prev if prev is not None else torch.zeros(
-        (x.shape[0], width - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+    pad = prev if prev is not None else replicated_like(torch.zeros(
+        (x.shape[0], width - 1, x.shape[2]), dtype=x.dtype, device=x.device), x)
     xp = torch.cat([pad, x], dim=1)
     return sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(width))
 

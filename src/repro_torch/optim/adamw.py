@@ -12,6 +12,14 @@ writes each leaf in place, one leaf at a time: a step holds at most one
 leaf's float32 temporaries, never a second copy of the tree (Llama-3.2-3B
 has no room for one on an 80 GB card). ``finite`` gives the reference's
 error fuse (``jnp.where(finite, new, old)``) leaf by leaf.
+
+Under a sharding policy the parameters, gradients and both moments are
+DTensors of one placement a leaf (``parallel.sharding.param_specs``):
+:func:`apply_updates` steps each rank's local shards, and
+:func:`global_norm` sums each shard once (a replicated shard on the ranks
+at coordinate 0 of its replicated axes) and all-reduces the total over the
+process group, one collective a step, so every rank clips by the same norm
+and reaches the same error-fuse decision.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core.charge import div
+from repro_torch.parallel.sharding import is_dtensor
 from repro_torch.tree import leaves, tree_map
 
 
@@ -52,16 +61,45 @@ def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init_opt_state(params, cfg: OptConfig) -> Dict[str, Any]:
+    """Zero moments (placed as their parameters where those are DTensors)
+    and a 0-d step count."""
     dt = getattr(torch, cfg.state_dtype)
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)  # noqa: E731
-    dev = next(leaves(params)).device
+    zeros = lambda p: torch.zeros_like(p, dtype=dt)  # noqa: E731
+    p0 = next(leaves(params))
+    dev = p0.to_local().device if is_dtensor(p0) else p0.device
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def _owned(x) -> bool:
+    """Whether this rank counts its shard of the DTensor ``x``: the rank at
+    coordinate 0 of every mesh axis that replicates it."""
+    from torch.distributed.tensor import Shard
+
+    coord = x.device_mesh.get_coordinate()
+    return all(c == 0 for c, p in zip(coord, x.placements) if not isinstance(p, Shard))
+
+
 def global_norm(tree) -> torch.Tensor:
-    """√(Σ g²) over every leaf, each squared and summed in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in leaves(tree)))
+    """√(Σ g²) over every leaf, each squared and summed in float32. Over
+    DTensor leaves (each Shard or Replicate on every mesh axis): each shard
+    counted once, the sum all-reduced over the default process group (the
+    mesh must span it); a plain 0-d tensor, equal on every rank."""
+    ls = list(leaves(tree))
+    if not ls or not is_dtensor(ls[0]):
+        return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in ls))
+    import torch.distributed as dist
+
+    mesh = ls[0].device_mesh
+    if mesh.size() != dist.get_world_size():
+        raise ValueError(f"global_norm: a mesh of {mesh.size()} ranks in a process group of "
+                         f"{dist.get_world_size()}")
+    local = [g.to_local() for g in ls if _owned(g)]
+    total = torch.zeros((), dtype=torch.float32, device=ls[0].to_local().device)
+    for g in local:
+        total = total + torch.sum(torch.square(g.to(torch.float32)))
+    dist.all_reduce(total)
+    return torch.sqrt(total)
 
 
 def apply_updates(params, grads, state: Dict[str, Any], cfg: OptConfig,
@@ -89,9 +127,15 @@ def apply_updates(params, grads, state: Dict[str, Any], cfg: OptConfig,
     ps = list(leaves(params))
     if decay is None:
         decay = [p.dim() >= 2 for p in ps]
+    local = lambda t: t.to_local() if is_dtensor(t) else t  # noqa: E731
     with torch.no_grad():
         for p, g, m, v, dec in zip(ps, leaves(grads), leaves(state["m"]), leaves(state["v"]),
                                    decay):
+            if is_dtensor(p):  # the rank's shards, placed alike
+                if not (g.placements == m.placements == v.placements == p.placements):
+                    raise ValueError(f"placements differ: parameter {p.placements}, "
+                                     f"gradient {g.placements}")
+                p, g, m, v = (local(t) for t in (p, g, m, v))
             g32 = g.to(torch.float32) * scale
             m32 = m.to(torch.float32) * b1 + g32 * (1 - b1)
             v32 = v.to(torch.float32) * b2 + torch.square(g32) * (1 - b2)

@@ -26,6 +26,14 @@ clipping and AdamW; the port leaves them in the compute dtype, since the
 norm and the update upcast each leaf first, which gives the same values
 without a float32 copy of the gradient tree.
 
+Under a sharding policy (``parallel.sharding.use_policy`` around the call;
+the launcher's ``train(mesh=)``) the parameters and moments are DTensors
+placed by ``param_specs`` and the batch is a DTensor (``data.pipeline.
+shard_batch``): the forward, the per-layer recompute and autograd run on
+DTensors, each gradient is placed as its parameter, the loss and the
+global norm are plain tensors equal on every rank (so every rank takes the
+same error-fuse decision), and AdamW steps each rank's local shards.
+
 Attention must be differentiable: the flash-attention CUDA kernel has no
 backward pass (nor has the reference's Pallas kernel: ``jax.grad`` through
 it fails in ``pallas_call``'s JVP rule), so a config with ``attn_impl ==
@@ -43,6 +51,7 @@ from repro_torch.models import model as lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
 from repro_torch.optim import compress as gradcomp
+from repro_torch.parallel.sharding import MeshShape, current_policy, is_dtensor, require_placed
 from repro_torch.tree import leaves, tree_map, walk
 
 
@@ -62,7 +71,26 @@ class TrainConfig:
 
 def _split_micro(batch: Dict[str, torch.Tensor], n: int) -> List[Dict[str, torch.Tensor]]:
     """The batch as ``n`` microbatches, each a slice of the leading (batch)
-    dimension — of dimension 1 for M-RoPE's (3, B, S) ``positions``."""
+    dimension — of dimension 1 for M-RoPE's (3, B, S) ``positions``.
+
+    M-RoPE's positions are tested first. The reference
+    (``src/repro/train/step.py:47-50``) tests for a batch-leading leaf
+    first, so at a microbatch count that divides 3 it splits the positions'
+    stream axis instead (each microbatch gets one stream of all B rows) and
+    its step fails; the port splits the batch axis at every count.
+
+    A DTensor leaf (a sharded step's batch) is split on each rank's local
+    rows and each piece wrapped with the leaf's placements: microbatch
+    ``i`` holds every shard's ``i``-th slice (reshaping a sharded
+    dimension of the DTensor itself would redistribute it)."""
+    if any(is_dtensor(x) for x in batch.values()):
+        from torch.distributed.tensor import DTensor
+
+        local = _split_micro({k: x.to_local() if is_dtensor(x) else x
+                              for k, x in batch.items()}, n)
+        return [{k: DTensor.from_local(mb[k], x.device_mesh, x.placements, run_check=False)
+                 if is_dtensor(x) else mb[k] for k, x in batch.items()} for mb in local]
+
     def f(k, x):
         if k == "positions" and x.dim() == 3 and x.shape[0] == 3 and x.shape[1] % n == 0:
             return x.reshape((3, n, x.shape[1] // n) + tuple(x.shape[2:])).swapaxes(0, 1)
@@ -133,15 +161,28 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
         grads = torch.autograd.grad(loss, cleaves, allow_unused=True)
         # A leaf the loss does not read (the embedding of a config fed
         # embeddings) has a zero gradient, as under jax.grad.
-        return loss.detach(), [torch.zeros_like(c) if g is None else g
-                               for c, g in zip(cleaves, grads)]
+        grads = [torch.zeros_like(c) if g is None else g for c, g in zip(cleaves, grads)]
+        if is_dtensor(loss):
+            # Autograd leaves each gradient as sharding propagation placed
+            # it (partial sums, strided shards): place it as its parameter.
+            grads = [g.redistribute(c.device_mesh, c.placements) for c, g in zip(cleaves, grads)]
+            loss = loss.detach().full_tensor()
+        return loss.detach(), grads
 
     def train_step(params, opt_state, batch):
+        pol = current_policy()
+        if pol is not None and not isinstance(pol.mesh, MeshShape):
+            for what, tree in (("params", params), ("opt/m", opt_state["m"]),
+                               ("opt/v", opt_state["v"]), ("batch", batch)):
+                require_placed(tree, what)
         layout = reference_leaves(params, cfg)
         ranks = [r for r, _ in layout]
+        if tc.compress_grads and is_dtensor(next(leaves(params))):
+            raise NotImplementedError("compress_grads under a sharding policy is not ported: "
+                                      "its per-group scale needs a maximum over the mesh")
         if tc.microbatches > 1:
-            acc = [torch.zeros(p.shape, dtype=accum, device=p.device) for p in leaves(params)]
-            lsum = torch.zeros((), dtype=torch.float32, device=acc[0].device)
+            acc = [torch.zeros_like(p, dtype=accum) for p in leaves(params)]
+            lsum = torch.zeros((), dtype=torch.float32, device=opt_state["step"].device)
             for mb in _split_micro(batch, tc.microbatches):
                 loss, grads = grads_of(params, ranks, mb)
                 for a, g in zip(acc, grads):

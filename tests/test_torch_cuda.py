@@ -750,3 +750,61 @@ def test_flash_attention_kernel_refuses_autograd(cuda_device):
     with torch.no_grad():
         out = fa_ops.flash_attention(q, k, k)
     assert out.grad_fn is None and fa_kernel.flash_attention_cuda.launches == before + 1
+
+
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_sharded_train_step_on_card_matches_one_rank(cuda_device, backend):
+    """Phase 21 of chip_smoke: one float32 step of reduced smollm-135m and
+    deepseek-moe-16b (the expert-parallel branch) on a (2, 2) ``("data",
+    "model")`` mesh under ``DEFAULT_RULES`` against the one-rank step on the
+    card, within ``train.STEP_TOL["float32"]``: four gloo ranks sharing card
+    0, or one NCCL rank a card on four cards."""
+    from repro_torch.core import shard
+
+    ranks = chip_smoke.SHARDED_TRAIN_MESH[0] * chip_smoke.SHARDED_TRAIN_MESH[1]
+    if backend == "gloo":
+        refused = chip_smoke.gloo_dtensor_refusal(ranks)
+        if refused:
+            pytest.skip(f"gloo cannot run DTensor's collectives on CUDA tensors: {refused}")
+        device = "cuda:0"
+    else:
+        cards = torch.cuda.device_count()
+        if cards < ranks:
+            pytest.skip(f"needs {ranks} cards for one NCCL rank a card of the "
+                        f"{chip_smoke.SHARDED_TRAIN_MESH} mesh, this machine has {cards}")
+        device = "cuda"
+    got = shard.launch(chip_smoke.sharded_train_parity, ranks, device, "cuda",
+                       chip_smoke.SHARDED_TRAIN_COMPARE, chip_smoke.SHARDED_TRAIN_BATCH,
+                       chip_smoke.SHARDED_TRAIN_SEQ)
+    for arch, r in got["compare"].items():
+        assert lm_train.within_tolerance(r, "float32"), (arch, r)
+    assert not any(got["launches"].values()), got["launches"]
+
+
+def test_elastic_restore_on_card(cuda_device, tmp_path):
+    """Parameters saved on four ranks under a (2, 2) mesh restore bitwise
+    under (4, 1) and (1, 4), each leaf placed as the new mesh's policy
+    says, on the cards: one NCCL rank a card on four cards, else four gloo
+    ranks sharing card 0 where gloo runs DTensor's collectives on CUDA
+    tensors. On the same ranks, the error fuse of ``train(mesh=)`` with
+    rank 0's checkpoint write pending restores one step on every rank
+    (``chip_smoke.fuse_restore``)."""
+    from repro_torch.core import shard
+
+    if torch.cuda.device_count() >= 4:
+        device = "cuda"
+    else:
+        refused = chip_smoke.gloo_dtensor_refusal(4)
+        if refused:
+            pytest.skip(f"fewer than 4 cards, and gloo cannot run DTensor's collectives on "
+                        f"CUDA tensors: {refused}")
+        device = "cuda:0"
+    got = shard.launch(chip_smoke.sharded_train_parity, 4, device, "cuda", (),
+                       chip_smoke.SHARDED_TRAIN_BATCH, chip_smoke.SHARDED_TRAIN_SEQ, None,
+                       str(tmp_path / "ckpt"), None, str(tmp_path / "fuse"))
+    for shape, r in got["elastic"].items():
+        assert r["leaves"] and r["mismatches"] == 0 and r["wrong_placements"] == 0, (shape, r)
+    at = chip_smoke.FUSE_STEP
+    assert got["fuse"]["skipped"] == [at], got["fuse"]
+    assert got["fuse"]["restored_by_rank"] == [[(at, 0)]] * 4, got["fuse"]
+    assert "escaped placement" in got["escaped"]

@@ -47,9 +47,14 @@ def test_roundtrip(tmp_path, state):
     assert man["files"]["params/stack/3/attn/wq"]["shape"] == [96, 96]
 
 
+#: Seconds a test waits for the writer thread before it fails (a write of
+#: the reduced state takes milliseconds).
+WAIT_S = 120.0
+
+
 def test_async_and_latest(tmp_path, state):
-    ckpt.save_async(tmp_path, 1, state).result()
-    ckpt.save_async(tmp_path, 2, state).result()
+    ckpt.save_async(tmp_path, 1, state).result(timeout=WAIT_S)
+    ckpt.save_async(tmp_path, 2, state).result(timeout=WAIT_S)
     assert ckpt.latest_step(tmp_path) == 2
 
 
@@ -60,14 +65,16 @@ def test_async_save_holds_the_state_of_its_call(tmp_path, state, monkeypatch):
     pool = ckpt.cf.ThreadPoolExecutor(max_workers=1)
     monkeypatch.setattr(ckpt, "_POOL", pool)
     release = threading.Event()
-    pool.submit(release.wait)
+    pool.submit(release.wait, WAIT_S)
     before = tree_map(torch.clone, state)
-    fut = ckpt.save_async(tmp_path, 4, state)
-    with torch.no_grad():
-        for t in leaves(state):
-            t.add_(1)
-    release.set()
-    fut.result()
+    try:
+        fut = ckpt.save_async(tmp_path, 4, state)
+        with torch.no_grad():
+            for t in leaves(state):
+                t.add_(1)
+    finally:
+        release.set()
+    fut.result(timeout=WAIT_S)
     pool.shutdown()
     restored, step = ckpt.restore(tmp_path, _zeros_like(state))
     assert step == 4
@@ -104,9 +111,16 @@ def test_shape_mismatch_rejected(tmp_path, state):
 
 
 def test_elastic_restore_waits_for_sharded_training(tmp_path, state):
+    """``restore(shardings=)`` returns a new tree and leaves ``state_like``
+    as it was; with no leaf placed (no mesh) every leaf is restored as
+    without it. Placement under a mesh: tests/test_torch_sharded_train.py."""
     ckpt.save(tmp_path, 1, state)
-    with pytest.raises(NotImplementedError, match="9h"):
-        ckpt.restore(tmp_path, state, shardings={})
+    like = tree_map(lambda t: torch.zeros_like(t) if isinstance(t, torch.Tensor) else t, state)
+    got, step = ckpt.restore(tmp_path, like, shardings={})
+    assert step == 1 and got is not like
+    for a, b, z in zip(leaves(got), leaves(state), leaves(like)):
+        if isinstance(b, torch.Tensor):
+            assert torch.equal(a, b) and not z.any()
 
 
 def test_monitor_straggler_and_plan():
@@ -148,5 +162,10 @@ def test_train_resume_replays_the_run(tmp_path):
 
 
 def test_train_launcher_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="9h"):
-        train("smollm-135m", steps=1, mesh=object(), device="cpu")
+    """``train(mesh=)`` takes a DeviceMesh (tests/test_torch_sharded_train.py
+    trains on one); a mesh without devices, the rule-work ``MeshShape``, is
+    refused."""
+    from repro_torch.parallel.sharding import MeshShape
+
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        train("smollm-135m", steps=1, mesh=MeshShape(("data",), (1,)), device="cpu")
