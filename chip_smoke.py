@@ -130,8 +130,8 @@ Phases, each of which exits non-zero on failure:
    ``kernel.tolerance``; the RG-LRU scan at (8, 4096, 4096) float32 (timed)
    and ragged S and D in float32 and bfloat16, 0 mismatching words; flash
    decode at B 8, L 32,768, H 64, Hk 8, dh 128 with lengths 32,768 (timed
-   beside ``scaled_dot_product_attention``), 1,000 and 1, and in bfloat16,
-   within ``kernel.tolerance``.
+   beside ``scaled_dot_product_attention``), 1,000 and 1, and in bfloat16
+   (timed, also beside SDPA), within ``kernel.tolerance``.
 13. The tile gate against the card: for every instantiated tile of the four
    altune kernels (the float32 matmul's cp.async and register-path builds
    both), the cost model's verdict and its shared memory (static plus the
@@ -241,10 +241,39 @@ Phases, each of which exits non-zero on failure:
    of Llama-3.2-3B at full width on its first 2 layers held against the
    unsharded step on rank 0's card. Every kernel's count is read around
    (a) and (b) on each rank and summed: the path runs none.
+22. The cost model, the dry run and the step tuner (run after 21): (c)
+   first, ``core.altune.steptuner.tune_train_cell`` for phase 20(c)'s cell
+   (Llama-3.2-3B whole, 2 × 1,024, the default ``TrainConfig``) on one
+   card at its budget, and its chosen candidate for 3 steps through
+   ``train(cfg=)`` as 20(c) ran the baseline, from the same state and
+   batches: the chosen one's measured peak within the budget and each loss
+   within ``STEP_TOL["bfloat16"]`` of 20(c)'s; both step times printed;
+   then (a) and (b) side by side, each ``launch.dryrun.run_cell`` in a
+   process of its own on the host's CPU (a fake-tensor step of 16
+   microbatches takes minutes of one CPU core; nothing of it touches the
+   card), with nothing else running: (a) Llama-3.2-3B × train_4k on a fake
+   (16, 16) process group: it must complete, and its per-rank state bytes
+   from the local shards must equal ``analytic.tree_device_bytes`` of the
+   same policy's specs over a ``MeshShape``; its record is printed; (b)
+   20(c)'s cell on a (1, 1) mesh: its predicted peak (MemTracker) and the
+   analytic memory model beside the peak 20(c) measured, and the roofline
+   lower bound at the H100's constants beside 20(c)'s median step; a cell
+   that the dry run says fits 79 GiB must run without running out of
+   memory;
+   (d) with four or more cards only (else its reason is printed):
+   chatglm3-6b whole on a (2, 2) mesh under ``make_policy``, 3 steps of 4
+   × 1,024 through ``train(mesh=)`` at the default ``TrainConfig`` (no
+   card over 79 GiB, finite losses, the last below the first), its
+   float32 step at full width on 2 layers against the unsharded one on
+   one card, and reduced xlstm-125m's sharded step against one rank (both
+   within ``STEP_TOL["float32"]``). Every kernel's count is
+   read around (c) and (d): the path runs none. The phase's time is
+   printed.
 17. One JSON line describing each kernel (``launches_by_path`` with
    ``"sharded"``: phase 18(b)'s launches, ``"lm_serve/<arch>"``: phase
-   11b–c's and 19's, ``"train"``: phase 20(b)–(d)'s and
-   ``"sharded_train"``: phase 21's; flash attention's
+   11b–c's and 19's, ``"train"``: phase 20(b)–(d)'s,
+   ``"sharded_train"``: phase 21's and ``"cost_model"``: phase 22's;
+   flash attention's
    ``by_head_dim``: the timed cases of other widths); the card's name and
    power limit; the last line ``{"ok": true, "device": {...}}``.
 
@@ -388,6 +417,26 @@ SHARDED_TRAIN_FULL = (("llama3.2-3b", 3, 2, 1024, None), ("deepseek-moe-16b", 3,
 #: ... and one float32 step at full width against the unsharded step on
 #: rank 0's card: (arch, layers, batch, sequence).
 SHARDED_TRAIN_CHECK = ("llama3.2-3b", 2, 2, 64)
+#: Phase 22. (a) The dry run at a production mesh: (arch, cell, the dry
+#: run's ``--mesh``: "single", the (16, 16) pod).
+DRYRUN_PRODUCTION = ("llama3.2-3b", "train_4k", "single")
+#: (b, c) Phase 20(c)'s cell, ``TRAIN_FULL``'s first: the dry run on one
+#: card's (1, 1) mesh, and the tuner's choice run as 20(c) ran the baseline.
+COST_CELL = TRAIN_FULL[0]
+#: (d) Four cards, a (2, 2) mesh: ``train(mesh=)`` of (arch, steps, batch,
+#: sequence) whole, and reduced (arch, layers, batch, sequence)'s sharded
+#: float32 step against one rank.
+#: It trains at the reference's default ``TrainConfig``, whose warmup keeps
+#: the first updates at ~1e-7: at a peak rate reached in one step
+#: (``train()``'s own schedule for 3 steps), AdamW's first updates move
+#: every one of the 6.2e9 parameters by the rate and the loss rose on four
+#: cards (1e-3: 11.66, 10.57, 13.67; 1e-4: 11.66, 13.02, 22.38).
+FOUR_CARD_TRAIN = ("chatglm3-6b", 3, 4, 1024)
+FOUR_CARD_CHECK = ("xlstm-125m", 4, 4, 16)
+#: ... and that arch's float32 step at full width on its first layers under
+#: ``make_policy``'s rules against the unsharded step on rank 0's card:
+#: (arch, layers, batch, sequence).
+FOUR_CARD_FULL_CHECK = ("chatglm3-6b", 2, 2, 64)
 #: The routed experts' parts, each timed in a prefill: (``models.moe``
 #: function, part).
 MOE_PARTS = (("_route", "router/top-k"), ("_tables", "sort and tables"),
@@ -1284,6 +1333,208 @@ def sharded_train_phase(torch, dev) -> dict:
     if any(launches.values()):
         fail(f"the sharded training path launched a kernel of this repository: {launches}")
     out.update(runs=got["runs"], check=chk, shape=got["shape"], launches=launches)
+    return out
+
+
+def four_card_main_path() -> dict:
+    """Rank body of phase 22(d), one NCCL rank a card on a (2, 2) mesh:
+    with the kernels' counters set to 0, ``train(mesh=)`` of
+    ``FOUR_CARD_TRAIN`` whole under ``make_policy``'s placements at the
+    default ``TrainConfig``, then ``FOUR_CARD_FULL_CHECK``'s and
+    ``FOUR_CARD_CHECK``'s sharded float32 steps against one rank. Returns
+    the run's figures, the checks and the summed launches."""
+    import torch
+
+    import repro_torch.configs as lm_configs
+    from repro_torch.launch import train as lm_train
+    from repro_torch.launch.mesh import auto_mesh
+    from repro_torch.parallel import policies
+    from repro_torch.train.step import TrainConfig
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    shape, axes = (2, 2), ("data", "model")
+    mesh = auto_mesh(shape, axes, dev)
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    arch, steps, batch, seq = FOUR_CARD_TRAIN
+    pol = policies.make_policy(mesh, lm_configs.get(arch), "train", seq, batch)
+    t0 = time.perf_counter()
+    _, _, losses, rep = lm_train.train(arch, steps=steps, batch=batch, seq=seq, reduced=False,
+                                       mesh=mesh, device=dev, train_config=TrainConfig(),
+                                       return_report=True, log_every=1)
+    run = {"losses": losses, "step_ms": rep["step_ms"],
+           "peak_bytes_by_rank": rep["peak_device_bytes_by_rank"],
+           "placed_bytes_by_rank": rep["placed_device_bytes_by_rank"],
+           "notes": list(pol.notes), "wall_s": time.perf_counter() - t0}
+    torch.cuda.empty_cache()
+    arch, layers, batch, seq = FOUR_CARD_FULL_CHECK
+    cfg = dataclasses.replace(lm_configs.get(arch), n_layers=layers)
+    rules = policies.make_policy(mesh, cfg, "train", seq, batch).sharding.rules
+    full = sharded_step_vs_one_rank(arch, shape, axes, "cuda", "float32", batch, seq,
+                                    reduced=False, n_layers=layers, rules=rules)
+    arch, layers, batch, seq = FOUR_CARD_CHECK
+    check = sharded_step_vs_one_rank(arch, shape, axes, "cuda", "float32", batch, seq,
+                                     n_layers=layers)
+    return {"run": run, "full_check": full, "check": check,
+            "launches": _summed_launches(torch, counters, dev)}
+
+
+def cost_model_phase(torch, dev, zero_counts, read_counts, training) -> dict:
+    """Phase 22 (see the module docstring). ``training``: phase 20's
+    figures, whose (c) is (c)'s baseline. Returns the figures and the
+    launches of (c) and (d)."""
+    import concurrent.futures
+    import statistics
+
+    import repro_torch.configs as lm_configs
+    from repro_torch.core import shard
+    from repro_torch.core.altune import steptuner
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as lm_train
+    from repro_torch.parallel import policies
+    from repro_torch.parallel.sharding import MeshShape
+    from repro_torch.train.step import TrainConfig
+
+    gib = 2.0 ** 30
+    t_phase = time.perf_counter()
+    out = {}
+    arch, steps, batch, seq, _ = COST_CELL
+    cfg = lm_configs.get(arch)
+    cell = lm_configs.ShapeCell(f"train_{batch}x{seq}", seq, batch, "train")
+    base_tc = TrainConfig()
+
+    # (c) The tuner at the card's budget; its choice run as phase 20(c) ran
+    # the baseline.
+    mesh = MeshShape(("data", "model"), (1, 1))
+    pol = policies.make_policy(mesh, cfg, "train", seq, batch)
+    tuned = steptuner.tune_train_cell(cfg, batch, seq, pol, mesh,
+                                      dryrun.state_bytes(cfg, cell, (1, 1), base_tc))
+    cand = tuned.candidate
+    log(f"22(c) tuner at {steptuner.HBM_BUDGET / gib:.0f} GiB: {cand.describe()} "
+        f"(bound {tuned.bound_s * 1e3:.3f} ms, {tuned.bottleneck}; baseline bound "
+        f"{tuned.baseline_bound_s * 1e3:.3f} ms, speedup x{tuned.speedup:.4f}; modelled "
+        f"{tuned.mem_gb} GiB, feasible {tuned.feasible})")
+    chosen_tc = dataclasses.replace(base_tc, microbatches=cand.microbatches,
+                                    remat_offload=cand.remat_offload)
+    chosen_cfg = dataclasses.replace(cfg, attn_block_skip=cand.block_skip,
+                                     chunk_len=cand.chunk_len)
+    zero_counts()
+    torch.cuda.empty_cache()
+    try:
+        got = lm_train.train(arch, steps=steps, batch=batch, seq=seq, reduced=False,
+                             cfg=chosen_cfg, train_config=chosen_tc, device=dev, log_every=1,
+                             return_report=True)
+    except torch.cuda.OutOfMemoryError as e:
+        fail(f"the tuner's choice ran out of memory (modelled {tuned.mem_gb} GiB): {e}")
+    losses, rep = got[2], got[3]
+    del got
+    torch.cuda.empty_cache()
+    launches = read_counts()
+    p20 = training[arch]
+    runs = {"baseline": {"losses": p20["losses"], "step_ms": p20["step_ms"],
+                         "peak_gib": p20["peak_gib"]},
+            "chosen": {"losses": losses, "step_ms": rep["step_ms"],
+                       "peak_gib": (rep["peak_device_bytes"] or 0) / gib}}
+    for name, c, tc in (("baseline", cfg, base_tc), ("chosen", chosen_cfg, chosen_tc)):
+        r = runs[name]
+        r["median_step_ms"] = statistics.median(r["step_ms"][1:])
+        log(f"22(c) {name}{' (phase 20(c))' if name == 'baseline' else ''} "
+            f"({c.chunk_len}-token chunks, block-skip {c.attn_block_skip}, {tc.microbatches} "
+            f"microbatch(es), offload {tc.remat_offload}): losses {r['losses']}, step ms "
+            f"{[round(x, 1) for x in r['step_ms']]}, median after the first "
+            f"{r['median_step_ms']:.1f} ms, peak {r['peak_gib']:.2f} GiB")
+    base, chosen = runs["baseline"], runs["chosen"]
+    tol = lm_train.STEP_TOL["bfloat16"]["loss"]
+    if chosen["peak_gib"] * gib > steptuner.HBM_BUDGET:
+        fail(f"the tuner's choice peaked at {chosen['peak_gib']:.2f} GiB, over its budget")
+    bad = [(a, b) for a, b in zip(chosen["losses"], base["losses"]) if abs(a - b) > tol * abs(b)]
+    if bad or len(chosen["losses"]) != steps:
+        fail(f"the tuner's choice gives other losses than the baseline (relative {tol}): {bad}")
+
+    # (a) and (b): the two dry runs side by side on the host's CPU, nothing
+    # else running.
+    t0 = time.perf_counter()
+    p_arch, p_cell, p_mesh = DRYRUN_PRODUCTION
+    mesh_name, shape = dryrun.MESHES[p_mesh]
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        fut = pool.submit(dryrun.run_cell, p_arch, p_cell, shape, mesh_name=mesh_name,
+                          sampled=True)
+        one = pool.submit(dryrun.run_cell, arch, cell, (1, 1), cfg=cfg, train_config=base_tc,
+                          mesh_name="1x1").result()
+        rec = fut.result()
+    log(f"22(a) dry run of {p_arch} x {p_cell} on a fake {shape} group: "
+        + json.dumps({k: v for k, v in rec.items() if k != "traceback"}))
+    if not rec["ok"]:
+        fail(f"the dry run of {DRYRUN_PRODUCTION} did not complete: {rec.get('error')}\n"
+             f"{rec.get('traceback', '')}")
+    mem = rec["memory"]
+    if mem["state_bytes_per_device"] != mem["state_bytes_analytic"]:
+        fail(f"the dry run's state bytes a rank {mem['state_bytes_per_device']:,} differ "
+             f"from analytic.tree_device_bytes {mem['state_bytes_analytic']:,}")
+    out["production"] = rec
+    log(f"22(b) dry run of {arch} {batch} x {seq} on a fake (1, 1) group: " + json.dumps(one))
+    if not one["ok"] or one["memory"]["state_bytes_per_device"] != \
+            one["memory"]["state_bytes_analytic"]:
+        fail(f"the one-card dry run failed or its state bytes differ: {one}")
+    log(f"22(a, b) dry runs side by side in {time.perf_counter() - t0:.1f} s")
+
+    # (b) continued: the predictions beside phase 20(c)'s measured baseline.
+    peak = base["peak_gib"] * gib
+    pred, model = one["memory"]["peak_bytes_per_device"], one["analytic_memory"]["total"]
+    roof = one["roofline"]
+    bound_ms = max(roof["t_compute"], roof["t_memory"], roof["t_collective"]) * 1e3
+    exec_ms = one["executed"]["step_lower_bound_s"] * 1e3
+    med = base["median_step_ms"]
+    log(f"22(b) {arch} {batch} x {seq}, one card: predicted peak {pred / gib:.2f} GiB "
+        f"(MemTracker of the fake step), analytic model {model / gib:.2f} GiB; measured "
+        f"{base['peak_gib']:.2f} GiB (phase 20(c)); predicted / measured {pred / peak:.4f}, "
+        f"model / measured {model / peak:.4f}")
+    log(f"22(b) roofline lower bound at the H100's peaks {bound_ms:.2f} ms "
+        f"({roof['bottleneck']}; {roof['flops_exec'] / 1e12:.2f} TFLOP, "
+        f"{roof['bytes_hbm'] / 1e9:.2f} GB), the executed step's {exec_ms:.2f} ms "
+        f"({one['executed']['flops_per_device'] / 1e12:.2f} TFLOP counted, "
+        f"{one['executed']['bytes_per_device'] / 1e9:.2f} GB moved op by op); measured median "
+        f"{med:.1f} ms: {bound_ms / med * 100:.2f} % / {exec_ms / med * 100:.2f} % of the bound")
+    if one["memory"]["fits_80gb"] and peak > steptuner.HBM_BUDGET:
+        fail("the dry run said the cell fits 79 GiB and the card's run peaked over it")
+    out.update(one_card=one, tuned={"candidate": cand.describe(), "bound_s": tuned.bound_s,
+                                    "baseline_bound_s": tuned.baseline_bound_s,
+                                    "mem_gb": tuned.mem_gb}, runs=runs,
+               predicted_over_measured=pred / peak, bound_share=bound_ms / med)
+
+    # (d) Four cards.
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        log(f"22(d) left out: {cards} card(s); chatglm3-6b whole (93.0 GiB of float32 state) "
+            "runs on a (2, 2) mesh of four")
+    else:
+        t0 = time.perf_counter()
+        got = shard.launch(four_card_main_path, 4, "cuda")
+        r, chk, full = got["run"], got["check"], got["full_check"]
+        log(f"22(d) {FOUR_CARD_TRAIN[0]} whole on four cards, (2, 2): losses "
+            f"{[round(x, 4) for x in r['losses']]}, step ms {[round(x, 1) for x in r['step_ms']]}"
+            f", peak GiB by rank {[round(b / gib, 2) for b in r['peak_bytes_by_rank']]} (placed "
+            f"{[round(b / gib, 2) for b in r['placed_bytes_by_rank']]}), notes {r['notes']}; "
+            f"{FOUR_CARD_FULL_CHECK[0]} on {FOUR_CARD_FULL_CHECK[1]} layers vs one card: "
+            + json.dumps(full) + f"; {FOUR_CARD_CHECK[0]} sharded step vs one rank: "
+            + json.dumps(chk) + f"; {time.perf_counter() - t0:.1f} s")
+        if max(r["peak_bytes_by_rank"]) / gib > TRAIN_PEAK_GIB or not all(
+                math.isfinite(x) for x in r["losses"]) or not r["losses"][-1] < r["losses"][0]:
+            fail(f"four-card training of {FOUR_CARD_TRAIN[0]}: over {TRAIN_PEAK_GIB} GiB, a "
+                 f"non-finite loss or no fall: {r}")
+        for name, c in ((FOUR_CARD_FULL_CHECK[0], full), (FOUR_CARD_CHECK[0], chk)):
+            if not lm_train.within_tolerance(c, "float32"):
+                fail(f"the sharded {name} step is outside {lm_train.STEP_TOL['float32']} of "
+                     f"one rank: {c}")
+        for k, v in got["launches"].items():
+            launches[k] += v
+        out["four_cards"] = got
+    log(f"kernel launches on the cost-model path: {launches}")
+    if any(launches.values()):
+        fail(f"the cost-model path launched a kernel of this repository: {launches}")
+    out["launches"] = launches
+    log(f"phase 22 took {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -2581,10 +2832,15 @@ def flash_decode_phase(torch, dev, gen):
                                   20) for t in fd_k.TILES}
             bound, _ = bound_ms(q.element_size() * (2 * b * length * hk * dh + 2 * b * h * dh),
                                 ATTENTION_OPS_PER_PAIR_DIM * dh * b * h * length)
+            qh, kh, vh = q[:, :, None], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+            sdpa_ms = cuda_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, enable_gqa=True), 20)
+            del kh, vh
             log(f"flash decode at the production shape in bfloat16: kernel by bk "
-                f"{[(t, round(v_, 4)) for t, v_ in by_tile.items()]} ms, bound {bound:.4f} ms")
+                f"{[(t, round(v_, 4)) for t, v_ in by_tile.items()]} ms, "
+                f"scaled_dot_product_attention {sdpa_ms:.4f} ms, bound {bound:.4f} ms")
             out.update(bf16_ms_by_tile={str(t): v_ for t, v_ in by_tile.items()},
-                       bf16_bound_ms=bound)
+                       bf16_bound_ms=bound, bf16_library_ms=sdpa_ms)
         del q, k, v, want, got
         torch.cuda.empty_cache()
     return out
@@ -3656,6 +3912,12 @@ def main() -> None:
     if {m.split(".")[0] for m in sys.modules} & {"jax", "jaxlib", "repro"}:
         fail("the port imported JAX or the JAX package")
 
+    # ---- 22. the cost model, the dry run and the step tuner ---------------------
+    phase("22. the cost model, the dry run and the step tuner")
+    cost_model = cost_model_phase(torch, dev, zero_counts, read_counts, training)
+    if {m.split(".")[0] for m in sys.modules} & {"jax", "jaxlib", "repro"}:
+        fail("the port imported JAX or the JAX package")
+
     # ---- 17. summary -----------------------------------------------------------
     phase("17. summary")
     by_path = {"serve": launches, "serve_decisions": dec_launches, "trace_eval": {
@@ -3665,7 +3927,7 @@ def main() -> None:
            {**families, **experts}.items()},
         "altune": alt_launches, "profile": prof_launches,
         "regions": reg["launches"], "sharded": shard_launches, "train": training["launches"],
-        "sharded_train": sharded_training["launches"]}
+        "sharded_train": sharded_training["launches"], "cost_model": cost_model["launches"]}
 
     def counted(name: str) -> dict:
         """Launches of one kernel on each main path, as read around it."""

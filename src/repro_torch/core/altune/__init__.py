@@ -5,9 +5,10 @@ profiler  — candidate sweep + oracle validation + repeatability (the FPGA
             platform analogue)
 table     — persisted (kernel, shape, device-bin, condition-bin) → config
 runtime   — guard-banded, hysteretic, fused adaptive selection
-
-The reference's ``steptuner`` is not ported yet: it needs the analytic
-launch model, ``parallel/`` and the training step (ROADMAP queue 1, 9g/9h).
+steptuner — the same method on a training step's execution parameters
+            (microbatches, remat offload, block-skip, KV chunk) over the
+            analytic roofline and memory models (import it by module: it
+            needs ``launch.analytic``)
 """
 
 from repro_torch.core.altune.costmodel import (  # noqa: F401

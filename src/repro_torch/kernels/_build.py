@@ -33,6 +33,10 @@ import torch
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 
+#: ``nvcc`` runs started by :func:`build` in this process (a new source, or
+#: new flags: a build); ``analysis.RetraceCounter`` samples it.
+BUILDS = 0
+
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "-fmad=false",
@@ -60,6 +64,7 @@ def build(names: Iterable[str]) -> Dict[str, str]:
     """Compile every named source that is not built yet, one ``nvcc`` per
     source, all started together. Returns each new build's compiler output
     (``-Xptxas -v`` register and spill report); raises on a failed build."""
+    global BUILDS
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
@@ -71,6 +76,7 @@ def build(names: Iterable[str]) -> Dict[str, str]:
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, target)
+        BUILDS += 1
     logs = {}
     for name, (proc, tmp, target) in procs.items():
         out, _ = proc.communicate()

@@ -42,6 +42,7 @@ from repro_torch.ft.monitor import FleetMonitor
 from repro_torch.launch.serve import FLIP_EPS
 from repro_torch.models import model as lm
 from repro_torch.models import moe
+from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import OptConfig
 from repro_torch.parallel import policies
@@ -81,15 +82,17 @@ def train(arch: str, steps: int = 200, batch: int = 8, seq: int = 128, reduced: 
           ckpt_dir: Optional[str] = None, ckpt_every: int = 100, lr: float = 1e-3,
           microbatches: int = 1, mesh=None, log_every: int = 10,
           device: str | torch.device = "cuda", n_layers: Optional[int] = None,
-          train_config: Optional[TrainConfig] = None, return_report: bool = False):
-    """Train ``arch`` (the reduced config unless ``reduced`` is False;
-    ``n_layers`` cuts its depth) for ``steps`` steps of ``batch`` × ``seq``
-    tokens. ``train_config``: the reference's default ``TrainConfig`` with
-    ``microbatches`` and a warmup-then-cosine schedule to ``lr`` over the
-    run, unless given. Returns (params, opt_state, losses) — with
-    ``return_report`` also a report: each step's milliseconds (host clock
-    around the step, data included, ending when its loss is read), the
-    skipped steps, the device and its peak bytes (None on the CPU).
+          train_config: Optional[TrainConfig] = None, return_report: bool = False,
+          cfg: Optional[ModelConfig] = None):
+    """Train ``arch`` (the reduced config unless ``reduced`` is False, or
+    ``cfg`` where given; ``n_layers`` cuts its depth) for ``steps`` steps
+    of ``batch`` × ``seq`` tokens. ``train_config``: the reference's
+    default ``TrainConfig`` with ``microbatches`` and a warmup-then-cosine
+    schedule to ``lr`` over the run, unless given. Returns (params,
+    opt_state, losses) — with ``return_report`` also a report: each step's
+    milliseconds (host clock around the step, data included, ending when
+    its loss is read), the skipped steps, the device and its peak bytes
+    (None on the CPU).
 
     ``mesh``: a ``DeviceMesh`` of the ranks that call this together (see
     the module docstring); the parameters and moments come back as
@@ -100,7 +103,7 @@ def train(arch: str, steps: int = 200, batch: int = 8, seq: int = 128, reduced: 
     if mesh is not None and not hasattr(mesh, "mesh_dim_names"):
         raise TypeError(f"train(mesh=): a torch.distributed DeviceMesh, not {type(mesh)}")
     dev = resolve_device(device)
-    cfg = C.reduced(arch) if reduced else C.get(arch)
+    cfg = cfg or (C.reduced(arch) if reduced else C.get(arch))
     cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers)
     tc = train_config or TrainConfig(
         microbatches=microbatches,
@@ -193,17 +196,22 @@ def train(arch: str, steps: int = 200, batch: int = 8, seq: int = 128, reduced: 
     return state["params"], state["opt"], losses, report
 
 
-def placed_state(gen: torch.Generator, cfg, tc: TrainConfig, policy: ShardingPolicy):
+def placed_params(gen: torch.Generator, cfg, dtype, policy: ShardingPolicy):
     """Parameters drawn from ``gen`` (the same draws on every rank, and as
-    ``init_train_state``'s), placed under ``policy`` by ``param_specs``
-    over ``logical_specs`` part by part as they are drawn (the embedding,
-    each layer, the final norm, the head: only one part is ever whole on a
-    device, every rank keeping its shards), and zero moments placed
-    alike."""
+    ``init_params``'), placed under ``policy`` by ``param_specs`` over
+    ``logical_specs`` part by part as they are drawn (the embedding, each
+    layer, the final norm, the head: only one part is ever whole on a
+    device, every rank keeping its shards)."""
     def place(part):
         return distribute(part, param_specs(lm.logical_specs(part, cfg), part, policy))
 
-    placed = lm.init_params(gen, cfg, getattr(torch, tc.param_dtype), place=place)
+    return lm.init_params(gen, cfg, dtype, place=place)
+
+
+def placed_state(gen: torch.Generator, cfg, tc: TrainConfig, policy: ShardingPolicy):
+    """:func:`placed_params` at ``tc``'s parameter dtype (as
+    ``init_train_state``'s draws) and zero moments placed alike."""
+    placed = placed_params(gen, cfg, getattr(torch, tc.param_dtype), policy)
     return placed, adamw.init_opt_state(placed, tc.opt)
 
 

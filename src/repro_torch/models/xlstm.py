@@ -35,7 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import blocks
 from repro_torch.models.config import ModelConfig
-from repro_torch.parallel.sharding import replicated_like
+from repro_torch.parallel.sharding import current_policy, is_dtensor, replicated_like, reshape
 
 NEG_INF = -1e30
 
@@ -93,7 +93,8 @@ def mlstm_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, i_log: torc
         s = s + pad
     nc = s // chunk
     dev = q.device
-    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=dev))
+    tri = replicated_like(torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=dev)),
+                          q)
 
     def chunk_of(x: torch.Tensor, ci: int) -> torch.Tensor:
         """(B, S, H, ...) → chunk ci as (B, H, L, ...)."""
@@ -188,11 +189,75 @@ def trailing_conv_inputs(conv_prev: Optional[torch.Tensor], x: torch.Tensor,
     return F.pad(tail, (0, 0, pad, 0)) if pad > 0 else tail
 
 
-def _mlstm_gates(p: Params, xc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Log input and log forget gates (… , H) from the conv output."""
+def _mlstm_gate_inputs(p: Params, xc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Log input gates and forget-gate pre-activations (… , H) from the conv
+    output."""
     gates = blocks.mm(xc.to(torch.float32), p["w_gates"]) + p["b_gates"]
     i_log, f_raw = gates.chunk(2, dim=-1)
+    return i_log, f_raw
+
+
+def _mlstm_gates(p: Params, xc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Log input and log forget gates (… , H) from the conv output."""
+    i_log, f_raw = _mlstm_gate_inputs(p, xc)
     return i_log, F.logsigmoid(f_raw)
+
+
+def _head_placements(x: torch.Tensor, heads_dim: int):
+    """The active policy's placements of the DTensor ``x`` whose dimension 0
+    is the batch and ``heads_dim`` the heads (each as the policy's rule where
+    it divides the mesh axes, else replicated), and the mesh dimensions that
+    shard the batch and the heads."""
+    from torch.distributed.tensor import Shard
+
+    pol = current_policy()
+    spec = tuple("batch" if d == 0 else "heads" if d == heads_dim else None
+                 for d in range(x.dim()))
+    pl = pol.placements(pol.fit(x.shape, spec))
+    batch = [i for i, p in enumerate(pl) if isinstance(p, Shard) and p.dim == 0]
+    heads = [i for i, p in enumerate(pl) if isinstance(p, Shard) and p.dim == heads_dim]
+    return pl, batch, heads
+
+
+def _placed(n_mesh: int, batch, heads, heads_dim: int) -> tuple:
+    """Placements over ``n_mesh`` mesh dimensions: ``Shard(0)`` on the batch
+    ones, ``Shard(heads_dim)`` on the head ones, ``Replicate()`` elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return tuple(Shard(0) if i in batch else Shard(heads_dim) if i in heads
+                 else Replicate() for i in range(n_mesh))
+
+
+def _mlstm_core(q, k, v, i_log, f_raw, state: Optional[MLSTMState],
+                chunk: int) -> Tuple[torch.Tensor, MLSTMState]:
+    """:func:`mlstm_chunked` from the forget gates' pre-activations, from
+    the zero state where ``state`` is None. On DTensors (under a sharding
+    policy) it runs on each rank's local rows and heads (``local_map``),
+    what GSPMD shards the reference's scan over: the gates' ``log_sigmoid``
+    (DTensor has no rule for its backward) and the masked chunk products
+    see plain tensors only."""
+    b, _, h, dh = q.shape
+    if not is_dtensor(q):
+        st = state if state is not None else mlstm_zero_state(b, h, dh, q.device)
+        return mlstm_chunked(q, k, v, i_log, F.logsigmoid(f_raw), st, chunk)
+    from torch.distributed.tensor.experimental import local_map
+
+    pl, batch, heads = _head_placements(q, 2)
+    n = q.device_mesh.ndim
+    g_pl = _placed(n, batch, heads, 2)                      # (B, S, H) gates
+    st_pl = (_placed(n, batch, heads, 1),) * 3            # c, n, m: (B, H, ...)
+
+    def local_fn(q, k, v, i_log, f_raw, *st):
+        st = MLSTMState(*st) if st else mlstm_zero_state(q.shape[0], q.shape[2], dh, q.device)
+        hseq, final = mlstm_chunked(q, k, v, i_log, F.logsigmoid(f_raw), st, chunk)
+        return (hseq, *final)
+
+    args = (q, k, v, i_log, f_raw) + (tuple(state) if state is not None else ())
+    in_pl = (pl,) * 3 + (g_pl,) * 2 + (st_pl if state is not None else ())
+    out = local_map(local_fn, out_placements=(pl,) + st_pl, in_placements=in_pl,
+                    in_grad_placements=in_pl, device_mesh=q.device_mesh,
+                    redistribute_inputs=True)(*args)
+    return out[0], MLSTMState(*out[1:])
 
 
 def mlstm_block_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -204,14 +269,14 @@ def mlstm_block_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     conv_prev = cache.conv if cache is not None else None
     xc = F.silu(_causal_conv(xm, p["conv"], conv_prev))
 
-    q = blocks.mm(xc, p["wq"]).reshape(b, s, h, dh)
-    k = blocks.mm(xc, p["wk"]).reshape(b, s, h, dh) * (dh ** -0.5)
-    v = blocks.mm(xm, p["wv"]).reshape(b, s, h, dh)
-    i_log, f_log = _mlstm_gates(p, xc)
+    q = reshape(blocks.mm(xc, p["wq"]), (b, s, h, dh))
+    k = reshape(blocks.mm(xc, p["wk"]), (b, s, h, dh)) * (dh ** -0.5)
+    v = reshape(blocks.mm(xm, p["wv"]), (b, s, h, dh))
+    i_log, f_raw = _mlstm_gate_inputs(p, xc)
 
-    state = cache.state if cache is not None else mlstm_zero_state(b, h, dh, x.device)
-    hseq, final = mlstm_chunked(q, k, v, i_log, f_log, state, cfg.chunk_len)
-    hflat = hseq.reshape(b, s, di) + p["skip"] * xc
+    hseq, final = _mlstm_core(q, k, v, i_log, f_raw,
+                              cache.state if cache is not None else None, cfg.chunk_len)
+    hflat = reshape(hseq, (b, s, di)) + p["skip"] * xc
     out = blocks.mm(hflat * F.silu(gate), p["w_down"])
     if return_cache:
         conv = trailing_conv_inputs(conv_prev, xm, cfg.conv_width)
@@ -290,17 +355,56 @@ def slstm_zero_state(b: int, h: int, dh: int, device=None) -> SLSTMState:
 
 
 def slstm_scan(p: Params, x: torch.Tensor, cfg: ModelConfig,
-               state: SLSTMState) -> Tuple[torch.Tensor, SLSTMState]:
-    """x: (B,S,d) pre-activation inputs. A Python loop over time."""
+               state: Optional[SLSTMState]) -> Tuple[torch.Tensor, SLSTMState]:
+    """x: (B,S,d) pre-activation inputs; ``state`` None: the zero state. A
+    Python loop over time. On DTensors (under a sharding policy) the loop
+    runs on each rank's local rows and heads (``local_map``; the recurrent
+    weights of its heads), as GSPMD shards the reference's scan, not a
+    DTensor dispatch per op of every step."""
     b, s, d = x.shape
     h = cfg.n_heads
     dh = d // h
-    zx = (blocks.mm(x, p["w_x"]) + p["b"]).to(torch.float32)          # (B,S,4d)
-    zx = zx.reshape(b, s, 4, h, dh).movedim(1, 0)            # (S,B,4,H,dh)
-    r = p["r"].to(torch.float32)
+    zx = reshape((blocks.mm(x, p["w_x"]) + p["b"]).to(torch.float32), (b, s, 4, h, dh))
+    if not is_dtensor(zx):
+        y, final = _slstm_loop(zx, p["r"], state)
+        return y.to(x.dtype), final
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    z_pl, batch, heads = _head_placements(zx, 3)
+    n = zx.device_mesh.ndim
+    r_pl = tuple(Shard(0) if i in heads else Replicate() for i in range(n))
+    # Each rank's gradient of its heads' weights sums over its rows only.
+    r_grad = tuple(Partial() if i in batch else r_pl[i] for i in range(n))
+    st_pl = (_placed(n, batch, heads, 1),) * 4
+    out_pl = _placed(n, batch, heads, 2)                    # (B, S, H, dh)
+
+    def local_fn(zx, r, *st):
+        y, final = _slstm_loop(zx, r, SLSTMState(*st) if st else None)
+        return (y.reshape(zx.shape[0], s, -1, dh), *final)
+
+    args = (zx, p["r"]) + (tuple(state) if state is not None else ())
+    in_pl = (z_pl, r_pl) + (st_pl if state is not None else ())
+    grad_pl = (z_pl, r_grad) + (st_pl if state is not None else ())
+    out = local_map(local_fn, out_placements=(out_pl,) + st_pl, in_placements=in_pl,
+                    in_grad_placements=grad_pl, device_mesh=zx.device_mesh,
+                    redistribute_inputs=True)(*args)
+    return reshape(out[0], (b, s, d)).to(x.dtype), SLSTMState(*out[1:])
+
+
+def _slstm_loop(zx: torch.Tensor, r: torch.Tensor,
+                state: Optional[SLSTMState]) -> Tuple[torch.Tensor, SLSTMState]:
+    """The sLSTM recurrence over ``zx`` (B,S,4,H,dh) float32 with the
+    recurrent weights ``r`` (H,dh,4dh), from ``state`` (None: zero). Returns
+    (h (B,S,H·dh) float32, final state)."""
+    b, s, _, h, dh = zx.shape
+    zx = zx.movedim(1, 0)                                    # (S,B,4,H,dh)
+    r = r.to(torch.float32)
+    if state is None:
+        state = slstm_zero_state(b, h, dh, zx.device)
     # torch.maximum, not clamp_min: at a tie (n is exactly 1 after the
     # first step) it halves the gradient, as the reference's jnp.maximum.
-    one = torch.ones((), dtype=torch.float32, device=x.device)
+    one = torch.ones((), dtype=torch.float32, device=zx.device)
     st = state
     hs = []
     for t in range(s):
@@ -315,16 +419,12 @@ def slstm_scan(p: Params, x: torch.Tensor, cfg: ModelConfig,
         h_new = torch.sigmoid(zo) * c_new / torch.maximum(n_new, one)
         st = SLSTMState(c_new, n_new, h_new, m_new)
         hs.append(h_new)
-    out = torch.stack(hs, dim=1).reshape(b, s, d)
-    return out.to(x.dtype), st
+    return torch.stack(hs, dim=1).reshape(b, s, h * dh), st
 
 
 def slstm_block_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
                         state: Optional[SLSTMState] = None, return_cache: bool = False):
-    b, _, d = x.shape
-    h = cfg.n_heads
-    st = state if state is not None else slstm_zero_state(b, h, d // h, x.device)
-    y, final = slstm_scan(p, x, cfg, st)
+    y, final = slstm_scan(p, x, cfg, state)
     y = blocks.rmsnorm(p["gn"], y, cfg.norm_eps)
     up_gate, up = blocks.mm(y, p["w_up"]).chunk(2, dim=-1)
     out = blocks.mm(F.gelu(up_gate, approximate="tanh") * up, p["w_down"])

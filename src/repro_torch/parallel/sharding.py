@@ -396,6 +396,14 @@ def param_specs(specs_tree, tree, policy: ShardingPolicy):
     return zip_map(specs_tree, tree)
 
 
+def _is_fake(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a fake tensor (a dry run's: shape and dtype, no
+    storage to compare)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return isinstance(t, FakeTensor)
+
+
 def from_whole(t: torch.Tensor, mesh, placements, device=None):
     """The whole tensor ``t`` (the same on every rank) as a DTensor: each
     rank takes its shard along the ``Shard`` placements, in mesh order (an
@@ -413,8 +421,8 @@ def from_whole(t: torch.Tensor, mesh, placements, device=None):
                                  f"mesh axis {mesh.mesh_dim_names[i]} of {n}")
             piece = piece.tensor_split(n, dim=p.dim)[mesh.get_local_rank(i)]
     piece = piece.to(device if device is not None else t.device)
-    if piece.numel() < t.numel() and piece.untyped_storage().data_ptr() == \
-            t.untyped_storage().data_ptr():
+    if piece.numel() < t.numel() and not _is_fake(piece) and \
+            piece.untyped_storage().data_ptr() == t.untyped_storage().data_ptr():
         piece = piece.clone()  # its own storage, so that the whole can be freed
     piece = piece.contiguous()
     return DTensor.from_local(piece, mesh, tuple(placements), run_check=False,

@@ -9,9 +9,10 @@ parallelism over ``model``, FSDP over ``data``, experts over ``model``):
 
 * one float32 step of reduced smollm-135m (3 heads over ``model`` = 2: the
   heads are gathered before the split), deepseek-moe-16b (8 experts: the
-  expert-parallel branch) and qwen2-vl-72b (embeddings in, M-RoPE's (3, B,
-  S) positions, 2 microbatches split on each rank's rows), cut to 1, 2
-  and 1 layers, 4 × 16 tokens, against the one-rank step of the same
+  expert-parallel branch), qwen2-vl-72b (embeddings in, M-RoPE's (3, B,
+  S) positions, 2 microbatches split on each rank's rows) and xlstm-125m
+  (three mLSTM layers and an sLSTM layer, each run on its rank's rows and
+  heads), cut to 1, 2, 1 and 4 layers, 4 × 16 tokens, against the one-rank step of the same
   state and batch within ``launch.train.STEP_TOL["float32"]`` (loss and
   grad norm 1e-5, parameters 1e-5, first moments 1e-5 a leaf, update
   1e-3; routings equal but at a near-tie, ``STEP_FLIP_EPS``). With
@@ -58,6 +59,9 @@ the reference's semantics so:
 * ``train.step``: gradients come back partial or strided and are placed
   as their parameters; ``optim.adamw`` steps local shards and sums the
   global norm once over the ranks; microbatches split each rank's rows;
+* ``xlstm``: the mLSTM's chunked form (its masks, the forget gates'
+  ``log_sigmoid``, whose backward DTensor has no rule for) and the sLSTM's
+  loop run on each rank's local rows and heads inside ``local_map``;
 * ``stack``'s per-layer recompute runs under the forward's policy (the
   backward pass may run on another thread).
 """
@@ -84,7 +88,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 RANKS = 4
 #: (arch, microbatches, layers): deepseek-moe-16b's second layer is its first
 #: MoE layer.
-CASES = (("smollm-135m", 1, 1), ("deepseek-moe-16b", 1, 2), ("qwen2-vl-72b", 2, 1))
+CASES = (("smollm-135m", 1, 1), ("deepseek-moe-16b", 1, 2), ("qwen2-vl-72b", 2, 1),
+         ("xlstm-125m", 1, 4))
 BATCH, SEQ = 4, 16
 TRAIN_CASE = ("deepseek-moe-16b", 3, 2)
 EP_TOL = 1e-5

@@ -21,7 +21,16 @@ the port's (state through ``convert``):
   ops round each to bfloat16 (``xla_allow_excess_precision``), and the
   port's fused activations round once where ``jax.nn``'s steps round each
   (``blocks.silu`` takes the reference's steps: deepseek-moe-16b's loss
-  and step exceed their tolerances without them);
+  and step exceed their tolerances without them). The largest skipped
+  rounding is the residual sum before ``ln2`` in ``stack.apply_layer``:
+  XLA fuses the add into the norm, which reads the float32 sum where the
+  port's norm reads its bfloat16 rounding. Torch can read the float32 sum
+  too, but where XLA fuses depends on the graph: so changed, reduced
+  chatglm3-6b's first layer became bitwise the reference's and its loss
+  gap fell from 2.8e-4 to 3.4e-5 relative, while qwen2-vl-72b's rose from
+  1.8e-5 to 1.2e-4, gemma3-4b's from 8.0e-5 to 1.2e-4 and llama3.2-3b's
+  stayed 1.7e-4. So the port keeps the reference's source order and the
+  tolerance stays ``STEP_TOL``;
 * one full train step (reference's ``make_train_step`` under ``jax.jit``)
   for reduced smollm-135m and deepseek-moe-16b, smollm with gradient
   compression, and smollm and qwen2-vl (M-RoPE) in two microbatches, at
